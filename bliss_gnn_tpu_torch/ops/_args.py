@@ -1,0 +1,32 @@
+"""Argument normalisation shared by the kernel wrappers."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def index_i32(t: torch.Tensor, what: str) -> torch.Tensor:
+    """A 1-D contiguous int32 copy (or view) of an integer index tensor."""
+    if t.dim() != 1 or t.is_floating_point() or t.dtype == torch.bool:
+        raise TypeError(f"{what}: expected a 1-D integer tensor, got "
+                        f"{t.dtype} of shape {tuple(t.shape)}")
+    return t.to(torch.int32).contiguous()
+
+
+def valid_arg(n_valid, device: torch.device) -> Optional[torch.Tensor]:
+    """``n_valid`` (None, int or 0-dim tensor) as a 1-element int32 tensor
+    on ``device``, so that a kernel reads it without a host sync."""
+    if n_valid is None:
+        return None
+    if isinstance(n_valid, torch.Tensor):
+        return n_valid.to(device=device, dtype=torch.int32).reshape(1)
+    return torch.tensor([int(n_valid)], dtype=torch.int32, device=device)
+
+
+def prefix_mask(n: int, n_valid, device: torch.device) -> Optional[torch.Tensor]:
+    """Boolean [n] mask of the valid prefix, or None when n_valid is None."""
+    if n_valid is None:
+        return None
+    nv = valid_arg(n_valid, device)
+    return torch.arange(n, device=device) < nv

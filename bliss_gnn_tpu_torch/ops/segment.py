@@ -1,0 +1,106 @@
+"""Masked segment ops over padded edge lists (counterpart of
+``bliss_gnn_tpu/ops/segment.py``).
+
+A padded edge list is a set of parallel arrays of static length whose
+masked slots are ignored: their data is zeroed and their ids set to 0.
+Float segment sums route by rank: a 1-D payload to K1 (``scatter``), a 2-D
+payload to K3 (``segsum``). On a CUDA tensor that is the kernel; on a CPU
+tensor it is the kernel's plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from bliss_gnn_tpu_torch.ops.scatter import scatter_add_diff
+from bliss_gnn_tpu_torch.ops.segsum import segment_sum_diff
+
+
+def _mask_data(data: torch.Tensor, mask: Optional[torch.Tensor]):
+    if mask is None:
+        return data
+    m = mask.reshape(mask.shape + (1,) * (data.dim() - mask.dim()))
+    return torch.where(m, data, torch.zeros((), dtype=data.dtype,
+                                            device=data.device))
+
+
+def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int, mask: Optional[torch.Tensor] = None,
+                       n_valid=None) -> torch.Tensor:
+    """Sum of ``data`` [E, ...] over segments; masked slots add zero.
+
+    ``n_valid``: optional bound on the contiguous prefix holding every
+    unmasked slot; the kernels skip the rest."""
+    data = _mask_data(data, mask)
+    ids = segment_ids if mask is None else torch.where(mask, segment_ids, 0)
+    if not data.is_floating_point() or data.dim() > 2:
+        raise TypeError(f"masked_segment_sum: no route for {data.dtype} "
+                        f"of rank {data.dim()}")
+    if data.dim() == 1:
+        return scatter_add_diff(ids, data, num_segments, n_valid).to(data.dtype)
+    return segment_sum_diff(data, ids, num_segments, n_valid)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Row take that reads zero for out-of-range ids; its backward is the
+    segment sum of the cotangent rows into ``n_rows`` (K3 on the card),
+    bounded by ``n_valid``."""
+
+    @staticmethod
+    def forward(ctx, x, idx, n_rows, n_valid):
+        keep = (idx >= 0) & (idx < x.shape[0])
+        out = x[torch.where(keep, idx, 0).long()]
+        out = out.masked_fill(
+            ~keep.reshape(keep.shape + (1,) * (x.dim() - 1)), 0)
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.n_valid = n_rows, n_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        dx = masked_segment_sum(g, idx, ctx.n_rows, n_valid=ctx.n_valid)
+        return dx, None, None, None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                n_rows: Optional[int] = None, n_valid=None) -> torch.Tensor:
+    """``x[idx]`` with zero for out-of-range ids (the JAX ``_gather_rows``)."""
+    n_rows = x.shape[0] if n_rows is None else n_rows
+    return _GatherRows.apply(x, idx, n_rows, n_valid)
+
+
+def u_mul_e_sum(x_src, e_src, e_vals, e_dst, n_dst: int, mask=None):
+    """sum over edges e into i of w_e * x[src(e)]."""
+    msg = gather_rows(x_src, e_src)
+    w = e_vals.reshape(e_vals.shape + (1,) * (msg.dim() - e_vals.dim()))
+    return masked_segment_sum(msg * w.to(msg.dtype), e_dst, n_dst, mask)
+
+
+def copy_u_sum(x_src, e_src, e_dst, n_dst: int, mask=None):
+    """sum over edges e into i of x[src(e)]."""
+    return masked_segment_sum(gather_rows(x_src, e_src), e_dst, n_dst, mask)
+
+
+def segment_mean(data, segment_ids, num_segments: int, mask=None):
+    """Per-segment mean; empty segments give 0."""
+    s = masked_segment_sum(data, segment_ids, num_segments, mask)
+    ones = torch.ones(data.shape[0], dtype=torch.float32, device=data.device)
+    cnt = masked_segment_sum(ones, segment_ids, num_segments, mask)
+    cnt = cnt.clamp_min(1.0)
+    cnt = cnt.reshape(cnt.shape + (1,) * (s.dim() - 1))
+    return s / cnt.to(s.dtype)
+
+
+def segment_count(segment_ids, num_segments: int, mask=None,
+                  dtype=torch.int32, n_valid=None) -> torch.Tensor:
+    """Per-segment counts of a padded edge list, counted in f32 through K1
+    (exact: a count stays far below 2^24)."""
+    ones = torch.ones(segment_ids.shape[0], dtype=torch.float32,
+                      device=segment_ids.device)
+    out = masked_segment_sum(ones, segment_ids, num_segments, mask,
+                             n_valid=n_valid)
+    if dtype == torch.float32:
+        return out
+    return torch.round(out).to(dtype)

@@ -1,0 +1,545 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``bliss_gnn_tpu_torch``) on one
+NVIDIA GPU: builds the four CUDA kernels from ``bliss_gnn_tpu_torch/csrc``,
+checks each against its plain PyTorch version at the main path's shapes,
+checks a small fused step on the card against the CPU path, then drives the
+fused poisson-bandit SAGE training step at the Reddit-shaped configuration:
+
+    232,965 nodes, 114.8M edges (+ self-loops), 602 features, 41 classes;
+    batch 256, fan-outs 4096/2048/1024, 3-layer SAGE-256; capacities refit
+    from a pilot run and widened after an overflow; 3 warm-up and 10 timed
+    steps.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+Every phase prints one JSON line; a torch.profiler breakdown of three more
+steps follows the counted run. The line before the last is the kernels'
+summary, the last line the device record. Any failed check exits non-zero.
+"""
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_NODES = 232_965
+N_RAND_EDGES = 114_615_892  # directed edges; one self-loop per node is added
+N_FEATS = 602
+N_CLASSES = 41
+BATCH = 256
+FANOUTS = (4096, 2048, 1024)
+HIDDEN = 256
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+BF16_ULP = 2.0 ** -7
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def reddit_shaped_csc(seed=0):
+    """The power-law graph of ``bench.py`` (degree sequence capped at 21k,
+    hub degrees on random node ids, uniform srcs, one self-loop per node),
+    built straight into CSC order: each dst's random in-edges in draw order,
+    then its self-loop. Returns (indptr int64 [N+1], csc_src int32 [E])."""
+    rng = np.random.default_rng(seed)
+    e_rand = N_RAND_EDGES
+    ranks = np.arange(1, N_NODES + 1, dtype=np.float64)
+    wgt = ranks ** -0.8
+    deg = np.minimum(wgt / wgt.sum() * e_rand, 21_000).astype(np.int64)
+    deg[deg < 1] = 1
+    while deg.sum() < e_rand:
+        deficit = e_rand - deg.sum()
+        deg = np.minimum(deg + np.minimum(deg, max(deficit // len(deg), 1)),
+                         21_000)
+    extra = deg.sum() - e_rand
+    for i in range(N_NODES - 1, -1, -1):  # trim from the tail
+        if extra <= 0:
+            break
+        cut = min(extra, deg[i] - 1)
+        deg[i] -= cut
+        extra -= cut
+    node_of_rank = rng.permutation(N_NODES)
+    src_rand = rng.integers(0, N_NODES, size=int(deg.sum()))  # rank order
+    deg_node = np.empty(N_NODES, np.int64)
+    deg_node[node_of_rank] = deg
+    rank_off = np.cumsum(deg) - deg  # offset of each rank's draws
+    off_node = np.empty(N_NODES, np.int64)
+    off_node[node_of_rank] = rank_off
+    indptr = np.zeros(N_NODES + 1, np.int64)
+    np.cumsum(deg_node + 1, out=indptr[1:])
+    n_edges = int(indptr[-1])
+    csc_src = np.empty(n_edges, np.int32)
+    loops = indptr[1:] - 1
+    is_rand = np.ones(n_edges, bool)
+    is_rand[loops] = False
+    start_node = np.cumsum(deg_node) - deg_node  # among random edges
+    take = (np.repeat(off_node - start_node, deg_node)
+            + np.arange(int(deg.sum()), dtype=np.int64))
+    csc_src[is_rand] = src_rand[take]
+    csc_src[loops] = np.arange(N_NODES, dtype=np.int32)
+    return indptr, csc_src
+
+
+def time_ms(fn, reps, torch):
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main():
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "bliss_gnn_tpu_torch", "csrc")):
+        fail("run from a checkout: bliss_gnn_tpu_torch/ is missing")
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, here)
+    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.ops import _build
+    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
+    from bliss_gnn_tpu_torch.ops.gather import lut_gather
+    from bliss_gnn_tpu_torch.ops.scatter import scatter_add
+    from bliss_gnn_tpu_torch.ops.segsum import segment_sum
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig,
+        init_exp3_weights,
+        sample_blocks,
+    )
+    from bliss_gnn_tpu_torch.train.steps import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    wrappers = {"scatter_add": scatter_add, "lut_gather": lut_gather,
+                "segment_sum": segment_sum, "exp3_apply": exp3_apply}
+
+    # -- phase 1: device and build ---------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    if smi.returncode != 0 or not smi_line:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    print(smi_line, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi_line,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0)})
+    build_s = _build.build_all()
+    for name in _build.SIGNATURES:
+        _build.load(name)
+    emit({"phase": "build", "seconds": round(build_s, 2),
+          "kernels": sorted(_build.SIGNATURES)})
+
+    # -- phase 2: small fused step, card against the CPU path -------------
+    small_step_check(torch, dev)
+
+    # -- phase 3a: graph and plan ----------------------------------------
+    t0 = time.perf_counter()
+    indptr_np, csc_src_np = reddit_shaped_csc()
+    n_edges = int(csc_src_np.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    indptr = torch.from_numpy(indptr_np.astype(np.int32)).to(dev)
+    csc_src = torch.zeros(n_edges + EDGE_PAD, dtype=torch.int32, device=dev)
+    csc_src[:n_edges] = torch.from_numpy(csc_src_np).to(dev)
+    deg = (indptr[1:] - indptr[:-1]).long()
+    w = torch.zeros(n_edges + EDGE_PAD, dtype=torch.bfloat16, device=dev)
+    w[:n_edges] = (1.0 / deg.clamp(min=1).float()).repeat_interleave(
+        deg, output_size=n_edges).to(torch.bfloat16)
+    dummy = torch.zeros(1, dtype=torch.int32, device=dev)
+    graph = DeviceGraph(
+        csc_indptr=indptr, csc_src=csc_src, csr_indptr=dummy, csr_dst=dummy,
+        csr_eid=dummy,
+        ndata={"features": torch.randn((N_NODES, N_FEATS), generator=gen,
+                                       device=dev, dtype=torch.bfloat16),
+               "labels": torch.randint(0, N_CLASSES, (N_NODES,),
+                                       generator=gen, device=dev)},
+        edata={"w": w}, n_nodes=N_NODES, n_edges=n_edges)
+    deg_np = np.diff(indptr_np)
+    del csc_src_np
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    cfg = SamplerConfig(kind="poisson-bandit", fanouts=FANOUTS)
+    plan = CapacityPlan.build(BATCH, FANOUTS, N_NODES, n_edges, kind=cfg.kind,
+                              deg_std=float(deg_np.std()),
+                              max_degree=int(deg_np.max()))
+    del gen
+    seeds = torch.from_numpy(np.random.default_rng(0).integers(
+        0, N_NODES, BATCH).astype(np.int32)).to(dev)
+    smask = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+
+    def train(step_plan, seed, widen=False):
+        """``n_steps`` fused steps from fresh weights and arm weights. With
+        ``widen``, a step whose frontier or kept edges overflowed their caps
+        widens the plan by 1.5x for the next step, as the reference
+        trainer does after a refit. Returns the last plan too."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = build_model("sage", N_FEATS, HIDDEN, N_CLASSES, len(FANOUTS),
+                            device=dev, seed=seed)
+        opt, sched = make_optimizer(model.parameters(), 2e-3, 100)
+        state = TrainState(model, opt, sched,
+                           init_exp3_weights(len(FANOUTS), n_edges,
+                                             device=dev), gen)
+        step = make_train_step(graph, cfg, step_plan, False, device=dev)
+        times, log = [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            state, m = step(state, seeds, smask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            log.append(m)
+            over = {k for l in range(3)
+                    for k in ("frontier_overflow", "block_edge_overflow")
+                    if int(m[f"layer{l}/{k}"]) > 0}
+            if widen and over:
+                step_plan = step_plan.widen(
+                    1.5, frontier="frontier_overflow" in over)
+                step = make_train_step(graph, cfg, step_plan, False,
+                                       device=dev)
+        return state, step, times, log, step_plan
+
+    # pilot: as many steps as the counted run, at the a-priori caps; the
+    # frontier grows while the bandit learns, so refit from the maxima
+    *_, pilot, _ = train(plan, seed=1)
+    fr = [max(int(m[f"layer{l}/frontier_edges"]) for m in pilot)
+          for l in range(3)]
+    be = [max(int(m[f"layer{l}/n_block_edges_true"]) for m in pilot)
+          for l in range(3)]
+    tight = plan.refit(fr, be, max_degree=int(deg_np.max()))
+    emit({"phase": "graph", "n_nodes": N_NODES, "n_edges": n_edges,
+          "n_feats": N_FEATS, "max_degree": int(deg_np.max()),
+          "seconds": round(graph_s, 2), "pilot_steps": len(pilot),
+          "pilot_frontier_edges": fr, "pilot_block_edges": be,
+          "prior_frontier_caps": plan.frontier_caps,
+          "frontier_caps": tight.frontier_caps,
+          "block_e_caps": tight.block_e_caps, "dst_caps": tight.dst_caps,
+          "cand_caps": tight.cand_caps, "dense_cands": tight.dense_cands})
+    del pilot
+
+    # -- phase 3b: the main path, counted --------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    state, step, times, metrics_log, final = train(tight, seed=0, widen=True)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = times[WARMUP_STEPS:]
+    step_med = statistics.median(step_ms)
+    losses = [float(m["train_loss"]) for m in metrics_log]
+    samp_ms = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        sample_blocks(graph, cfg, final, state.generator, seeds, smask,
+                      state.exp3_weights)
+        torch.cuda.synchronize()
+        samp_ms.append((time.perf_counter() - t0) * 1e3)
+    last = metrics_log[-1]
+    overflow = {k: max(int(m[k]) for m in metrics_log)
+                for k in last if "overflow" in k}
+    emit({"phase": "main_path", "steps": n_steps,
+          "step_ms": step_med,
+          "step_ms_all": step_ms,
+          "sampling_ms": statistics.median(samp_ms),
+          "loss": losses, "launches": launches,
+          "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "overflow": overflow,
+          "steps_overflowed": sum(
+              any(int(v) > 0 for k, v in m.items()
+                  if "frontier_overflow" in k or "block_edge_overflow" in k)
+              for m in metrics_log),
+          "final_frontier_caps": final.frontier_caps,
+          "final_block_e_caps": final.block_e_caps,
+          "num_edges": [int(last[f"num_edges/{l}"]) for l in range(3)],
+          "num_nodes": [int(last[f"num_nodes/{l}"]) for l in range(4)],
+          "peak_memory_bytes": peak, "nvidia_smi": smi_line})
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss {losses}")
+    if overflow.get("exp3_apply_overflow", 0) != 0:
+        fail("exp3_apply_overflow != 0")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"kernels not launched on the main path: {missing}")
+    profile_steps(torch, state, step, seeds, smask, step_med, smi_line)
+
+    # -- phase 4: each kernel against its plain version -------------------
+    del state, step, metrics_log
+    torch.cuda.empty_cache()
+    rows = kernel_checks(torch, dev, final, n_edges, launches)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line, n=3):
+    """``torch.profiler`` over ``n`` more fused steps, after the counted run.
+    Prints the device time per step by kernel and its share of the profiled
+    wall time and of the unprofiled median ``step_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, seeds, smask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = []
+    for evt in prof.key_averages():
+        if (not str(evt.device_type).endswith("CUDA")
+                or getattr(evt, "is_user_annotation", False)):
+            continue  # annotations span kernels already counted
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        rows.append((us / n / 1e3, evt.count / n, evt.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    emit({"phase": "profile", "steps": n, "wall_ms_per_step": wall_ms,
+          "device_ms_per_step": device_ms,
+          "device_busy_share": device_ms / wall_ms,
+          "device_share_of_step_ms": device_ms / step_ms,
+          "device_ops_per_step": sum(r[1] for r in rows),
+          "top": [{"ms": a, "calls": c, "name": k[:90]}
+                  for a, c, k in rows[:20]],
+          "nvidia_smi": smi_line})
+
+
+def small_step_check(torch, dev):
+    """Three fused steps at a small size on the card (kernels) and on the
+    CPU (plain versions), from the same weights and the same draws: the
+    blocks must be identical, the losses, parameters and arm weights close
+    (bf16 compute; rtol 2e-2)."""
+    from bliss_gnn_tpu_torch.graph.datasets import synthetic_graph
+    from bliss_gnn_tpu_torch.graph.structure import (
+        DeviceGraph, Graph, normalized_edata)
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig, init_exp3_weights, sample_blocks)
+    from bliss_gnn_tpu_torch.train.steps import (
+        TrainState, make_optimizer, make_train_step)
+
+    g, n_cls, _ = synthetic_graph(3000, 60000, 64, 7, seed=3)
+    g = Graph.canonicalize(g)
+    g.edata["w"] = normalized_edata(g)
+    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128))
+    plan = CapacityPlan.build(32, cfg.fanouts, g.n_nodes, g.n_edges,
+                              kind=cfg.kind, dense_candidates=False)
+    draws_gen = torch.Generator().manual_seed(4)
+    draws = [[torch.rand(c, generator=draws_gen) for c in plan.cand_caps]
+             for _ in range(3)]
+    seeds = torch.arange(32, dtype=torch.int32)
+    smask = torch.ones(32, dtype=torch.bool)
+    out = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where)
+        dg = DeviceGraph.from_graph(g, device=d)
+        model = build_model("sage", 64, 32, n_cls, 2, dropout=0.0, device=d)
+        opt, sched = make_optimizer(model.parameters(), 1e-3, 10)
+        st = TrainState(model, opt, sched,
+                        init_exp3_weights(2, g.n_edges, device=d),
+                        torch.Generator(device=d).manual_seed(0))
+        step = make_train_step(dg, cfg, plan, False, device=d)
+        blocks = sample_blocks(dg, cfg, plan, None, seeds.to(d), smask.to(d),
+                               st.exp3_weights,
+                               draws=[x.to(d) for x in draws[0]])[0]
+        losses = []
+        for k in range(3):
+            st, m = step(st, seeds.to(d), smask.to(d),
+                         draws=[x.to(d) for x in draws[k]])
+            losses.append(float(m["train_loss"]))
+        out[where] = dict(
+            eids=[b.eid.cpu() for b in blocks], losses=losses,
+            params={k: v.detach().float().cpu()
+                    for k, v in model.state_dict().items()},
+            exp3=st.exp3_weights.float().cpu())
+    c, k = out["cpu"], out["cuda"]
+    same_blocks = all(torch.equal(a, b) for a, b in zip(c["eids"], k["eids"]))
+    loss_err = max(abs(a - b) / max(abs(b), 1e-6)
+                   for a, b in zip(k["losses"], c["losses"]))
+    # Adam moves a parameter by about lr per step whatever the gradient's
+    # size, so a near-zero gradient whose sign differs between the bf16
+    # paths moves it by up to 2 lr a step: the parameters are held to
+    # 2e-2 relative plus 2.5 lr per step (the ratio below must stay <= 1)
+    param_err = max(((k["params"][n] - c["params"][n]).abs()
+                     / (2e-2 * c["params"][n].abs() + 2.5e-3 * 3)).max().item()
+                    for n in c["params"])
+    exp3_err = ((k["exp3"] - c["exp3"]).abs()
+                / c["exp3"].abs().clamp(min=1e-30)).max().item()
+    emit({"phase": "small_step_vs_cpu", "same_blocks": same_blocks,
+          "loss_cuda": k["losses"], "loss_cpu": c["losses"],
+          "loss_rel_err": loss_err, "exp3_rel_err": exp3_err,
+          "tolerance": 2e-2, "param_err_over_tolerance": param_err})
+    if not same_blocks:
+        fail("small step: blocks differ between card and CPU")
+    if not all(math.isfinite(x) for x in k["losses"]):
+        fail("small step: non-finite loss")
+    if loss_err > 2e-2 or param_err > 1.0 or exp3_err > 2e-2:
+        fail("small step: card and CPU disagree")
+
+
+def kernel_checks(torch, dev, plan, n_edges, launches):
+    """Each kernel and its plain version on the same card tensors, at the
+    shapes of the main path's input-most layer; plus one PyTorch library
+    call of the same function as a yardstick."""
+    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
+    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply, exp3_apply_plain
+    from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_plain
+    from bliss_gnn_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
+    from bliss_gnn_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
+    from bliss_gnn_tpu_torch.sampling.samplers import init_exp3_weights
+
+    k1 = (scatter_add, scatter_add_plain)
+    k2 = (lut_gather, lut_gather_plain)
+    k3 = (segment_sum, segment_sum_plain)
+    k4 = (exp3_apply, exp3_apply_plain)
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+
+    def row(name, src, replaces, err, tol, ms, plain_ms, lib_ms, nbytes,
+            flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        r = {"name": name, "route": "cuda",
+             "source": f"bliss_gnn_tpu_torch/csrc/{src}",
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": err, "tolerance": tol, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": lib_ms}
+        rows.append(r)
+        emit({"phase": "kernel", **r})
+
+    def on_card(n):  # the main path hands the kernels n_valid on the card
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+
+    m = plan.frontier_caps[0]  # frontier slots of the input-most layer
+    nv = int(0.8 * m)
+    live = torch.arange(m, device=dev) < nv
+    nv_d = on_card(nv)
+
+    # K1: the importance sum of r^2 by src candidate
+    n_out = plan.cand_caps[0]
+    keys = torch.randint(0, N_NODES, (m,), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.where(live, torch.rand(m, generator=g, device=dev), 0.0)
+    got = k1[0](keys, vals, n_out, nv_d)
+    want = k1[1](keys, vals, n_out, nv_d)
+    err = (got - want).abs().max().item()
+    tol = 1e-5 * want.abs().max().item() + 1e-6
+    if err > tol:
+        fail(f"scatter_add differs from its plain version: {err} > {tol}")
+    lib_buf = torch.zeros(n_out, device=dev)
+    keys64 = keys.long()
+    row("scatter_add", "scatter_add.cu",
+        "bliss_gnn_tpu/ops/scatter_pallas.py:61", err, tol,
+        time_ms(lambda: k1[0](keys, vals, n_out, nv_d), 20, torch),
+        time_ms(lambda: k1[1](keys, vals, n_out, nv_d), 5, torch),
+        time_ms(lambda: lib_buf.index_add_(0, keys64, vals), 20, torch),
+        nv * 8 + n_out * 4, nv)
+
+    # K2: the keep-mask lookup sel[src_cpos]
+    lut = torch.rand(plan.cand_caps[0], generator=g, device=dev) < 0.3
+    got, want = k2[0](lut, keys, nv_d), k2[1](lut, keys, nv_d)
+    err = float((got != want).sum().item())
+    if err != 0:
+        fail(f"lut_gather differs from its plain version in {err} slots")
+    touched = torch.unique(keys[:nv]).numel()
+    row("lut_gather", "lut_gather.cu",
+        "bliss_gnn_tpu/ops/gather_pallas.py:188", err, 0.0,
+        time_ms(lambda: k2[0](lut, keys, nv_d), 20, torch),
+        time_ms(lambda: k2[1](lut, keys, nv_d), 5, torch),
+        time_ms(lambda: torch.take(lut, keys64), 20, torch),
+        nv * 4 + m * 1 + touched * 1, 0)
+
+    # K3: the layer-0 SAGE aggregation, [block edges, 256] into dst slots
+    e, s = plan.block_e_caps[0], plan.dst_caps[0]
+    nv3 = int(0.6 * e)
+    ids = torch.sort(torch.randint(0, s, (e,), generator=g, device=dev,
+                                   dtype=torch.int32)).values
+    data = torch.randn((e, HIDDEN), generator=g, device=dev).to(torch.bfloat16)
+    data[nv3:] = 0
+    nv3_d = on_card(nv3)
+    got = k3[0](data, ids, s, nv3_d).float()
+    want = k3[1](data, ids, s, nv3_d).float()
+    err = (got - want).abs().max().item()
+    bad = ((got - want).abs() > BF16_ULP * want.abs() + 1e-3).sum().item()
+    if bad:
+        fail(f"segment_sum differs from its plain version in {bad} entries")
+    lib3 = torch.zeros((s, HIDDEN), device=dev, dtype=torch.bfloat16)
+    ids64 = ids.long()
+    row("segment_sum", "segment_sum.cu",
+        "bliss_gnn_tpu/ops/segsum_pallas.py:44", err,
+        "rtol 2^-7 (one bf16 ulp) + atol 1e-3",
+        time_ms(lambda: k3[0](data, ids, s, nv3_d), 20, torch),
+        time_ms(lambda: k3[1](data, ids, s, nv3_d), 5, torch),
+        time_ms(lambda: lib3.index_add_(0, ids64, data), 20, torch),
+        nv3 * (HIDDEN * 2 + 4) + s * HIDDEN * 2, nv3 * HIDDEN)
+
+    # K4: the arm-weight update of one step, all three layers
+    L = len(FANOUTS)
+    span = n_edges + EDGE_PAD
+    limit = L * span
+    u = sum(plan.block_e_caps)
+    idx = torch.cat([
+        torch.randperm(n_edges, generator=g, device=dev)[:c] + l * span
+        for l, c in enumerate(plan.block_e_caps)]).to(torch.int32)
+    idx = torch.where(torch.rand(u, generator=g, device=dev) < 0.3,
+                      torch.full_like(idx, limit), idx)
+    mult = torch.exp(torch.rand(u, generator=g, device=dev) * 0.5)
+    st_k = init_exp3_weights(L, n_edges, device=dev).view(-1)
+    st_p = st_k.clone()
+    over = int(k4[0](st_k, idx, mult, limit))
+    k4[1](st_p, idx, mult, limit)
+    diff = (st_k.float() - st_p.float()).abs()
+    err = diff.max().item()
+    bad = (diff > BF16_ULP * st_p.float().abs()).sum().item()
+    if bad or over:
+        fail(f"exp3_apply differs from its plain version in {bad} entries")
+    valid = idx < limit
+    n_upd = int(valid.sum().item())
+    idx_v, mult_v = idx[valid].long(), mult[valid].to(torch.bfloat16)
+    row("exp3_apply", "exp3_apply.cu",
+        "bliss_gnn_tpu/ops/exp3_pallas.py:62", err,
+        "rtol 2^-7 (one bf16 ulp)",
+        time_ms(lambda: k4[0](st_k, idx, mult, limit), 20, torch),
+        time_ms(lambda: k4[1](st_p, idx, mult, limit), 5, torch),
+        time_ms(lambda: st_p.scatter_reduce_(0, idx_v, mult_v, "prod"), 20,
+                torch),
+        u * 8 + n_upd * 4, n_upd)
+    return rows
+
+
+if __name__ == "__main__":
+    main()
