@@ -1,7 +1,8 @@
 """Carry weights and bandit state over from the reference package.
 
-Both functions take numpy arrays (the caller turns the reference's arrays
-into numpy), so this module needs nothing of the reference.
+Every function takes numpy arrays (the caller turns the reference's arrays
+into numpy), so this module needs nothing of the reference. A flax Dense
+kernel is [in, out]; a torch Linear weight is [out, in].
 """
 from __future__ import annotations
 
@@ -13,23 +14,57 @@ import torch
 from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
 
 
-def sage_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax SAGE ``params`` tree of numpy arrays (with or without the
-    top-level ``"params"`` key) as a ``state_dict`` of ``models.gnn.SAGE``.
-    A flax Dense kernel is [in, out]; a torch Linear weight is [out, in]."""
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _kernel(dense: Mapping[str, Any]) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(dense["kernel"], dtype=np.float32).T))
+
+
+def _layers(tree: Mapping[str, Any], prefix: str):
+    """(layer index, group) of a flax params tree, with or without the
+    top-level ``"params"`` key."""
     if "params" in tree:
         tree = tree["params"]
-    out: Dict[str, torch.Tensor] = {}
     for name, layer in tree.items():
-        if not name.startswith("layers_"):
+        if not name.startswith(prefix):
             raise KeyError(f"unexpected parameter group {name!r}")
-        l = int(name.split("_", 1)[1])
+        yield int(name[len(prefix):]), layer
+
+
+def sage_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax SAGE ``params`` tree as a ``state_dict`` of
+    ``models.gnn.SAGE``."""
+    out: Dict[str, torch.Tensor] = {}
+    for l, layer in _layers(tree, "layers_"):
         for fc in ("fc_neigh", "fc_self"):
-            kernel = np.asarray(layer[fc]["kernel"], dtype=np.float32)
-            out[f"layers.{l}.{fc}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(kernel.T))
-        out[f"layers.{l}.bias"] = torch.from_numpy(
-            np.asarray(layer["bias"], dtype=np.float32).copy())
+            out[f"layers.{l}.{fc}.weight"] = _kernel(layer[fc])
+        out[f"layers.{l}.bias"] = _f32(layer["bias"])
+    return out
+
+
+def gcn_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax GCN ``params`` tree (a ``weight`` Dense with bias per layer)
+    as a ``state_dict`` of ``models.gnn.GCN``."""
+    out: Dict[str, torch.Tensor] = {}
+    for l, layer in _layers(tree, "layers_"):
+        out[f"layers.{l}.fc.weight"] = _kernel(layer["weight"])
+        out[f"layers.{l}.fc.bias"] = _f32(layer["weight"]["bias"])
+    return out
+
+
+def gat_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax GATv2 ``params`` tree (``fc_src``, ``attn`` [1, H, O] and the
+    optional ``res_fc`` per layer) as a ``state_dict`` of
+    ``models.gnn.GATv2``."""
+    out: Dict[str, torch.Tensor] = {}
+    for l, layer in _layers(tree, "gatv2_layers_"):
+        out[f"layers.{l}.fc_src.weight"] = _kernel(layer["fc_src"])
+        out[f"layers.{l}.attn"] = _f32(layer["attn"])
+        if "res_fc" in layer:
+            out[f"layers.{l}.res_fc.weight"] = _kernel(layer["res_fc"])
     return out
 
 

@@ -1,20 +1,24 @@
-"""GraphSAGE convolution over capacity-padded blocks (counterpart of
-``SAGEConv`` in ``bliss_gnn_tpu/models/layers.py``).
+"""GNN convolutions over capacity-padded blocks (counterpart of
+``bliss_gnn_tpu/models/layers.py``): ``SAGEConv`` (edge-weighted mean),
+``GraphConv`` (norm both) and ``GATv2Conv`` (shared weights, bias-free,
+pre-softmax logits exported for the bandit).
 
 Parameters are f32; the compute is bf16, with explicit casts at the places
 the reference rounds (no autocast). When ``in_feats > out_feats`` the
-neighbour projection runs before the aggregation, so fewer features go
-through the segment sum.
+projection runs before the aggregation, so fewer features go through the
+segment sum.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from bliss_gnn_tpu_torch.ops.segment import (
+    edge_softmax,
     gather_rows,
     masked_segment_sum,
     segment_count,
@@ -27,6 +31,31 @@ COMPUTE_DTYPE = torch.bfloat16
 def _linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """A bias-free dense layer in the compute dtype (f32 params cast)."""
     return F.linear(x, weight.to(x.dtype))
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """A dense layer with bias in the compute dtype: the product is rounded
+    before the (cast) bias is added, as a flax Dense does."""
+    return _linear(x, lin.weight) + lin.bias.to(x.dtype)
+
+
+def dropout(h: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawn from an explicit generator."""
+    if p <= 0.0:
+        return h
+    keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
+    return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype,
+                                                         device=h.device))
+
+
+def _variance_scaling_(t: torch.Tensor, fan_in: int, fan_out: int,
+                       generator: Optional[torch.Generator]) -> None:
+    """Variance scaling 2.0, fan_avg, uniform (xavier uniform, gain sqrt 2)
+    with explicit fans, for tensors that are not [out, in] matrices."""
+    bound = math.sqrt(3.0 * 2.0 / ((fan_in + fan_out) / 2.0))
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
 
 
 class SAGEConv(nn.Module):
@@ -63,3 +92,110 @@ class SAGEConv(nn.Module):
         h_neigh = agg if lin_before else _linear(agg, self.fc_neigh.weight)
         return (_linear(h_dst, self.fc_self.weight) + h_neigh
                 + self.bias.to(COMPUTE_DTYPE))
+
+
+class GraphConv(nn.Module):
+    """GCN layer, norm both, degrees on the block's kept edges (clamped to
+    1), edge weights multiplying the messages:
+    h' = D_in^-1/2 A_w D_out^-1/2 h W + b.
+
+    The weight starts as xavier uniform, the bias at zero. As in the
+    reference, with ``in_feats > out_feats`` the dense layer (bias
+    included) runs on the src side before the aggregation."""
+
+    def __init__(self, in_feats: int, out_feats: int,
+                 activation: Optional[Callable] = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.in_feats, self.out_feats = in_feats, out_feats
+        self.activation = activation
+        self.fc = nn.Linear(in_feats, out_feats, bias=True)
+        nn.init.xavier_uniform_(self.fc.weight, generator=generator)
+        nn.init.zeros_(self.fc.bias)
+
+    def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
+        n_dst, n_src = block.n_dst_cap, block.n_src_cap
+        h_src = h_src.to(COMPUTE_DTYPE)
+        nv = block.n_valid_edges()
+        out_deg = segment_count(block.e_src, n_src, block.e_mask,
+                                dtype=torch.float32, n_valid=nv)
+        src_norm = torch.rsqrt(torch.clamp(out_deg, min=1.0)).to(COMPUTE_DTYPE)
+        feat = h_src * src_norm[:, None]
+        lin_before = self.in_feats > self.out_feats
+        if lin_before:
+            feat = _dense(feat, self.fc)
+        msg = gather_rows(feat, block.e_src, feat.shape[0], n_valid=nv)
+        msg = msg * block.e_weight[:, None].to(COMPUTE_DTYPE)
+        rst = masked_segment_sum(msg, block.e_dst, n_dst, block.e_mask,
+                                 n_valid=nv)
+        if not lin_before:
+            rst = _dense(rst, self.fc)
+        in_deg = segment_count(block.e_dst, n_dst, block.e_mask,
+                               dtype=torch.float32, n_valid=nv)
+        dst_norm = torch.rsqrt(torch.clamp(in_deg, min=1.0)).to(COMPUTE_DTYPE)
+        rst = rst * dst_norm[:, None]
+        return rst if self.activation is None else self.activation(rst)
+
+
+class GATv2Conv(nn.Module):
+    """GATv2 attention over a block: one projection shared by src and dst
+    (no bias), logits e = sum_O(leakyrelu(el_src + er_dst) * attn) per
+    head, edge softmax per dst per head, message el_src * a, optional
+    residual and activation. Returns ``(rst [n_dst, H, O], e [E, H])`` with
+    the pre-softmax logits, which the bandit's GAT reward reads. There is
+    no edge-weight multiply (the reference comments it out).
+
+    Per-edge tensors stay 2-D [E, H*O], so the message aggregation and the
+    two gather backwards are [E, H*O] row sums: K5 at H*O = 1024."""
+
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int,
+                 feat_drop: float = 0.0, attn_drop: float = 0.0,
+                 negative_slope: float = 0.2, residual: bool = False,
+                 activation: Optional[Callable] = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        H, O = num_heads, out_feats
+        self.in_feats, self.out_feats, self.num_heads = in_feats, O, H
+        self.feat_drop, self.attn_drop = feat_drop, attn_drop
+        self.negative_slope = negative_slope
+        self.residual, self.activation = residual, activation
+        self.fc_src = nn.Linear(in_feats, H * O, bias=False)
+        nn.init.xavier_uniform_(self.fc_src.weight, gain=math.sqrt(2.0),
+                                generator=generator)
+        self.attn = nn.Parameter(torch.empty(1, H, O))
+        _variance_scaling_(self.attn, H, O, generator)
+        self.res_fc = None
+        if residual and in_feats != H * O:
+            self.res_fc = nn.Linear(in_feats, H * O, bias=False)
+            nn.init.xavier_uniform_(self.res_fc.weight, generator=generator)
+
+    def forward(self, block: Block, h_src: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        n_dst = block.n_dst_cap
+        H, O = self.num_heads, self.out_feats
+        h_src = h_src.to(COMPUTE_DTYPE)
+        if self.training:
+            h_src = dropout(h_src, self.feat_drop, generator)
+        h_dst = h_src[:n_dst]
+        feat2 = _linear(h_src, self.fc_src.weight)  # [n_src, H*O]
+        nv = block.n_valid_edges()
+        el2 = gather_rows(feat2, block.e_src, feat2.shape[0], n_valid=nv)
+        er2 = gather_rows(feat2[:n_dst], torch.clamp(block.e_dst, 0, n_dst - 1),
+                          n_dst, n_valid=nv)
+        el = el2.reshape(-1, H, O)
+        e_full = F.leaky_relu(el + er2.reshape(-1, H, O), self.negative_slope)
+        e = (e_full * self.attn.to(COMPUTE_DTYPE)).sum(dim=-1)  # [E, H]
+        a = edge_softmax(e, block.e_dst, n_dst, block.e_mask)
+        if self.training:
+            a = dropout(a, self.attn_drop, generator)
+        msg2 = (el * a[..., None].to(COMPUTE_DTYPE)).reshape(-1, H * O)
+        rst = masked_segment_sum(msg2, block.e_dst, n_dst, block.e_mask,
+                                 n_valid=nv).reshape(n_dst, H, O)
+        if self.residual:
+            res = h_dst if self.res_fc is None else _linear(
+                h_dst, self.res_fc.weight)
+            rst = rst + res.reshape(n_dst, H, O)
+        if self.activation is not None:
+            rst = self.activation(rst)
+        return rst, e

@@ -1,9 +1,16 @@
-"""Sparse ops over padded edge lists, and the four CUDA kernels under them.
+"""Sparse ops over padded edge lists and full graphs, and the seven CUDA
+kernels under them.
 
-- ``scatter``: K1, 1-D f32 scatter-add (``csrc/scatter_add.cu``)
-- ``gather``:  K2, table lookup (``csrc/lut_gather.cu``)
-- ``segsum``:  K3, 2-D row segment-sum (``csrc/segment_sum.cu``)
-- ``exp3``:    K4, EXP3 arm-weight update (``csrc/exp3_apply.cu``)
+- ``scatter``:       K1, 1-D f32 scatter-add (``csrc/scatter_add.cu``)
+- ``gather``:        K2, table lookup (``csrc/lut_gather.cu``)
+- ``segsum``:        K3, 2-D row segment-sum (``csrc/segment_sum.cu``)
+- ``exp3``:          K4, EXP3 arm-weight update (``csrc/exp3_apply.cu``)
+- ``rowscatter``:    K5, wide-row scatter-add (``csrc/row_scatter.cu``)
+- ``spmm``:          K6, full-graph CSC SpMM (``csrc/spmm_csr.cu``)
+- ``gat_attention``: K7, full-graph GATv2 attention
+  (``csrc/gat_attention.cu``)
+
+``fullgraph`` holds the chunked plain versions of K6 and K7.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version, in the same module, for a CPU tensor.

@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points of each source: name -> argtypes
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "scatter_add": {"bliss_scatter_add_f32": [_P, _P, _P, _LL, _P, _I, _P]},
@@ -41,6 +42,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "bliss_segment_sum": [_P, _I, _P, _LL, _I, _P, _I, _P, _P, _P]
     },
     "exp3_apply": {"bliss_exp3_apply": [_P, _P, _P, _LL, _I, _P]},
+    "row_scatter": {
+        "bliss_row_scatter_add": [_P, _I, _P, _LL, _I, _P, _I, _P, _P]
+    },
+    "spmm_csr": {"bliss_spmm_csr": [_P, _I, _I, _P, _P, _P, _I, _P, _P]},
+    "gat_attention": {
+        "bliss_gat_attention": [_P, _I, _I, _I, _P, _F, _P, _P, _LL, _P, _P]
+    },
 }
 
 

@@ -1,0 +1,78 @@
+"""K7: full-graph GATv2 attention over the CSC arrays: per dst and head,
+the softmax over its in-edges of e = sum_O(leakyrelu(f_src + f_dst) *
+attn), times f_src; f32 [N, H, O], zero for a dst with no in-edges.
+
+Counterpart of ``bliss_gnn_tpu/ops/gat_pallas.py`` (banded and packed
+attention: TPU layouts of one online-softmax sweep). A CUDA tensor goes to
+the hand-written kernel ``csrc/gat_attention.cu`` (a warp per dst and
+head, one sweep with an online softmax; the design note is in the source);
+a CPU tensor goes to :func:`gat_attention_plain`, the three-pass
+``fullgraph.full_gat_attention``.
+
+The caller is ``models.inference``: the GATv2 layers of full-graph
+layerwise inference.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bliss_gnn_tpu_torch.ops import _build
+from bliss_gnn_tpu_torch.ops._args import index_i32
+from bliss_gnn_tpu_torch.ops.fullgraph import full_gat_attention
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def gat_attention_plain(feat: torch.Tensor, attn: torch.Tensor,
+                        negative_slope: float, csc_indptr: torch.Tensor,
+                        csc_src: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (chunked, three passes, f32)."""
+    n = csc_indptr.shape[0] - 1
+    return full_gat_attention(feat, attn, negative_slope, csc_indptr,
+                              csc_src, n, int(csc_indptr[-1].item()))
+
+
+def gat_attention(feat: torch.Tensor, attn: torch.Tensor,
+                  negative_slope: float, csc_indptr: torch.Tensor,
+                  csc_src: torch.Tensor) -> torch.Tensor:
+    """feat [N, H, O] (the shared projection of every node), attn [1, H, O]
+    or [H, O]; returns f32 [len(csc_indptr) - 1, H, O]. ``csc_src`` may
+    carry padding past the last edge."""
+    if feat.device.type == "cpu":
+        return gat_attention_plain(feat, attn, negative_slope, csc_indptr,
+                                   csc_src)
+    if (feat.device.type != "cuda" or csc_indptr.device != feat.device
+            or csc_src.device != feat.device or attn.device != feat.device):
+        raise ValueError(
+            f"gat_attention: no kernel for {feat.device}/{csc_src.device}")
+    if feat.dim() != 3:
+        raise ValueError("gat_attention: feat must be [N, H, O]")
+    if feat.dtype not in _DTYPE_CODE:
+        raise TypeError(f"gat_attention: no kernel for {feat.dtype}")
+    h, o = feat.shape[1], feat.shape[2]
+    vec = _VEC[feat.dtype] if o % _VEC[feat.dtype] == 0 else 1
+    if o > 4 * 32 * vec:
+        raise ValueError(f"gat_attention: O = {o} is past the kernel's "
+                         f"{4 * 32 * vec} for {feat.dtype}")
+    feat = feat.contiguous()
+    if feat.data_ptr() % 16 != 0:  # the kernel loads 16-byte vectors
+        feat = feat.clone()
+    attn = attn.reshape(h, o).to(torch.float32).contiguous()
+    indptr = index_i32(csc_indptr, "gat_attention csc_indptr")
+    src = index_i32(csc_src, "gat_attention csc_src")
+    n = indptr.shape[0] - 1
+    out = torch.empty((n, h, o), dtype=torch.float32, device=feat.device)
+    lib = _build.load("gat_attention")
+    err = lib.bliss_gat_attention(
+        feat.data_ptr(), _DTYPE_CODE[feat.dtype], h, o, attn.data_ptr(),
+        ctypes.c_float(negative_slope), indptr.data_ptr(), src.data_ptr(), n,
+        out.data_ptr(), _build.stream_of(feat))
+    gat_attention.launches += 1
+    _build.check(err, "gat_attention")
+    return out
+
+
+gat_attention.launches = 0

@@ -3,9 +3,11 @@
 
 A padded edge list is a set of parallel arrays of static length whose
 masked slots are ignored: their data is zeroed and their ids set to 0.
-Float segment sums route by rank: a 1-D payload to K1 (``scatter``), a 2-D
-payload to K3 (``segsum``). On a CUDA tensor that is the kernel; on a CPU
-tensor it is the kernel's plain version.
+Float segment sums route by shape: a 1-D payload to K1 (``scatter``), a
+wide 2-D payload (F % 128 == 0, F >= 512, at least 2^15 rows: the GATv2
+[E, H*O] aggregations) to K5 (``rowscatter``), every other 2-D payload to
+K3 (``segsum``). On a CUDA tensor that is the kernel; on a CPU tensor it is
+the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -13,8 +15,13 @@ from typing import Optional
 
 import torch
 
+from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add_diff
 from bliss_gnn_tpu_torch.ops.scatter import scatter_add_diff
 from bliss_gnn_tpu_torch.ops.segsum import segment_sum_diff
+
+# the wide-row route (the JAX package's maybe_row_scatter_add profile)
+ROW_SCATTER_MIN_ROWS = 1 << 15
+ROW_SCATTER_MIN_FEATS = 512
 
 
 def _mask_data(data: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -39,13 +46,66 @@ def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                         f"of rank {data.dim()}")
     if data.dim() == 1:
         return scatter_add_diff(ids, data, num_segments, n_valid).to(data.dtype)
+    e, f = data.shape
+    if (f % 128 == 0 and f >= ROW_SCATTER_MIN_FEATS
+            and e >= ROW_SCATTER_MIN_ROWS):
+        return row_scatter_add_diff(data, ids, num_segments,
+                                    n_valid).to(data.dtype)
     return segment_sum_diff(data, ids, num_segments, n_valid)
+
+
+def masked_segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int, mask: Optional[torch.Tensor] = None,
+                       initial: float = -float("inf")) -> torch.Tensor:
+    """Per-segment max of ``data`` [E, ...]; masked slots read ``initial``,
+    ids outside [0, num_segments) are dropped and an empty segment gives
+    the dtype's lowest value (-inf for floats)."""
+    if mask is not None:
+        m = mask.reshape(mask.shape + (1,) * (data.dim() - mask.dim()))
+        data = torch.where(m, data, torch.full((), initial, dtype=data.dtype,
+                                               device=data.device))
+        segment_ids = torch.where(mask, segment_ids, 0)
+    lowest = (-float("inf") if data.is_floating_point()
+              else torch.iinfo(data.dtype).min)
+    keep = (segment_ids >= 0) & (segment_ids < num_segments)
+    ids = torch.where(keep, segment_ids, num_segments).long()  # dump row
+    ids = ids.reshape(ids.shape + (1,) * (data.dim() - 1)).expand_as(data)
+    out = torch.full((num_segments + 1,) + tuple(data.shape[1:]), lowest,
+                     dtype=data.dtype, device=data.device)
+    return out.scatter_reduce(0, ids, data, "amax")[:num_segments]
+
+
+def copy_e_sum(e_vals, e_dst, n_dst: int, mask=None):
+    """Per-dst sum of edge values."""
+    return masked_segment_sum(e_vals, e_dst, n_dst, mask)
+
+
+def _take_fill(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` as the JAX package's ``jnp.take`` reads it: ids in
+    [-len(x), 0) count from the end, ids past either end read NaN (0 for
+    integers)."""
+    n = x.shape[0]
+    keep = (idx >= -n) & (idx < n)
+    out = x[torch.where(keep, idx, 0).long()]
+    fill = float("nan") if x.is_floating_point() else 0
+    return out.masked_fill(
+        ~keep.reshape(keep.shape + (1,) * (x.dim() - 1)), fill)
+
+
+def gather_u(x_src, e_src, mask=None):
+    """Per-edge gather of the src-node operand (the 'u' side)."""
+    return _mask_data(_take_fill(x_src, e_src), mask)
+
+
+def gather_v(x_dst, e_dst, mask=None):
+    """Per-edge gather of the dst-node operand (the 'v' side)."""
+    return _mask_data(_take_fill(x_dst, e_dst), mask)
 
 
 class _GatherRows(torch.autograd.Function):
     """Row take that reads zero for out-of-range ids; its backward is the
-    segment sum of the cotangent rows into ``n_rows`` (K3 on the card),
-    bounded by ``n_valid``."""
+    segment sum of the cotangent rows into ``n_rows`` (K3, or K5 for wide
+    rows, on the card), bounded by ``n_valid``."""
 
     @staticmethod
     def forward(ctx, x, idx, n_rows, n_valid):
@@ -104,3 +164,20 @@ def segment_count(segment_ids, num_segments: int, mask=None,
     if dtype == torch.float32:
         return out
     return torch.round(out).to(dtype)
+
+
+def edge_softmax(logits: torch.Tensor, e_dst: torch.Tensor, n_dst: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax of edge scores [E] or [E, H] over each dst's incoming edges,
+    in f32, returned in the logits' dtype; masked edges give exactly 0.
+
+    The per-dst max only shifts the exponent (the result does not depend
+    on it), so it carries no gradient."""
+    compute = logits.to(torch.float32)
+    ids = (e_dst if mask is None else torch.where(mask, e_dst, 0)).long()
+    seg_max = masked_segment_max(compute.detach(), e_dst, n_dst, mask)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    ex = _mask_data(torch.exp(compute - seg_max[ids]), mask)
+    denom = masked_segment_sum(ex, e_dst, n_dst, mask)
+    denom = torch.clamp(denom, min=torch.finfo(torch.float32).tiny)
+    return _mask_data(ex / denom[ids], mask).to(logits.dtype)

@@ -67,8 +67,8 @@ class SamplerConfig:
                 f"{LADIES_FAMILY}")
         if self.replace:
             raise NotImplementedError("replacement sampling is not implemented")
-        if self.model != "sage" and self.model != "gcn":
-            raise NotImplementedError(f"EXP3 rewards for {self.model!r}")
+        if self.model not in ("sage", "gcn", "gat"):
+            raise ValueError(f"EXP3 rewards for unknown model {self.model!r}")
 
     @property
     def is_bandit(self) -> bool:
@@ -412,8 +412,18 @@ def sample_blocks(graph: DeviceGraph, cfg: SamplerConfig, plan: CapacityPlan,
 def _calculate_alpha(graph: DeviceGraph, cfg: SamplerConfig, block: Block,
                      a_ij: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sage/gcn: alpha is the static normalised weight w_e of each kept
-    edge (the block's ``e_alpha``)."""
-    if block.e_alpha is not None:
+    edge (the block's ``e_alpha``). gat: alpha = nan_to_num(a_ij / sum_dst
+    a_ij) * sum_dst q_ij, with a_ij the head-mean pre-softmax logit."""
+    if cfg.model == "gat":
+        if a_ij is None:
+            raise ValueError("the GAT reward needs the per-edge logits a_ij")
+        n = block.n_dst_cap
+        q_sum = masked_segment_sum(block.e_q, block.e_dst, n, block.e_mask)
+        a = a_ij.to(torch.float32)
+        a_sum = masked_segment_sum(a, block.e_dst, n, block.e_mask)
+        ratio = torch.nan_to_num(a / lut_gather(a_sum, block.e_dst))
+        alpha = ratio * lut_gather(q_sum, block.e_dst)
+    elif block.e_alpha is not None:
         alpha = block.e_alpha
     else:
         alpha = graph.edata["w"][block.eid.long()].to(torch.float32)
@@ -453,11 +463,14 @@ def _rewards_and_delta(graph: DeviceGraph, cfg: SamplerConfig, block: Block,
 def exp3_edge_deltas(graph: DeviceGraph, cfg: SamplerConfig,
                      blocks: Sequence[Block],
                      embed_norms: Sequence[torch.Tensor],
+                     a_ijs: Optional[Sequence[torch.Tensor]] = None,
                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Per layer: (canonical eids [e_cap], exponents dr [e_cap])."""
+    """Per layer: (canonical eids [e_cap], exponents dr [e_cap]).
+    ``a_ijs``: the GAT model's per-layer edge logits (None otherwise)."""
     out = []
-    for block, norm in zip(blocks, embed_norms):
-        alpha = _calculate_alpha(graph, cfg, block)
+    for l, (block, norm) in enumerate(zip(blocks, embed_norms)):
+        alpha = _calculate_alpha(graph, cfg, block,
+                                 None if a_ijs is None else a_ijs[l])
         out.append((block.eid, _rewards_and_delta(graph, cfg, block, alpha,
                                                   norm)))
     return out
@@ -495,7 +508,8 @@ def normalize_exp3_weights(exp3_weights: torch.Tensor) -> torch.Tensor:
 def exp3_update(graph: DeviceGraph, cfg: SamplerConfig,
                 exp3_weights: torch.Tensor, blocks: Sequence[Block],
                 embed_norms: Sequence[torch.Tensor],
+                a_ijs: Optional[Sequence[torch.Tensor]] = None,
                 normalize: bool = True) -> torch.Tensor:
     """Rewards, exponents and the in-place arm-weight update, per block."""
-    deltas = exp3_edge_deltas(graph, cfg, blocks, embed_norms)
+    deltas = exp3_edge_deltas(graph, cfg, blocks, embed_norms, a_ijs)
     return apply_exp3_deltas(exp3_weights, deltas, normalize=normalize)

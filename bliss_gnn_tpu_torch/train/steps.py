@@ -1,7 +1,7 @@
 """The fused training step (counterpart of the single-device step body of
 ``bliss_gnn_tpu/train/steps.py``):
 
-    sample_blocks -> gather features and labels -> SAGE forward/backward
+    sample_blocks -> gather features and labels -> model forward/backward
     -> CE loss -> Adam (staircase decay) -> EXP3 rewards + arm-weight update
 
 The sampler reads the current arm weights; the update runs after the
@@ -110,7 +110,7 @@ def make_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         if sampler_cfg.is_bandit and not sampler_cfg.exp3_freeze:
             # unnormalised: every consumer renormalises per dst
             deltas = exp3_edge_deltas(graph, sampler_cfg, blocks,
-                                      aux["embed_norms"])
+                                      aux["embed_norms"], aux["a_ijs"])
             _, exp3_over = apply_exp3_deltas(
                 state.exp3_weights, deltas, normalize=False,
                 return_overflow=True)

@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``bliss_gnn_tpu_torch``) on one
-NVIDIA GPU: builds the four CUDA kernels from ``bliss_gnn_tpu_torch/csrc``,
-checks each against its plain PyTorch version at the main path's shapes,
-checks a small fused step on the card against the CPU path, then drives the
-fused poisson-bandit SAGE training step at the Reddit-shaped configuration:
+NVIDIA GPU: builds the seven CUDA kernels from ``bliss_gnn_tpu_torch/csrc``,
+checks small fused SAGE, GATv2 and GCN steps on the card against the CPU
+path, then drives four paths at the Reddit-shaped configuration (232,965
+nodes, 114.8M edges with self-loops, 602 features, 41 classes; batch 256,
+fan-outs 4096/2048/1024):
 
-    232,965 nodes, 114.8M edges (+ self-loops), 602 features, 41 classes;
-    batch 256, fan-outs 4096/2048/1024, 3-layer SAGE-256; capacities refit
-    from a pilot run and widened after an overflow; 3 warm-up and 10 timed
-    steps.
+    main_path  the fused poisson-bandit SAGE-256 x3 step: capacities refit
+               from a pilot run and widened after an overflow; 3 warm-up
+               and 10 timed steps (K1-K4), then a torch.profiler breakdown
+               of three more steps;
+    gat_path   the fused step with GATv2 (hidden 256, heads 4/4/1) on the
+               main path's final plan, from fresh arm weights (K1-K5);
+    gcn_path   the same with GCN-256 x3 (K1-K4);
+    inference  full-graph layerwise inference of the three trained models
+               (K6 for SAGE and GCN, K7 for GATv2), one counted pass each
+               timed per layer, then each checked against the plain
+               aggregations on a CSC prefix of >= 4M edges;
+
+then holds each kernel against its plain PyTorch version at the paths'
+shapes (phase ``kernel``).
 
 Run from the root of a checkout:  python3 chip_smoke.py
-Every phase prints one JSON line; a torch.profiler breakdown of three more
-steps follows the counted run. The line before the last is the kernels'
+Every phase prints one JSON line. The line before the last is the kernels'
 summary, the last line the device record. Any failed check exits non-zero.
 """
+import dataclasses
 import json
 import math
 import os
@@ -32,6 +43,8 @@ N_CLASSES = 41
 BATCH = 256
 FANOUTS = (4096, 2048, 1024)
 HIDDEN = 256
+GAT_HEADS = (4, 1)  # per hidden layer, at the output
+PREFIX_EDGES = 4_000_000  # the CSC prefix the inference checks run on
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
@@ -91,9 +104,9 @@ def reddit_shaped_csc(seed=0):
     return indptr, csc_src
 
 
-def time_ms(fn, reps, torch):
+def time_ms(fn, reps, torch, warmup=2):
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -119,9 +132,12 @@ def main():
     from bliss_gnn_tpu_torch.models.gnn import build_model
     from bliss_gnn_tpu_torch.ops import _build
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
+    from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
     from bliss_gnn_tpu_torch.ops.gather import lut_gather
+    from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add
     from bliss_gnn_tpu_torch.ops.scatter import scatter_add
     from bliss_gnn_tpu_torch.ops.segsum import segment_sum
+    from bliss_gnn_tpu_torch.ops.spmm import spmm
     from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
     from bliss_gnn_tpu_torch.sampling.samplers import (
         SamplerConfig,
@@ -138,7 +154,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     wrappers = {"scatter_add": scatter_add, "lut_gather": lut_gather,
-                "segment_sum": segment_sum, "exp3_apply": exp3_apply}
+                "segment_sum": segment_sum, "exp3_apply": exp3_apply,
+                "row_scatter_add": row_scatter_add, "spmm": spmm,
+                "gat_attention": gat_attention}
+    step_kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")
 
     # -- phase 1: device and build ---------------------------------------
     smi = subprocess.run(
@@ -157,8 +176,9 @@ def main():
     emit({"phase": "build", "seconds": round(build_s, 2),
           "kernels": sorted(_build.SIGNATURES)})
 
-    # -- phase 2: small fused step, card against the CPU path -------------
-    small_step_check(torch, dev)
+    # -- phase 2: small fused steps, card against the CPU path ------------
+    for name in ("sage", "gat", "gcn"):
+        small_step_check(torch, dev, name)
 
     # -- phase 3a: graph and plan ----------------------------------------
     t0 = time.perf_counter()
@@ -172,10 +192,13 @@ def main():
     w = torch.zeros(n_edges + EDGE_PAD, dtype=torch.bfloat16, device=dev)
     w[:n_edges] = (1.0 / deg.clamp(min=1).float()).repeat_interleave(
         deg, output_size=n_edges).to(torch.bfloat16)
+    # the samplers walk the CSC only; of the CSR, GCN's norm reads the
+    # out-degrees
     dummy = torch.zeros(1, dtype=torch.int32, device=dev)
     graph = DeviceGraph(
-        csc_indptr=indptr, csc_src=csc_src, csr_indptr=dummy, csr_dst=dummy,
-        csr_eid=dummy,
+        csc_indptr=indptr, csc_src=csc_src,
+        csr_indptr=out_indptr(torch, csc_src[:n_edges], N_NODES),
+        csr_dst=dummy, csr_eid=dummy,
         ndata={"features": torch.randn((N_NODES, N_FEATS), generator=gen,
                                        device=dev, dtype=torch.bfloat16),
                "labels": torch.randint(0, N_CLASSES, (N_NODES,),
@@ -195,14 +218,16 @@ def main():
     smask = torch.ones(BATCH, dtype=torch.bool, device=dev)
     n_steps = WARMUP_STEPS + TIMED_STEPS
 
-    def train(step_plan, seed, widen=False):
-        """``n_steps`` fused steps from fresh weights and arm weights. With
-        ``widen``, a step whose frontier or kept edges overflowed their caps
-        widens the plan by 1.5x for the next step, as the reference
-        trainer does after a refit. Returns the last plan too."""
+    def train(step_plan, seed, widen=False, cfg=cfg):
+        """``n_steps`` fused steps from fresh weights and arm weights, of
+        the model ``cfg.model``. With ``widen``, a step whose frontier or
+        kept edges overflowed their caps widens the plan by 1.5x for the
+        next step, as the reference trainer does after a refit. Returns
+        the last plan too."""
         gen = torch.Generator(device=dev).manual_seed(seed)
-        model = build_model("sage", N_FEATS, HIDDEN, N_CLASSES, len(FANOUTS),
-                            device=dev, seed=seed)
+        model = build_model(cfg.model, N_FEATS, HIDDEN, N_CLASSES,
+                            len(FANOUTS), num_in_heads=GAT_HEADS[0],
+                            num_out_heads=GAT_HEADS[1], device=dev, seed=seed)
         opt, sched = make_optimizer(model.parameters(), 2e-3, 100)
         state = TrainState(model, opt, sched,
                            init_exp3_weights(len(FANOUTS), n_edges,
@@ -249,7 +274,7 @@ def main():
     for fn in wrappers.values():
         fn.launches = 0
     state, step, times, metrics_log, final = train(tight, seed=0, widen=True)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {name: wrappers[name].launches for name in step_kernels}
     peak = torch.cuda.max_memory_allocated()
     step_ms = times[WARMUP_STEPS:]
     step_med = statistics.median(step_ms)
@@ -288,11 +313,81 @@ def main():
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
     profile_steps(torch, state, step, seeds, smask, step_med, smi_line)
-
-    # -- phase 4: each kernel against its plain version -------------------
+    sage_model = state.model
     del state, step, metrics_log
     torch.cuda.empty_cache()
+
+    def model_path(name, seed):
+        """The counted fused step of ``name`` on the main path's final
+        plan, from fresh weights and arm weights: its phase line and
+        checks. Returns the trained model, the launches and the last
+        plan."""
+        mcfg = SamplerConfig(kind=cfg.kind, fanouts=FANOUTS, model=name)
+        kernels = step_kernels + (("row_scatter_add",) if name == "gat"
+                                  else ())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        mstate, _, mtimes, mlog, mfinal = train(final, seed=seed, widen=True,
+                                                cfg=mcfg)
+        mlaunches = {k: wrappers[k].launches for k in kernels}
+        mpeak = torch.cuda.max_memory_allocated()
+        msamp_ms = []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            sample_blocks(graph, mcfg, mfinal, mstate.generator, seeds, smask,
+                          mstate.exp3_weights)
+            torch.cuda.synchronize()
+            msamp_ms.append((time.perf_counter() - t0) * 1e3)
+        mlosses = [float(m["train_loss"]) for m in mlog]
+        moverflow = {k: max(int(m[k]) for m in mlog)
+                     for k in mlog[-1] if "overflow" in k}
+        extra = {"heads": [GAT_HEADS[0]] * (len(FANOUTS) - 1)
+                 + [GAT_HEADS[1]]} if name == "gat" else {}
+        emit({"phase": f"{name}_path", "steps": n_steps, **extra,
+              f"{name}_step_ms": statistics.median(mtimes[WARMUP_STEPS:]),
+              f"{name}_step_ms_all": mtimes[WARMUP_STEPS:],
+              "sampling_ms": statistics.median(msamp_ms),
+              "loss": mlosses, "launches": mlaunches,
+              "launches_per_step": {k: v / n_steps
+                                    for k, v in mlaunches.items()},
+              "overflow": moverflow,
+              "steps_overflowed": sum(
+                  any(int(v) > 0 for k, v in m.items()
+                      if "frontier_overflow" in k
+                      or "block_edge_overflow" in k)
+                  for m in mlog),
+              "final_block_e_caps": mfinal.block_e_caps,
+              "peak_memory_bytes": mpeak, "nvidia_smi": smi_line})
+        if not all(math.isfinite(x) for x in mlosses):
+            fail(f"{name}_path: non-finite loss {mlosses}")
+        if moverflow.get("exp3_apply_overflow", 0) != 0:
+            fail(f"{name}_path: exp3_apply_overflow != 0")
+        missing = [k for k in kernels if mlaunches[k] <= 0]
+        if missing:
+            fail(f"kernels not launched on the {name} path: {missing}")
+        model = mstate.model
+        del mstate, mlog
+        torch.cuda.empty_cache()
+        return model, mlaunches, mfinal
+
+    # -- phase 4: the fused GATv2 and GCN steps on the final plan ---------
+    gat_model, glaunches, gfinal = model_path("gat", seed=2)
+    gcn_model, *_ = model_path("gcn", seed=3)
+
+    # -- phase 5: full-graph layerwise inference --------------------------
+    layer_launches = inference_phase(
+        torch, graph, indptr_np,
+        {"sage": sage_model, "gcn": gcn_model, "gat": gat_model}, wrappers,
+        smi_line)
+
+    # -- phase 6: each kernel against its plain version -------------------
+    del sage_model, gcn_model, gat_model
+    torch.cuda.empty_cache()
     rows = kernel_checks(torch, dev, final, n_edges, launches)
+    rows += wide_kernel_checks(torch, dev, gfinal, graph, indptr_np,
+                               glaunches, layer_launches)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -334,11 +429,11 @@ def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line, n=3):
           "nvidia_smi": smi_line})
 
 
-def small_step_check(torch, dev):
-    """Three fused steps at a small size on the card (kernels) and on the
-    CPU (plain versions), from the same weights and the same draws: the
-    blocks must be identical, the losses, parameters and arm weights close
-    (bf16 compute; rtol 2e-2)."""
+def small_step_check(torch, dev, model_name):
+    """Three fused steps of ``model_name`` at a small size on the card
+    (kernels) and on the CPU (plain versions), from the same weights and
+    the same draws: the blocks must be identical, the losses, parameters
+    and arm weights close (bf16 compute; rtol 2e-2)."""
     from bliss_gnn_tpu_torch.graph.datasets import synthetic_graph
     from bliss_gnn_tpu_torch.graph.structure import (
         DeviceGraph, Graph, normalized_edata)
@@ -352,7 +447,8 @@ def small_step_check(torch, dev):
     g, n_cls, _ = synthetic_graph(3000, 60000, 64, 7, seed=3)
     g = Graph.canonicalize(g)
     g.edata["w"] = normalized_edata(g)
-    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128))
+    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128),
+                        model=model_name)
     plan = CapacityPlan.build(32, cfg.fanouts, g.n_nodes, g.n_edges,
                               kind=cfg.kind, dense_candidates=False)
     draws_gen = torch.Generator().manual_seed(4)
@@ -364,7 +460,8 @@ def small_step_check(torch, dev):
     for where in ("cpu", "cuda"):
         d = torch.device(where)
         dg = DeviceGraph.from_graph(g, device=d)
-        model = build_model("sage", 64, 32, n_cls, 2, dropout=0.0, device=d)
+        model = build_model(model_name, 64, 32, n_cls, 2, dropout=0.0,
+                            attn_drop=0.0, device=d)
         opt, sched = make_optimizer(model.parameters(), 1e-3, 10)
         st = TrainState(model, opt, sched,
                         init_exp3_weights(2, g.n_edges, device=d),
@@ -396,16 +493,265 @@ def small_step_check(torch, dev):
                     for n in c["params"])
     exp3_err = ((k["exp3"] - c["exp3"]).abs()
                 / c["exp3"].abs().clamp(min=1e-30)).max().item()
-    emit({"phase": "small_step_vs_cpu", "same_blocks": same_blocks,
+    emit({"phase": "small_step_vs_cpu", "model": model_name,
+          "same_blocks": same_blocks,
           "loss_cuda": k["losses"], "loss_cpu": c["losses"],
           "loss_rel_err": loss_err, "exp3_rel_err": exp3_err,
           "tolerance": 2e-2, "param_err_over_tolerance": param_err})
     if not same_blocks:
-        fail("small step: blocks differ between card and CPU")
+        fail(f"small {model_name} step: blocks differ between card and CPU")
     if not all(math.isfinite(x) for x in k["losses"]):
-        fail("small step: non-finite loss")
+        fail(f"small {model_name} step: non-finite loss")
     if loss_err > 2e-2 or param_err > 1.0 or exp3_err > 2e-2:
-        fail("small step: card and CPU disagree")
+        fail(f"small {model_name} step: card and CPU disagree")
+
+
+def kernel_row(name, launches, src, replaces, err, tol, ms, plain_ms, lib_ms,
+               nbytes, flops, **extra):
+    """One kernel's record, printed as a ``kernel`` phase line. The bound
+    is max(bytes / HBM rate, f32 operations / f32 rate) of the call."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    r = {"name": name, "route": "cuda",
+         "source": f"bliss_gnn_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": launches,
+         "max_abs_err": err, "tolerance": tol, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": lib_ms, **extra}
+    emit({"phase": "kernel", **r})
+    return r
+
+
+def out_indptr(torch, csc_src, n_nodes):
+    """CSR row pointer (int32 [n_nodes + 1]) of the edges ``csc_src``: the
+    out-degrees' prefix sum, all GCN's norm reads of the CSR."""
+    deg = torch.bincount(csc_src.long(), minlength=n_nodes)
+    indptr = torch.zeros(n_nodes + 1, dtype=torch.int32,
+                         device=csc_src.device)
+    indptr[1:] = torch.cumsum(deg, 0)
+    return indptr
+
+
+def csc_prefix(torch, graph, indptr_np):
+    """The graph cut to the in-edges of its first k dst rows, k the least
+    with at least PREFIX_EDGES edges: (graph, k, its edge count)."""
+    k = int(np.searchsorted(indptr_np, PREFIX_EDGES))
+    e_pre = int(indptr_np[k])
+    indptr = graph.csc_indptr.clone()
+    indptr[k:] = e_pre
+    cut = dataclasses.replace(
+        graph, csc_indptr=indptr, n_edges=e_pre,
+        csr_indptr=out_indptr(torch, graph.csc_src[:e_pre], graph.n_nodes))
+    return cut, k, e_pre
+
+
+def inference_phase(torch, graph, indptr_np, models, wrappers, smi_line):
+    """Layerwise inference of each trained model over the full graph, one
+    pass each, layer by layer through ``inference_layer`` (the loop of
+    ``layerwise_inference``) with a CUDA-event pair around every layer.
+    The launch counts are set to 0 before the first model and read after
+    the last. Then each model's logits on a CSC prefix against the same
+    inference with the plain aggregations (uncounted). Returns the
+    aggregation kernels' launches by kernel-row name (its shape)."""
+    from bliss_gnn_tpu_torch.models.inference import (
+        inference_layer,
+        layerwise_inference,
+    )
+    from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention_plain
+    from bliss_gnn_tpu_torch.ops.spmm import spmm_plain
+
+    n_layers = len(FANOUTS)
+    shape_launches, runs = {}, {}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for name, model in models.items():
+        model.eval()
+        kname = "gat_attention" if name == "gat" else "spmm"
+        layers = []
+        h = graph.ndata["features"].to(torch.float32)
+        for l in range(n_layers):
+            conv = model.layers[l]
+            if name == "gat":
+                rname = f"gat_attention[H={conv.num_heads},O={conv.out_feats}]"
+                width = conv.num_heads * conv.out_feats
+            else:
+                width = min(conv.in_feats, conv.out_feats)
+                rname = f"spmm[F={width}]"
+            before = wrappers[kname].launches
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            h = inference_layer(name, model, graph, l, h, n_layers)
+            b.record()
+            torch.cuda.synchronize()
+            ms = a.elapsed_time(b)
+            n_launch = wrappers[kname].launches - before
+            shape_launches[rname] = shape_launches.get(rname, 0) + n_launch
+            # one bf16 src row per edge: what the kernel asks of memory
+            # (computed from the edge count, not a measured byte count)
+            layers.append({"layer": l, "ms": ms, "kernel": rname,
+                           "edges_per_s": graph.n_edges / (ms / 1e3),
+                           "launches": n_launch,
+                           "row_read_bytes": graph.n_edges * width * 2})
+        runs[name] = dict(layers=layers, logits_shape=list(h.shape),
+                          finite=bool(torch.isfinite(h).all().item()),
+                          launches=sum(x["launches"] for x in layers))
+        del h
+        torch.cuda.empty_cache()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+
+    prefix, k, e_pre = csc_prefix(torch, graph, indptr_np)
+    ip, src = prefix.csc_indptr, prefix.csc_src
+    plain = {"spmm": lambda f: spmm_plain(f, ip, src),
+             "gat_attn": lambda f, a, s: gat_attention_plain(f, a, s, ip, src)}
+    for name, model in models.items():
+        run = runs[name]
+        got = layerwise_inference(name, model, prefix, n_layers)[:k]
+        want = layerwise_inference(name, model, prefix, n_layers,
+                                   **plain)[:k]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        del got, want
+        emit({"phase": "inference", "model": name,
+              "ms": sum(x["ms"] for x in run["layers"]),
+              "logits_shape": run["logits_shape"], "finite": run["finite"],
+              "layers": run["layers"], "launches_all_models": launches,
+              "prefix_rows": k, "prefix_edges": e_pre,
+              "prefix_max_abs_err": err, "prefix_max_abs_logit": scale,
+              "tolerance": "1e-2 x max|plain logit|",
+              "nvidia_smi": smi_line})
+        if not run["finite"]:
+            fail(f"inference: non-finite {name} logits")
+        if run["launches"] <= 0:
+            fail(f"inference: no aggregation kernel launched for {name}")
+        if err > 1e-2 * scale:
+            fail(f"inference: {name} logits differ from the plain path "
+                 f"on the prefix: {err} > 1e-2 x {scale}")
+        torch.cuda.empty_cache()
+    return shape_launches
+
+
+def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
+                       shape_launches):
+    """K5 at a GATv2 layer-0 block's two shapes (and K3 on the same
+    inputs); K6 and K7 at the inference shapes, checked on the CSC prefix
+    and timed on the full graph, with one PyTorch library call as a
+    yardstick where one computes the same function."""
+    from bliss_gnn_tpu_torch.ops.gat_attention import (
+        gat_attention,
+        gat_attention_plain,
+    )
+    from bliss_gnn_tpu_torch.ops.rowscatter import (
+        row_scatter_add,
+        row_scatter_add_plain,
+    )
+    from bliss_gnn_tpu_torch.ops.segsum import segment_sum
+    from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+
+    # K5 at layer 0 of the GATv2 step, [block edges, 4 x 256] rows: the
+    # message sum and the er-gather backward send dst-sorted ids into the
+    # dst cap; the el-gather backward sends unsorted src ids into the src
+    # cap. ``launches`` is K5's count over the GAT path, both shapes.
+    e = gplan.block_e_caps[0]
+    f5 = GAT_HEADS[0] * HIDDEN
+    nv = int(0.6 * e)
+    nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
+    data = torch.randn((e, f5), generator=g, device=dev).to(torch.bfloat16)
+    data[nv:] = 0
+    for label, s, ordered in (("sorted ids, dst cap", gplan.dst_caps[0], True),
+                              ("unsorted ids, src cap", gplan.src_cap(0),
+                               False)):
+        ids = torch.randint(0, s, (e,), generator=g, device=dev,
+                            dtype=torch.int32)
+        if ordered:
+            ids = torch.sort(ids).values
+        got = row_scatter_add(data, ids, s, nv_d)
+        want = row_scatter_add_plain(data, ids, s, nv_d)
+        diff = (got - want).abs()
+        bad = (diff > 1e-5 * want.abs() + 1e-4).sum().item()
+        if bad:
+            fail(f"row_scatter_add ({label}) differs from its plain version "
+                 f"in {bad} entries")
+        lib5 = torch.zeros((s, f5), device=dev, dtype=torch.bfloat16)
+        ids64 = ids.long()
+        rows.append(kernel_row(
+            f"row_scatter_add[{label}]", glaunches["row_scatter_add"],
+            "row_scatter.cu", "bliss_gnn_tpu/ops/rowscatter_pallas.py:42",
+            diff.max().item(), "rtol 1e-5 + atol 1e-4",
+            time_ms(lambda: row_scatter_add(data, ids, s, nv_d), 20, torch),
+            time_ms(lambda: row_scatter_add_plain(data, ids, s, nv_d), 5,
+                    torch),
+            time_ms(lambda: lib5.index_add_(0, ids64, data), 20, torch),
+            nv * (f5 * 2 + 4) + s * f5 * 4, nv * f5,
+            shape=f"{e} x {f5} bf16 rows ({nv} valid) into {s}",
+            segment_sum_ms_same_inputs=time_ms(
+                lambda: segment_sum(data, ids, s, nv_d), 20, torch)))
+        del got, want, diff, lib5
+    del data
+
+    n, n_edges = graph.n_nodes, graph.n_edges
+    prefix, k, e_pre = csc_prefix(torch, graph, indptr_np)
+    ip, src = graph.csc_indptr, graph.csc_src
+    pip = prefix.csc_indptr
+    where = {"prefix_rows": k, "prefix_edges": e_pre}
+
+    # K6: the SAGE aggregations, F = 256 (layers 0, 1) and 41 (layer 2)
+    csr = torch.sparse_csr_tensor(
+        ip, src[:n_edges], torch.ones(n_edges, device=dev), (n, n))
+    for f in (HIDDEN, N_CLASSES):
+        x = torch.randn((n, f), generator=g, device=dev).to(torch.bfloat16)
+        got, want = spmm(x, pip, src)[:k], spmm_plain(x, pip, src)[:k]
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        del got, want
+        if err > tol:
+            fail(f"spmm F={f} differs from its plain version: {err} > {tol}")
+        xf = x.float()
+        name = f"spmm[F={f}]"
+        rows.append(kernel_row(
+            name, shape_launches.get(name, 0), "spmm_csr.cu",
+            "bliss_gnn_tpu/ops/spmm_pallas.py:259", err,
+            "atol 1e-4 x max|plain| on the prefix",
+            time_ms(lambda: spmm(x, ip, src), 5, torch, warmup=1),
+            time_ms(lambda: spmm_plain(x, ip, src), 1, torch, warmup=0),
+            time_ms(lambda: torch.sparse.mm(csr, xf), 3, torch, warmup=1),
+            n * f * 2 + (n + 1) * 4 + n_edges * 4 + n * f * 4, n_edges * f,
+            shape=f"{n} x {f} bf16, {n_edges} edges", **where))
+        del x, xf
+    del csr
+
+    # K7: the GATv2 attention, (H, O) = (4, 256) (layers 0, 1), (1, 41)
+    for h, o in ((GAT_HEADS[0], HIDDEN), (GAT_HEADS[1], N_CLASSES)):
+        feat = torch.randn((n, h, o), generator=g, device=dev).to(
+            torch.bfloat16)
+        attn = torch.randn((1, h, o), generator=g, device=dev) / o ** 0.5
+        got = gat_attention(feat, attn, 0.2, pip, src)[:k]
+        want = gat_attention_plain(feat, attn, 0.2, pip, src)[:k]
+        err = (got - want).abs().max().item()
+        tol = 2e-4 * want.abs().max().item()
+        del got, want
+        if err > tol:
+            fail(f"gat_attention ({h}, {o}) differs from its plain version: "
+                 f"{err} > {tol}")
+        name = f"gat_attention[H={h},O={o}]"
+        rows.append(kernel_row(
+            name, shape_launches.get(name, 0), "gat_attention.cu",
+            "bliss_gnn_tpu/ops/gat_pallas.py:70", err,
+            "atol 2e-4 x max|plain| on the prefix",
+            time_ms(lambda: gat_attention(feat, attn, 0.2, ip, src), 3, torch,
+                    warmup=1),
+            time_ms(lambda: gat_attention_plain(feat, attn, 0.2, ip, src), 1,
+                    torch, warmup=0),
+            None,
+            n * h * o * 2 + (n + 1) * 4 + n_edges * 4 + n * h * o * 4
+            + h * o * 4, n_edges * h * (7 * o + 2),
+            shape=f"{n} x {h} x {o} bf16, {n_edges} edges", **where))
+        del feat
+    return rows
 
 
 def kernel_checks(torch, dev, plan, n_edges, launches):
@@ -427,19 +773,8 @@ def kernel_checks(torch, dev, plan, n_edges, launches):
     g = torch.Generator(device=dev).manual_seed(7)
     rows = []
 
-    def row(name, src, replaces, err, tol, ms, plain_ms, lib_ms, nbytes,
-            flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        r = {"name": name, "route": "cuda",
-             "source": f"bliss_gnn_tpu_torch/csrc/{src}",
-             "replaces": replaces, "launches": launches[name],
-             "max_abs_err": err, "tolerance": tol, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": lib_ms}
-        rows.append(r)
-        emit({"phase": "kernel", **r})
+    def row(name, *args):
+        rows.append(kernel_row(name, launches[name], *args))
 
     def on_card(n):  # the main path hands the kernels n_valid on the card
         return torch.tensor(n, dtype=torch.int32, device=dev)

@@ -1,18 +1,28 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on the
-card. A CUDA kernel has no CPU mode, so without a GPU these tests skip;
+"""The port's seven CUDA kernels against their plain PyTorch versions, on
+the card. A CUDA kernel has no CPU mode, so without a GPU these tests skip;
 run them on one with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import pytest
 import torch
 
 from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply, exp3_apply_plain
+from bliss_gnn_tpu_torch.ops.gat_attention import (
+    gat_attention,
+    gat_attention_plain,
+)
 from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_plain
+from bliss_gnn_tpu_torch.ops.rowscatter import (
+    row_scatter_add,
+    row_scatter_add_diff,
+    row_scatter_add_plain,
+)
 from bliss_gnn_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
 from bliss_gnn_tpu_torch.ops.segsum import (
     segment_sum,
     segment_sum_diff,
     segment_sum_plain,
 )
+from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +100,80 @@ def test_exp3_apply_kernel(dev, gen):
     exp3_apply_plain(ref, idx, mult, limit)
     torch.testing.assert_close(state.float(), ref.float(), rtol=2.0 ** -7,
                                atol=0.0)
+
+
+@pytest.mark.parametrize("dtype,n_valid", [(torch.bfloat16, None),
+                                           (torch.bfloat16, 30_001),
+                                           (torch.float32, 12_345)])
+def test_row_scatter_kernel(dev, gen, dtype, n_valid):
+    # unsorted ids, some outside [0, S); zero rows issue no atomic
+    ids = torch.randint(-3, 3003, (40_000,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    data = torch.randn((40_000, 1024), generator=gen, device=dev).to(dtype)
+    data[::7] = 0
+    before = row_scatter_add.launches
+    got = row_scatter_add(data, ids, 3000, n_valid)
+    assert row_scatter_add.launches == before + 1
+    assert got.dtype == torch.float32
+    want = row_scatter_add_plain(data, ids, 3000, n_valid)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_row_scatter_grad_is_row_gather(dev, gen):
+    ids = torch.randint(0, 90, (5000,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[:10] = 95  # out of range: zero gradient
+    data = torch.randn((5000, 512), generator=gen, device=dev,
+                       dtype=torch.bfloat16).requires_grad_()
+    w = torch.randn((90, 512), generator=gen, device=dev)
+    (row_scatter_add_diff(data, ids, 90) * w).sum().backward()
+    want = w[ids.clamp(max=89).long()].to(torch.bfloat16)
+    want[:10] = 0
+    assert torch.equal(data.grad, want)
+
+
+def _csc(gen, dev, n, hub):
+    """Random CSC arrays: in-degrees 0-39 with every 97th row empty and one
+    hub row, srcs uniform, EDGE_PAD zeros past the last edge."""
+    deg = torch.randint(0, 40, (n,), generator=gen, device=dev)
+    deg[::97] = 0
+    deg[5] = hub
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(deg, 0)
+    e = int(indptr[-1])
+    src = torch.randint(0, n, (e + 128,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    src[e:] = 0
+    return indptr, src, e
+
+
+@pytest.mark.parametrize("f,dtype,weighted", [(256, torch.bfloat16, False),
+                                              (41, torch.bfloat16, False),
+                                              (41, torch.float32, True),
+                                              (128, torch.float32, False)])
+def test_spmm_kernel(dev, gen, f, dtype, weighted):
+    indptr, src, e = _csc(gen, dev, 3000, hub=5000)
+    x = torch.randn((3000, f), generator=gen, device=dev).to(dtype)
+    w = torch.rand(e, generator=gen, device=dev) if weighted else None
+    before = spmm.launches
+    got = spmm(x, indptr, src, w)
+    assert spmm.launches == before + 1
+    want = spmm_plain(x, indptr, src, w)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    assert not got[::97].any()  # rows without in-edges
+
+
+@pytest.mark.parametrize("h,o,dtype", [(4, 256, torch.bfloat16),
+                                       (1, 41, torch.bfloat16),
+                                       (2, 64, torch.float32),
+                                       (3, 41, torch.float32)])
+def test_gat_attention_kernel(dev, gen, h, o, dtype):
+    indptr, src, _ = _csc(gen, dev, 2000, hub=3000)
+    feat = torch.randn((2000, h, o), generator=gen, device=dev).to(dtype)
+    attn = torch.randn((1, h, o), generator=gen, device=dev) / o ** 0.5
+    before = gat_attention.launches
+    got = gat_attention(feat, attn, 0.2, indptr, src)
+    assert gat_attention.launches == before + 1
+    want = gat_attention_plain(feat, attn, 0.2, indptr, src)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[::97].any()  # zero in-degree: zeros
