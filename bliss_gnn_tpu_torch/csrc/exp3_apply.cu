@@ -4,54 +4,63 @@
 // Replaces bliss_gnn_tpu/ops/exp3_pallas.py exp3_apply_streaming (kernel
 // body _apply_kernel). The TPU streamed the whole [L, R, 128] state through
 // VMEM tile by tile (about 690 MB read and written per step at Reddit
-// scale) because it had no fast sparse read-modify-write, and it skipped
-// updates past a fixed run window. Here only the touched entries move.
+// scale) because it had no fast sparse read-modify-write; it needed each
+// tile's updates as one contiguous run of a sorted stream, and it skipped
+// updates past a fixed run window. Hopper has atomic read-modify-write on
+// device memory, so here only the touched entries move and nothing is
+// sorted.
 //
-// Bound: bytes. Each update reads a 4-byte index and a 4-byte factor, and
-// each distinct touched entry is read and written once (2 + 2 bytes). The
-// caller sorts the indices (torch.sort) and permutes the factors; then one
-// thread per sorted position checks whether it starts a run of equal
-// indices. Only a run's first thread works: it multiplies the run's
-// factors in f32 and writes the bf16 entry once, so no atomics are needed
-// and duplicates of any multiplicity compose (no overflow exists).
-// Indices outside [0, limit) are no-op slots and are skipped.
+// Bound: bytes. Each update slot reads a 4-byte index and a 4-byte factor,
+// and each touched entry is read and written once (2 + 2 bytes). One thread
+// per slot: a slot whose index lies in [0, limit) applies its factor to its
+// bf16 entry with a 16-bit atomicCAS loop (read the bits, compute
+// bf16(f32(old) * mult) rounded to nearest even, swap until no other slot
+// got in between). Slots outside [0, limit) are no-ops. With distinct
+// indices this is one f32 multiply and one rounding per entry, bit for bit
+// the plain version's. An index repeated m times rounds after each of its
+// m updates, in the hardware's order, as the TPU kernel's sequential
+// in-tile update did: within m - 1 bf16 ulps of one rounding of the f32
+// product. Nothing is ever skipped, so there is no overflow count.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void exp3_apply_kernel(__nv_bfloat16* __restrict__ state,
-                                  const int32_t* __restrict__ s_idx,
-                                  const float* __restrict__ s_mult, int64_t u,
+__global__ void exp3_apply_kernel(unsigned short* state,
+                                  const int32_t* __restrict__ idx,
+                                  const float* __restrict__ mult, int64_t u,
                                   int32_t limit) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < u;
        i += stride) {
-    const int32_t k = s_idx[i];
+    const int32_t k = __ldg(idx + i);
     if (k < 0 || k >= limit) continue;
-    if (i > 0 && s_idx[i - 1] == k) continue;  // not the start of its run
-    float p = s_mult[i];
-    for (int64_t j = i + 1; j < u && s_idx[j] == k; ++j) p *= s_mult[j];
-    state[k] = __float2bfloat16(__bfloat162float(state[k]) * p);
+    const float f = __ldg(mult + i);
+    unsigned short* p = state + k;
+    unsigned short seen, old = __ldcg(p);
+    do {
+      seen = old;
+      const float v = __bfloat162float(__ushort_as_bfloat16(seen)) * f;
+      old = atomicCAS(p, seen, __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+    } while (old != seen);
   }
 }
 
 }  // namespace
 
-// state: flat bf16 [limit]; s_idx: int32 [u] sorted ascending; s_mult: f32
-// [u] permuted with it. Updates state in place. Returns cudaGetLastError().
-extern "C" int bliss_exp3_apply(void* state, const void* s_idx,
-                                const void* s_mult, long long u, int limit,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (u > 0) {
-    const int threads = 256;
-    long long blocks = (u + threads - 1) / threads;
-    if (blocks > 8192) blocks = 8192;
-    exp3_apply_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        static_cast<__nv_bfloat16*>(state), static_cast<const int32_t*>(s_idx),
-        static_cast<const float*>(s_mult), (int64_t)u, (int32_t)limit);
-  }
+// state: flat bf16 [>= limit]; idx: int32 [u]; mult: f32 [u]. Updates state
+// in place, in one launch (one block when u is 0). Returns
+// cudaGetLastError().
+extern "C" int bliss_exp3_apply(void* state, const void* idx, const void* mult,
+                                long long u, int limit, void* stream) {
+  const int threads = 256;
+  long long blocks = (u + threads - 1) / threads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 8192) blocks = 8192;
+  exp3_apply_kernel<<<(unsigned)blocks, threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned short*>(state), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(mult), (int64_t)u, (int32_t)limit);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,11 @@
 kernels under them.
 
 - ``scatter``:       K1, 1-D f32 scatter-add (``csrc/scatter_add.cu``)
-- ``gather``:        K2, table lookup (``csrc/lut_gather.cu``)
+- ``gather``:        K2, table lookup, up to eight tables sharing one index
+  list in one launch (``csrc/lut_gather.cu``)
 - ``segsum``:        K3, 2-D row segment-sum (``csrc/segment_sum.cu``)
-- ``exp3``:          K4, EXP3 arm-weight update (``csrc/exp3_apply.cu``)
+- ``exp3``:          K4, EXP3 arm-weight update, one launch and no sort
+  (``csrc/exp3_apply.cu``)
 - ``rowscatter``:    K5, wide-row scatter-add (``csrc/row_scatter.cu``)
 - ``spmm``:          K6, full-graph CSC SpMM (``csrc/spmm_csr.cu``)
 - ``gat_attention``: K7, full-graph GATv2 attention

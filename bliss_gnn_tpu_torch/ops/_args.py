@@ -7,19 +7,28 @@ import torch
 
 
 def index_i32(t: torch.Tensor, what: str) -> torch.Tensor:
-    """A 1-D contiguous int32 copy (or view) of an integer index tensor."""
+    """A 1-D contiguous int32 copy of an integer index tensor, or the tensor
+    itself when it is one already."""
     if t.dim() != 1 or t.is_floating_point() or t.dtype == torch.bool:
         raise TypeError(f"{what}: expected a 1-D integer tensor, got "
                         f"{t.dtype} of shape {tuple(t.shape)}")
-    return t.to(torch.int32).contiguous()
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def valid_arg(n_valid, device: torch.device) -> Optional[torch.Tensor]:
-    """``n_valid`` (None, int or 0-dim tensor) as a 1-element int32 tensor
-    on ``device``, so that a kernel reads it without a host sync."""
+    """``n_valid`` (None, int or 1-element tensor) as a 1-element int32
+    tensor on ``device`` (the tensor itself when it is one), so that a kernel
+    reads it without a host sync."""
     if n_valid is None:
         return None
     if isinstance(n_valid, torch.Tensor):
+        if n_valid.numel() != 1:
+            raise ValueError(f"n_valid: expected one element, got shape "
+                             f"{tuple(n_valid.shape)}")
+        if n_valid.dtype == torch.int32 and n_valid.device == device:
+            return n_valid
         return n_valid.to(device=device, dtype=torch.int32).reshape(1)
     return torch.tensor([int(n_valid)], dtype=torch.int32, device=device)
 

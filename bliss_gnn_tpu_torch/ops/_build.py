@@ -37,7 +37,7 @@ _F = ctypes.c_float
 # C entry points of each source: name -> argtypes
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "scatter_add": {"bliss_scatter_add_f32": [_P, _P, _P, _LL, _P, _I, _P]},
-    "lut_gather": {"bliss_lut_gather": [_P, _LL, _I, _P, _P, _LL, _P, _P]},
+    "lut_gather": {"bliss_lut_gather": [_P, _I, _P, _LL, _P, _P]},
     "segment_sum": {
         "bliss_segment_sum": [_P, _I, _P, _LL, _I, _P, _I, _P, _P, _P]
     },
@@ -118,7 +118,9 @@ def check(err: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card, looked up at
+    every call (under CUDA-graph capture it is the capture stream)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -5,11 +5,14 @@ Counterpart of ``bliss_gnn_tpu/ops/exp3_pallas.py``. The state is flat
 is updated IN PLACE: the sparse update touches ~10^5 of ~3.4*10^8 entries,
 so a functional copy would move the whole 690 MB state at Reddit scale.
 
-The wrapper sorts the flat indices (``torch.sort``) and permutes the factors
-through K2; the hand-written kernel ``csrc/exp3_apply.cu`` then multiplies
-each run of equal indices in f32 and writes its bf16 entry once. Slots with
-an index outside [0, limit) are no-ops. Nothing is ever skipped, so the
-returned overflow count is always 0.
+The hand-written kernel ``csrc/exp3_apply.cu`` takes the update slots as
+they come, in one launch: one thread per slot applies its factor to its
+bf16 entry with a 16-bit compare-and-swap loop, so nothing is sorted.
+Slots with an index outside [0, limit) are no-ops. Distinct indices get one
+f32 multiply and one rounding, bit for bit :func:`exp3_apply_plain`; an
+index repeated m times rounds after each update, in the card's order, as the
+TPU kernel's sequential update does, which is within m - 1 bf16 ulps of the
+plain version. No update is ever skipped.
 """
 from __future__ import annotations
 
@@ -17,11 +20,10 @@ import torch
 
 from bliss_gnn_tpu_torch.ops import _build
 from bliss_gnn_tpu_torch.ops._args import index_i32
-from bliss_gnn_tpu_torch.ops.gather import lut_gather
 
 
 def exp3_apply_plain(state: torch.Tensor, flat_idx: torch.Tensor,
-                     mult: torch.Tensor, limit: int) -> torch.Tensor:
+                     mult: torch.Tensor, limit: int) -> None:
     """Plain PyTorch version of the kernel: per distinct index, the f32
     product of its factors, applied to the bf16 entry with one rounding."""
     s_idx, order = torch.sort(flat_idx.long(), stable=True)
@@ -32,33 +34,41 @@ def exp3_apply_plain(state: torch.Tensor, flat_idx: torch.Tensor,
     live = (uniq >= 0) & (uniq < limit)
     target, factor = uniq[live], prod[live]
     state[target] = (state[target].to(torch.float32) * factor).to(state.dtype)
-    return torch.zeros((), dtype=torch.int32, device=state.device)
 
 
 def exp3_apply(state: torch.Tensor, flat_idx: torch.Tensor,
-               mult: torch.Tensor, limit: int) -> torch.Tensor:
-    """state[flat_idx] *= mult in place on a flat bf16 ``state``; returns
-    the 0-dim int32 count of skipped updates (always 0)."""
-    if state.device.type == "cpu":
-        return exp3_apply_plain(state, flat_idx, mult, limit)
-    if state.device.type != "cuda" or flat_idx.device != state.device:
+               mult: torch.Tensor, limit: int) -> None:
+    """state[flat_idx] *= mult in place on a flat bf16 ``state``, in one
+    launch that allocates nothing. The checks are kept to a few attribute
+    reads: the call is on the step's host-bound path."""
+    if not state.is_cuda:
+        if state.device.type == "cpu":
+            exp3_apply_plain(state, flat_idx, mult, limit)
+            return
         raise ValueError(f"exp3_apply: no kernel for {state.device}")
-    if state.dtype != torch.bfloat16 or state.dim() != 1:
-        raise TypeError("exp3_apply: the state must be a flat bf16 tensor")
-    if not state.is_contiguous():
-        raise ValueError("exp3_apply: the state must be contiguous")
-    if flat_idx.shape != mult.shape:
-        raise ValueError("exp3_apply: flat_idx and mult must match")
-    s_idx, order = torch.sort(index_i32(flat_idx, "exp3_apply flat_idx"),
-                              stable=True)
-    s_mult = lut_gather(mult.to(torch.float32).contiguous(), order)
-    lib = _build.load("exp3_apply")
-    err = lib.bliss_exp3_apply(
-        state.data_ptr(), s_idx.data_ptr(), s_mult.data_ptr(),
-        s_idx.shape[0], int(limit), _build.stream_of(state))
+    card = state.get_device()
+    if (state.dtype != torch.bfloat16 or state.dim() != 1
+            or not state.is_contiguous()):
+        raise TypeError("exp3_apply: the state must be a flat contiguous "
+                        "bf16 tensor")
+    if flat_idx.get_device() != card or mult.get_device() != card:
+        raise ValueError("exp3_apply: the state, indices and factors must "
+                         "lie on one card")
+    flat_idx = index_i32(flat_idx, "exp3_apply flat_idx")
+    if mult.dtype != torch.float32 or not mult.is_contiguous():
+        mult = mult.to(torch.float32).contiguous()
+    u = flat_idx.numel()
+    if mult.dim() != 1 or mult.numel() != u:
+        raise ValueError("exp3_apply: flat_idx and mult must be 1-D of one "
+                         "length")
+    if not 0 <= limit <= state.numel():
+        raise ValueError(f"exp3_apply: limit {limit} outside the state")
+    err = _build.load("exp3_apply").bliss_exp3_apply(
+        state.data_ptr(), flat_idx.data_ptr(), mult.data_ptr(), u, limit,
+        _build.stream_of(state))
     exp3_apply.launches += 1
-    _build.check(err, "exp3_apply")
-    return torch.zeros((), dtype=torch.int32, device=state.device)
+    if err:
+        _build.check(err, "exp3_apply")
 
 
 exp3_apply.launches = 0

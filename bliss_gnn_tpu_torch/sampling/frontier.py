@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
-from bliss_gnn_tpu_torch.ops.gather import lut_gather
+from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_multi
 from bliss_gnn_tpu_torch.ops.segment import masked_segment_sum
 
 SENTINEL = torch.iinfo(torch.int32).max
@@ -132,15 +132,17 @@ def gather_in_edges(csc_indptr: torch.Tensor, csc_src: torch.Tensor,
     own0.scatter_reduce_(0, starts.long(), _arange(n_seeds, seeds), "amax")
     owner = torch.cummax(own0[:n_chunk_cap], 0).values.clamp(0, n_seeds - 1)
     chunk_valid = cpos < torch.clamp(total_chunks, max=n_chunk_cap)
-    within = cpos - lut_gather(coff, owner)
-    chunk_gidx = lut_gather(g_start, owner) + within
+    # the owner's chunk offset, first grid row and CSC range, in one take
+    o_coff, o_gstart, o_start, o_end = lut_gather_multi(
+        (coff, g_start, row_start, row_end), owner)
+    chunk_gidx = o_gstart + (cpos - o_coff)
     chunk_gidx = torch.where(chunk_valid, chunk_gidx, 0)
 
     j = _arange(ck, seeds)
     eid2d = chunk_gidx[:, None] * ck + j[None, :]
     e_mask = (chunk_valid[:, None]
-              & (eid2d >= lut_gather(row_start, owner)[:, None])
-              & (eid2d < lut_gather(row_end, owner)[:, None])).reshape(-1)
+              & (eid2d >= o_start[:, None])
+              & (eid2d < o_end[:, None])).reshape(-1)
     eid = torch.where(e_mask, eid2d.reshape(-1), 0)
     dst_spos = torch.where(
         e_mask, owner[:, None].expand(-1, ck).reshape(-1), 0)

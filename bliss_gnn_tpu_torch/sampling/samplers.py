@@ -22,7 +22,7 @@ import torch
 from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
 from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
-from bliss_gnn_tpu_torch.ops.gather import lut_gather
+from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_multi
 from bliss_gnn_tpu_torch.ops.segment import masked_segment_sum, segment_count
 from bliss_gnn_tpu_torch.sampling.block import Block, CapacityPlan
 from bliss_gnn_tpu_torch.sampling.frontier import (
@@ -261,17 +261,17 @@ def _build_block(frontier: Frontier, cand: Candidates, sel: torch.Tensor,
 
     if alpha_w is None:
         alpha_w = edge_w
-    e_src_cpos, e_dst_r, eid_r, w_r, alpha_r = (
-        lut_gather(f, eidx, n_valid=nk)
-        for f in (cand.src_cpos, frontier.dst_spos, frontier.eid, edge_w,
-                  alpha_w))
+    e_src_cpos, e_dst_r, eid_r, w_r, alpha_r = lut_gather_multi(
+        (cand.src_cpos, frontier.dst_spos, frontier.eid, edge_w, alpha_w),
+        eidx, n_valid=nk)
     e_dst = torch.where(e_mask_b, e_dst_r, 0)
     eid = torch.where(e_mask_b, eid_r, 0)
     w = torch.where(e_mask_b, w_r.to(torch.float32), 0.0)
     e_alpha = torch.where(e_mask_b, alpha_r.to(torch.float32), 0.0)
 
-    e_src_r = lut_gather(pos_c, e_src_cpos, n_valid=nk)
-    p_src_edge = lut_gather(node_prob, e_src_cpos, n_valid=nk).to(torch.float32)
+    e_src_r, p_src_edge = lut_gather_multi((pos_c, node_prob), e_src_cpos,
+                                           n_valid=nk)
+    p_src_edge = p_src_edge.to(torch.float32)
     e_src = torch.where(e_mask_b, e_src_r, 0)
     wt = _safe_div(w, p_src_edge)
     d = segment_count(e_dst, n_seed_cap, e_mask_b, dtype=torch.float32,
@@ -421,8 +421,9 @@ def _calculate_alpha(graph: DeviceGraph, cfg: SamplerConfig, block: Block,
         q_sum = masked_segment_sum(block.e_q, block.e_dst, n, block.e_mask)
         a = a_ij.to(torch.float32)
         a_sum = masked_segment_sum(a, block.e_dst, n, block.e_mask)
-        ratio = torch.nan_to_num(a / lut_gather(a_sum, block.e_dst))
-        alpha = ratio * lut_gather(q_sum, block.e_dst)
+        a_dst, q_dst = lut_gather_multi((a_sum, q_sum), block.e_dst)
+        ratio = torch.nan_to_num(a / a_dst)
+        alpha = ratio * q_dst
     elif block.e_alpha is not None:
         alpha = block.e_alpha
     else:
@@ -450,8 +451,8 @@ def _rewards_and_delta(graph: DeviceGraph, cfg: SamplerConfig, block: Block,
     dst_fac_seed = inv_k * delta_seed / torch.clamp(n_i_seed, min=1.0)
     e_dst_c = torch.clamp(block.e_dst, 0, block.n_dst_cap - 1)
     dst_fac = lut_gather(dst_fac_seed, e_dst_c)
-    h = lut_gather(embed_norm.to(torch.float32).contiguous(), block.e_src)
-    p_src = lut_gather(block.src_node_prob, block.e_src)
+    h, p_src = lut_gather_multi(
+        (embed_norm.to(torch.float32), block.src_node_prob), block.e_src)
     q = block.e_q
     h_div_q = (h * h) / torch.where(q > 0, q * q, 1.0)
     r_over_p = (torch.nan_to_num(alpha * alpha, posinf=0.0) * h_div_q
@@ -478,10 +479,10 @@ def exp3_edge_deltas(graph: DeviceGraph, cfg: SamplerConfig,
 
 def apply_exp3_deltas(exp3_weights: torch.Tensor,
                       deltas: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                      normalize: bool = True, return_overflow: bool = False):
+                      normalize: bool = True) -> torch.Tensor:
     """w[eid] *= exp(dr) IN PLACE (K4), then optionally L1-normalise each
     layer row. Zero exponents are no-op slots (index = limit). Returns the
-    state, and with ``return_overflow`` also the 0-dim overflow count."""
+    state."""
     L = len(deltas)
     span = exp3_weights.shape[1]
     limit = L * span
@@ -492,10 +493,10 @@ def apply_exp3_deltas(exp3_weights: torch.Tensor,
     ]).to(torch.int32)
     mult = torch.cat([torch.exp(dr).reshape(-1).to(torch.float32)
                       for _, dr in deltas])
-    n_over = exp3_apply(exp3_weights.view(-1), flat_idx, mult, limit)
+    exp3_apply(exp3_weights.view(-1), flat_idx, mult, limit)
     if normalize:
         normalize_exp3_weights(exp3_weights)
-    return (exp3_weights, n_over) if return_overflow else exp3_weights
+    return exp3_weights
 
 
 def normalize_exp3_weights(exp3_weights: torch.Tensor) -> torch.Tensor:

@@ -106,20 +106,18 @@ def make_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         state.optimizer.step()
         state.scheduler.step()
 
-        exp3_over = torch.zeros((), dtype=torch.int32, device=dev)
         if sampler_cfg.is_bandit and not sampler_cfg.exp3_freeze:
             # unnormalised: every consumer renormalises per dst
             deltas = exp3_edge_deltas(graph, sampler_cfg, blocks,
                                       aux["embed_norms"], aux["a_ijs"])
-            _, exp3_over = apply_exp3_deltas(
-                state.exp3_weights, deltas, normalize=False,
-                return_overflow=True)
+            apply_exp3_deltas(state.exp3_weights, deltas, normalize=False)
         f1 = f1_update(F1State.zero(dev), logits.detach(), labels, dst_mask,
                        multilabel)
         metrics = {
             "train_loss": loss.detach(),
             "f1": f1,
-            "exp3_apply_overflow": exp3_over,
+            # the JAX step's key; K4 skips no update, so it is always 0
+            "exp3_apply_overflow": 0,
             **_block_count_metrics(blocks),
             **{k: v for k, v in samp_stats.items()
                if "overflow" in k or "frontier_edges" in k

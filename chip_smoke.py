@@ -19,13 +19,19 @@ fan-outs 4096/2048/1024):
                aggregations on a CSC prefix of >= 4M edges;
 
 then holds each kernel against its plain PyTorch version at the paths'
-shapes (phase ``kernel``).
+shapes (phase ``kernel``): K2 also with five tables in one launch, K4 bitwise
+on distinct indices and within m - 1 bf16 ulps on an index repeated m times.
+Each kernel row carries ``ms`` (CUDA events around 20 back-to-back wrapper
+calls: the slower of the host's issue rate and the device) and, for K1-K5
+and their library calls, ``device_ms`` (the same calls captured in a CUDA
+graph and replayed), and for K2 and K4 the wrapper's host time ``host_us``.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 Every phase prints one JSON line. The line before the last is the kernels'
 summary, the last line the device record. Any failed check exits non-zero.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -105,7 +111,8 @@ def reddit_shaped_csc(seed=0):
 
 
 def time_ms(fn, reps, torch, warmup=2):
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean time of ``fn`` over ``reps`` back-to-back calls, by CUDA events
+    around the calls: the slower of the host's issue rate and the device."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -117,6 +124,55 @@ def time_ms(fn, reps, torch, warmup=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_time_ms(fn, torch, reps=20, replays=10):
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, the graph replayed ``replays`` times between two CUDA
+    events. The host's issue rate drops out; the graph's gap between two
+    kernels stays in."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as required
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / (reps * replays)
+
+
+def host_us(fn, torch, calls=1000):
+    """Host time of one call of ``fn`` in microseconds: ``time.perf_counter``
+    around ``calls`` calls with no sync between them. Python's cyclic
+    garbage collector is paused meanwhile: one full collection of this
+    process's heap would add tens of microseconds to every call's mean."""
+    fn()
+    torch.cuda.synchronize()
+    gc.collect()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def main():
@@ -307,8 +363,6 @@ def main():
           "peak_memory_bytes": peak, "nvidia_smi": smi_line})
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss {losses}")
-    if overflow.get("exp3_apply_overflow", 0) != 0:
-        fail("exp3_apply_overflow != 0")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
@@ -362,8 +416,6 @@ def main():
               "peak_memory_bytes": mpeak, "nvidia_smi": smi_line})
         if not all(math.isfinite(x) for x in mlosses):
             fail(f"{name}_path: non-finite loss {mlosses}")
-        if moverflow.get("exp3_apply_overflow", 0) != 0:
-            fail(f"{name}_path: exp3_apply_overflow != 0")
         missing = [k for k in kernels if mlaunches[k] <= 0]
         if missing:
             fail(f"kernels not launched on the {name} path: {missing}")
@@ -687,6 +739,10 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
                     torch),
             time_ms(lambda: lib5.index_add_(0, ids64, data), 20, torch),
             nv * (f5 * 2 + 4) + s * f5 * 4, nv * f5,
+            device_ms=device_time_ms(
+                lambda: row_scatter_add(data, ids, s, nv_d), torch),
+            library_device_ms=device_time_ms(
+                lambda: lib5.index_add_(0, ids64, data), torch),
             shape=f"{e} x {f5} bf16 rows ({nv} valid) into {s}",
             segment_sum_ms_same_inputs=time_ms(
                 lambda: segment_sum(data, ids, s, nv_d), 20, torch)))
@@ -754,16 +810,27 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
     return rows
 
 
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each value of ``x``."""
+    _, e = torch.frexp(x.float())  # |x| in [2^(e-1), 2^e)
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
 def kernel_checks(torch, dev, plan, n_edges, launches):
     """Each kernel and its plain version on the same card tensors, at the
     shapes of the main path's input-most layer; plus one PyTorch library
-    call of the same function as a yardstick."""
+    call of the same function as a yardstick. ``ms`` is event-timed over
+    back-to-back wrapper calls, ``device_ms`` from CUDA-graph replays."""
     from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply, exp3_apply_plain
-    from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_plain
+    from bliss_gnn_tpu_torch.ops.gather import (
+        lut_gather,
+        lut_gather_multi,
+        lut_gather_multi_plain,
+        lut_gather_plain,
+    )
     from bliss_gnn_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
     from bliss_gnn_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
-    from bliss_gnn_tpu_torch.sampling.samplers import init_exp3_weights
 
     k1 = (scatter_add, scatter_add_plain)
     k2 = (lut_gather, lut_gather_plain)
@@ -773,8 +840,8 @@ def kernel_checks(torch, dev, plan, n_edges, launches):
     g = torch.Generator(device=dev).manual_seed(7)
     rows = []
 
-    def row(name, *args):
-        rows.append(kernel_row(name, launches[name], *args))
+    def row(name, *args, **extra):
+        rows.append(kernel_row(name, launches[name], *args, **extra))
 
     def on_card(n):  # the main path hands the kernels n_valid on the card
         return torch.tensor(n, dtype=torch.int32, device=dev)
@@ -783,11 +850,12 @@ def kernel_checks(torch, dev, plan, n_edges, launches):
     nv = int(0.8 * m)
     live = torch.arange(m, device=dev) < nv
     nv_d = on_card(nv)
+    # the keep-mask lookup sel[src_cpos]: K1's keys are K2's ids
+    keys = torch.randint(0, N_NODES, (m,), generator=g, device=dev,
+                         dtype=torch.int32)
 
     # K1: the importance sum of r^2 by src candidate
     n_out = plan.cand_caps[0]
-    keys = torch.randint(0, N_NODES, (m,), generator=g, device=dev,
-                         dtype=torch.int32)
     vals = torch.where(live, torch.rand(m, generator=g, device=dev), 0.0)
     got = k1[0](keys, vals, n_out, nv_d)
     want = k1[1](keys, vals, n_out, nv_d)
@@ -802,21 +870,79 @@ def kernel_checks(torch, dev, plan, n_edges, launches):
         time_ms(lambda: k1[0](keys, vals, n_out, nv_d), 20, torch),
         time_ms(lambda: k1[1](keys, vals, n_out, nv_d), 5, torch),
         time_ms(lambda: lib_buf.index_add_(0, keys64, vals), 20, torch),
-        nv * 8 + n_out * 4, nv)
+        nv * 8 + n_out * 4, nv,
+        device_ms=device_time_ms(lambda: k1[0](keys, vals, n_out, nv_d),
+                                 torch),
+        library_device_ms=device_time_ms(
+            lambda: lib_buf.index_add_(0, keys64, vals), torch))
 
-    # K2: the keep-mask lookup sel[src_cpos]
+    # K2, one table: the keep-mask lookup sel[src_cpos]
     lut = torch.rand(plan.cand_caps[0], generator=g, device=dev) < 0.3
     got, want = k2[0](lut, keys, nv_d), k2[1](lut, keys, nv_d)
     err = float((got != want).sum().item())
     if err != 0:
         fail(f"lut_gather differs from its plain version in {err} slots")
     touched = torch.unique(keys[:nv]).numel()
+    keys_sorted = torch.sort(keys).values
     row("lut_gather", "lut_gather.cu",
         "bliss_gnn_tpu/ops/gather_pallas.py:188", err, 0.0,
         time_ms(lambda: k2[0](lut, keys, nv_d), 20, torch),
         time_ms(lambda: k2[1](lut, keys, nv_d), 5, torch),
         time_ms(lambda: torch.take(lut, keys64), 20, torch),
-        nv * 4 + m * 1 + touched * 1, 0)
+        nv * 4 + m * 1 + touched * 1, 0,
+        device_ms=device_time_ms(lambda: k2[0](lut, keys, nv_d), torch),
+        library_device_ms=device_time_ms(lambda: torch.take(lut, keys64),
+                                         torch),
+        host_us=host_us(lambda: k2[0](lut, keys, nv_d), torch), tables=1,
+        # the same lookups with the ids sorted, so that neighbouring
+        # threads read neighbouring table entries: what the random reads
+        # of the table cost
+        device_ms_ids_sorted=device_time_ms(
+            lambda: k2[0](lut, keys_sorted, nv_d), torch),
+        shape=f"{m} ids ({nv} valid) into a {lut.shape[0]}-entry bool table")
+
+    # K2, five tables: the layer-0 block-build takes of the kept edges'
+    # fields, e_blk_cap sorted distinct frontier slots into the five
+    # frontier-slot tables (src_cpos, dst_spos, eid: int32; edge_w,
+    # alpha_w: f32), against five one-table calls on the same inputs
+    e = plan.block_e_caps[0]
+    nv5 = int(0.6 * e)
+    nv5_d = on_card(nv5)
+    eidx = torch.sort(torch.randperm(m, generator=g, device=dev)[:e]).values
+    eidx = eidx.to(torch.int32)
+    slots = tuple(torch.randint(0, hi, (m,), generator=g, device=dev,
+                                dtype=torch.int32)
+                  for hi in (plan.cand_caps[0], plan.dst_caps[0], n_edges))
+    slots += tuple(torch.rand(m, generator=g, device=dev) for _ in range(2))
+    got = lut_gather_multi(slots, eidx, nv5_d)
+    want = lut_gather_multi_plain(slots, eidx, nv5_d)
+    err = float(sum((a != b).sum().item() for a, b in zip(got, want)))
+    if err != 0:
+        fail(f"lut_gather_multi differs from its plain version in {err} "
+             f"slots")
+    width = sum(t.element_size() for t in slots)
+
+    def five():
+        lut_gather_multi(slots, eidx, nv5_d)
+
+    def five_one_table():
+        for t in slots:
+            lut_gather(t, eidx, nv5_d)
+
+    rows.append(kernel_row(
+        "lut_gather[5 tables]", launches["lut_gather"], "lut_gather.cu",
+        "bliss_gnn_tpu/ops/gather_pallas.py:188", err, 0.0,
+        time_ms(five, 20, torch),
+        time_ms(lambda: lut_gather_multi_plain(slots, eidx, nv5_d), 5,
+                torch),
+        None, nv5 * 4 + nv5 * width + e * width, 0,
+        device_ms=device_time_ms(five, torch), host_us=host_us(five, torch),
+        tables=len(slots),
+        five_one_table_ms=time_ms(five_one_table, 20, torch),
+        five_one_table_device_ms=device_time_ms(five_one_table, torch),
+        shape=f"{e} sorted distinct ids ({nv5} valid) into five {m}-entry "
+              f"tables (3 int32, 2 f32)"))
+    del got, want, slots
 
     # K3: the layer-0 SAGE aggregation, [block edges, 256] into dst slots
     e, s = plan.block_e_caps[0], plan.dst_caps[0]
@@ -840,39 +966,77 @@ def kernel_checks(torch, dev, plan, n_edges, launches):
         time_ms(lambda: k3[0](data, ids, s, nv3_d), 20, torch),
         time_ms(lambda: k3[1](data, ids, s, nv3_d), 5, torch),
         time_ms(lambda: lib3.index_add_(0, ids64, data), 20, torch),
-        nv3 * (HIDDEN * 2 + 4) + s * HIDDEN * 2, nv3 * HIDDEN)
+        nv3 * (HIDDEN * 2 + 4) + s * HIDDEN * 2, nv3 * HIDDEN,
+        device_ms=device_time_ms(lambda: k3[0](data, ids, s, nv3_d), torch),
+        library_device_ms=device_time_ms(
+            lambda: lib3.index_add_(0, ids64, data), torch))
+    del data, lib3
 
-    # K4: the arm-weight update of one step, all three layers
-    L = len(FANOUTS)
+    # K4: the arm-weight update of one step, all three layers, on a state
+    # of random weights: distinct indices as on the main path, 30% no-op
+    # slots (zero exponents); bitwise, then within m - 1 bf16 ulps with
+    # each index repeated m = 1..8 times
+    caps = plan.block_e_caps
     span = n_edges + EDGE_PAD
-    limit = L * span
-    u = sum(plan.block_e_caps)
+    limit = len(caps) * span
+    u = sum(caps)
     idx = torch.cat([
         torch.randperm(n_edges, generator=g, device=dev)[:c] + l * span
-        for l, c in enumerate(plan.block_e_caps)]).to(torch.int32)
+        for l, c in enumerate(caps)]).to(torch.int32)
     idx = torch.where(torch.rand(u, generator=g, device=dev) < 0.3,
                       torch.full_like(idx, limit), idx)
     mult = torch.exp(torch.rand(u, generator=g, device=dev) * 0.5)
-    st_k = init_exp3_weights(L, n_edges, device=dev).view(-1)
+    st_k = (torch.rand(limit, generator=g, device=dev) + 0.5).to(
+        torch.bfloat16)
     st_p = st_k.clone()
-    over = int(k4[0](st_k, idx, mult, limit))
+    k4[0](st_k, idx, mult, limit)
     k4[1](st_p, idx, mult, limit)
-    diff = (st_k.float() - st_p.float()).abs()
-    err = diff.max().item()
-    bad = (diff > BF16_ULP * st_p.float().abs()).sum().item()
-    if bad or over:
-        fail(f"exp3_apply differs from its plain version in {bad} entries")
+    err = (st_k.float() - st_p.float()).abs().max().item()
+    if not torch.equal(st_k, st_p):
+        fail(f"exp3_apply differs from its plain version on distinct "
+             f"indices (max |diff| {err})")
     valid = idx < limit
+    base = idx[valid][: u // 4]
+    reps = torch.randint(1, 9, (base.shape[0],), generator=g, device=dev)
+    idx_d = base.repeat_interleave(reps)
+    idx_d = idx_d[torch.randperm(idx_d.shape[0], generator=g, device=dev)]
+    mult_d = torch.exp(torch.rand(idx_d.shape[0], generator=g,
+                                  device=dev) * 0.5)
+    k4[0](st_k, idx_d, mult_d, limit)
+    k4[1](st_p, idx_d, mult_d, limit)
+    uniq, cnt = torch.unique(idx_d.long(), return_counts=True)
+    changed = torch.nonzero(st_k != st_p).squeeze(1)
+    if not torch.isin(changed, uniq).all():
+        fail("exp3_apply changed entries it was not given")
+    a, b = st_k[uniq].float(), st_p[uniq].float()
+    ulp = torch.maximum(bf16_ulp(torch, a), bf16_ulp(torch, b))
+    dup_err = (a - b).abs()
+    dup_ratio = (dup_err / ((cnt - 1).clamp(min=1) * ulp)).max().item()
+    if ((cnt == 1) & (dup_err > 0)).any() or dup_ratio > 1.0:
+        fail(f"exp3_apply with repeated indices is off by more than m - 1 "
+             f"bf16 ulps: {dup_ratio} x the tolerance")
     n_upd = int(valid.sum().item())
     idx_v, mult_v = idx[valid].long(), mult[valid].to(torch.bfloat16)
     row("exp3_apply", "exp3_apply.cu",
         "bliss_gnn_tpu/ops/exp3_pallas.py:62", err,
-        "rtol 2^-7 (one bf16 ulp)",
+        "bitwise on distinct indices; m - 1 bf16 ulps on an index "
+        "repeated m times",
         time_ms(lambda: k4[0](st_k, idx, mult, limit), 20, torch),
         time_ms(lambda: k4[1](st_p, idx, mult, limit), 5, torch),
         time_ms(lambda: st_p.scatter_reduce_(0, idx_v, mult_v, "prod"), 20,
                 torch),
-        u * 8 + n_upd * 4, n_upd)
+        u * 8 + n_upd * 4, n_upd,
+        device_ms=device_time_ms(lambda: k4[0](st_k, idx, mult, limit),
+                                 torch),
+        library_device_ms=device_time_ms(
+            lambda: st_p.scatter_reduce_(0, idx_v, mult_v, "prod"), torch),
+        host_us=host_us(lambda: k4[0](st_k, idx, mult, limit), torch),
+        shape=f"{u} update slots ({n_upd} valid, distinct) into "
+              f"{limit} bf16",
+        dup_slots=idx_d.shape[0], dup_max_repeats=int(cnt.max().item()),
+        dup_max_abs_err=dup_err.max().item(),
+        dup_err_over_tolerance=dup_ratio)
+    del st_k, st_p
     return rows
 
 

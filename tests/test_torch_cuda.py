@@ -10,7 +10,12 @@ from bliss_gnn_tpu_torch.ops.gat_attention import (
     gat_attention,
     gat_attention_plain,
 )
-from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_plain
+from bliss_gnn_tpu_torch.ops.gather import (
+    lut_gather,
+    lut_gather_multi,
+    lut_gather_multi_plain,
+    lut_gather_plain,
+)
 from bliss_gnn_tpu_torch.ops.rowscatter import (
     row_scatter_add,
     row_scatter_add_diff,
@@ -63,6 +68,39 @@ def test_lut_gather_kernel(dev, gen, dtype):
     assert torch.equal(got, lut_gather_plain(lut, idx, n_valid=40_000))
 
 
+_MIXED = (torch.bool, torch.bfloat16, torch.int32, torch.float32, torch.int64,
+          torch.int16, torch.uint8, torch.float64)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
+def test_lut_gather_multi_kernel(dev, gen, k):
+    """k tables of mixed widths and lengths in one launch, bitwise against
+    the per-table plain version; odd k reads ids from an unaligned view."""
+    luts = []
+    for s in range(k):
+        n = 3000 + 1500 * s
+        raw = torch.randint(-2 ** 62, 2 ** 62, (n,), generator=gen,
+                            device=dev)
+        dtype = _MIXED[s]
+        if dtype == torch.bool:
+            luts.append(raw % 2 == 0)
+        elif dtype.is_floating_point:
+            luts.append((raw % 10_000).to(dtype) / 7)
+        else:
+            luts.append(raw.to(dtype))  # wraps: every bit pattern counts
+    ids = torch.randint(-5, 3000 + 1500 * k, (50_003,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    idx = ids[1:] if k % 2 else ids[:50_001]
+    for n_valid in (None, 37_777):
+        before = lut_gather.launches
+        got = lut_gather_multi(luts, idx, n_valid=n_valid)
+        assert lut_gather.launches == before + 1
+        want = lut_gather_multi_plain(luts, idx, n_valid=n_valid)
+        for g, w, t in zip(got, want, luts):
+            assert g.dtype == t.dtype and g.shape == idx.shape
+            assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("f,dtype", [(256, torch.bfloat16),
                                      (41, torch.bfloat16),
                                      (41, torch.float32)])
@@ -96,10 +134,73 @@ def test_exp3_apply_kernel(dev, gen):
     state = (torch.rand(limit, generator=gen, device=dev) + 0.5).to(
         torch.bfloat16)
     ref = state.clone()
-    assert int(exp3_apply(state, idx, mult, limit)) == 0
+    exp3_apply(state, idx, mult, limit)
     exp3_apply_plain(ref, idx, mult, limit)
     torch.testing.assert_close(state.float(), ref.float(), rtol=2.0 ** -7,
                                atol=0.0)
+
+
+def _exp3_inputs(gen, dev, limit, u):
+    state = (torch.rand(limit, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    mult = torch.exp(torch.rand(u, generator=gen, device=dev) * 0.5)
+    return state, mult
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each value of the bf16 tensor ``x``."""
+    _, e = torch.frexp(x.float())  # |x| in [2^(e-1), 2^e)
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def test_exp3_apply_distinct_is_bitwise(dev, gen):
+    limit = 1 << 21
+    idx = torch.randperm(limit, generator=gen, device=dev)[:120_000].to(
+        torch.int32)
+    idx[::5] = limit + 7  # no-op slots
+    idx[1::97] = -1
+    state, mult = _exp3_inputs(gen, dev, limit, idx.shape[0])
+    ref = state.clone()
+    before = exp3_apply.launches
+    exp3_apply(state, idx, mult, limit)
+    assert exp3_apply.launches == before + 1
+    exp3_apply_plain(ref, idx, mult, limit)
+    assert torch.equal(state, ref)
+
+
+def test_exp3_apply_duplicates_within_m_minus_1_ulps(dev, gen):
+    """Each index 1 to 8 times: every update rounds, in the card's order,
+    so an entry updated m times is within m - 1 ulps of one rounding."""
+    limit = 1 << 20
+    base = torch.randperm(limit, generator=gen, device=dev)[:20_000]
+    reps = torch.randint(1, 9, (base.shape[0],), generator=gen, device=dev)
+    idx = base.repeat_interleave(reps)
+    idx = idx[torch.randperm(idx.shape[0], generator=gen, device=dev)].to(
+        torch.int32)
+    state, mult = _exp3_inputs(gen, dev, limit, idx.shape[0])
+    ref = state.clone()
+    exp3_apply(state, idx, mult, limit)
+    exp3_apply_plain(ref, idx, mult, limit)
+    m = torch.zeros(limit, dtype=torch.float32, device=dev)
+    m.index_add_(0, idx.long(), torch.ones_like(mult))
+    ulp = torch.maximum(_bf16_ulp(state), _bf16_ulp(ref))
+    diff = (state.float() - ref.float()).abs()
+    assert (diff <= (m - 1).clamp(min=0) * ulp).all()
+    assert torch.equal(state[m == 0], ref[m == 0])
+    assert int(m.max()) == 8
+
+
+def test_exp3_apply_all_noop_leaves_state(dev, gen):
+    limit = 1 << 16
+    idx = torch.full((5000,), limit, dtype=torch.int32, device=dev)
+    idx[::2] = -3
+    state, mult = _exp3_inputs(gen, dev, limit, idx.shape[0])
+    before = state.clone()
+    exp3_apply(state, idx, mult, limit)
+    assert torch.equal(state, before)
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    exp3_apply(state, empty, mult[:0], limit)
+    assert torch.equal(state, before)
 
 
 @pytest.mark.parametrize("dtype,n_valid", [(torch.bfloat16, None),

@@ -16,8 +16,13 @@ from bliss_gnn_tpu.ops.gather_pallas import lut_gather as jax_lut_gather
 from bliss_gnn_tpu.ops.scatter_pallas import banked_scatter_add
 
 from bliss_gnn_tpu_torch.ops import segment as tseg
+from bliss_gnn_tpu_torch.ops._args import valid_arg
 from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
-from bliss_gnn_tpu_torch.ops.gather import lut_gather
+from bliss_gnn_tpu_torch.ops.gather import (
+    lut_gather,
+    lut_gather_multi,
+    lut_gather_multi_plain,
+)
 from bliss_gnn_tpu_torch.ops.scatter import scatter_add, scatter_add_diff
 from bliss_gnn_tpu_torch.ops.segsum import segment_sum, segment_sum_diff
 
@@ -104,6 +109,67 @@ def test_lut_gather_bool_matches_mxusel():
     np.testing.assert_array_equal(got.numpy()[:nv], want[:nv])
 
 
+def _jax_take(lut, idx, nv):
+    """The JAX package's lut_gather of one table, routed by dtype as its
+    sampler routes it (bool through the MXU-select kernel, integers as int32,
+    floats as f32; int64 as its two exact int32 halves). ``idx`` in range."""
+    run = lambda a, **kw: np.asarray(jax_lut_gather(  # noqa: E731
+        jnp.asarray(a), jnp.asarray(idx), interpret=True,
+        n_valid=None if nv is None else jnp.int32(nv), **kw))
+    if lut.dtype == np.bool_:
+        return run(lut.astype(np.float32), mxusel=True) != 0
+    if lut.dtype == np.int64:
+        lo = run((lut & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
+                 elem_dtype=jnp.int32, flat2d=True)
+        hi = run((lut >> 32).astype(np.int32), elem_dtype=jnp.int32,
+                 flat2d=True)
+        return (hi.astype(np.int64) << 32) | lo.view(np.uint32).astype(np.int64)
+    if lut.dtype == np.int32:
+        return run(lut, elem_dtype=jnp.int32, flat2d=True)
+    return run(lut.astype(np.float32), flat2d=True)
+
+
+def _mixed_tables(rng, lengths):
+    """bool, bf16, int32 above 2^24, f32 and int64 above 2^32 tables."""
+    n0, n1, n2, n3, n4 = lengths
+    bf = rng.normal(size=n1).astype(np.float32)
+    return [rng.random(n0) < 0.4,
+            _t(bf).to(torch.bfloat16).float().numpy(),  # bf16-exact
+            rng.integers(2 ** 24, 2 ** 31 - 1, size=n2).astype(np.int32),
+            rng.normal(size=n3).astype(np.float32),
+            rng.integers(2 ** 33, 2 ** 62, size=n4).astype(np.int64)]
+
+
+@pytest.mark.parametrize("case", ["mixed_widths_n_valid", "lengths_differ",
+                                  "out_of_range_ids"])
+def test_lut_gather_multi_matches_jax(case):
+    rng = np.random.default_rng(12)
+    lengths = {"lengths_differ": (700, 3100, 1500, 4000, 257)}.get(
+        case, (3000,) * 5)
+    tables = _mixed_tables(rng, lengths)
+    m, nv = 2600, (2049 if case == "mixed_widths_n_valid" else None)
+    # ids past a short table's end read 0 from it alone
+    lo, hi = {"lengths_differ": (0, max(lengths)),
+              "out_of_range_ids": (-40, 3040)}.get(case, (0, 3000))
+    idx = rng.integers(lo, hi, size=m).astype(np.int32)
+    luts = [_t(t) for t in tables]
+    luts[1] = luts[1].to(torch.bfloat16)
+    got = lut_gather_multi(luts, _t(idx), n_valid=nv)
+    plain = lut_gather_multi_plain(luts, _t(idx), n_valid=nv)
+    assert len(got) == len(luts)
+    prefix = m if nv is None else nv
+    for t, lut, g, p in zip(tables, luts, got, plain):
+        assert g.dtype == lut.dtype and g.shape == (m,)
+        assert torch.equal(g, p)  # every slot, out-of-range ids included
+        gn = g.float().numpy() if g.dtype == torch.bfloat16 else g.numpy()
+        inr = (idx >= 0) & (idx < t.shape[0])
+        want = _jax_take(t, np.where(inr, idx, 0), nv)
+        live = inr[:prefix]
+        np.testing.assert_array_equal(gn[:prefix][live], want[:prefix][live])
+        assert not gn[:prefix][~live].any()  # out of range: 0
+        assert not gn[prefix:].any()  # past n_valid: 0
+
+
 # -- K3 ---------------------------------------------------------------------
 
 
@@ -166,8 +232,7 @@ def test_exp3_apply_matches_streaming_kernel(dup):
         jnp.asarray(mult), interpret=True)
     assert int(n_over) == 0
     flat = _t(state.reshape(-1)).to(torch.bfloat16)
-    over = exp3_apply(flat, _t(idx), _t(mult), limit)
-    assert int(over) == 0
+    exp3_apply(flat, _t(idx), _t(mult), limit)
     want = np.asarray(want.astype(jnp.float32)).reshape(-1)
     np.testing.assert_allclose(_bf16_np(flat), want, rtol=BF16_ULP)
 
@@ -259,3 +324,12 @@ def test_kernel_wrappers_refuse_other_devices():
         scatter_add(torch.zeros(4, dtype=torch.int32, device="meta"), meta, 3)
     with pytest.raises(ValueError):
         lut_gather(meta, torch.zeros(2, dtype=torch.int32, device="meta"))
+
+
+def test_valid_arg_takes_one_element():
+    cpu = torch.device("cpu")
+    one = torch.tensor([7], dtype=torch.int32)
+    assert valid_arg(one, cpu) is one
+    assert valid_arg(torch.tensor(7), cpu).tolist() == [7]
+    with pytest.raises(ValueError):
+        valid_arg(torch.tensor([7, 9], dtype=torch.int32), cpu)
