@@ -8,9 +8,10 @@ kernels under them.
 - ``exp3``:          K4, EXP3 arm-weight update, one launch and no sort
   (``csrc/exp3_apply.cu``)
 - ``rowscatter``:    K5, wide-row scatter-add (``csrc/row_scatter.cu``)
-- ``spmm``:          K6, full-graph CSC SpMM (``csrc/spmm_csr.cu``)
-- ``gat_attention``: K7, full-graph GATv2 attention
-  (``csrc/gat_attention.cu``)
+- ``spmm``:          K6, full-graph CSC SpMM, one launch per column slice
+  that fits in L2 (``csrc/spmm_csr.cu``)
+- ``gat_attention``: K7, full-graph GATv2 attention, src rows streamed
+  through a ``cp.async`` ring (``csrc/gat_attention.cu``)
 
 ``fullgraph`` holds the chunked plain versions of K6 and K7.
 

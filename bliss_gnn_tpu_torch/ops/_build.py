@@ -45,9 +45,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "row_scatter": {
         "bliss_row_scatter_add": [_P, _I, _P, _LL, _I, _P, _I, _P, _P]
     },
-    "spmm_csr": {"bliss_spmm_csr": [_P, _I, _I, _P, _P, _P, _I, _P, _P]},
+    "spmm_csr": {
+        "bliss_spmm_csr": [_P, _I, _I, _LL, _I, _I, _P, _P, _P, _I, _P, _P]
+    },
     "gat_attention": {
-        "bliss_gat_attention": [_P, _I, _I, _I, _P, _F, _P, _P, _LL, _P, _P]
+        "bliss_gat_attention": [_P, _I, _I, _I, _I, _P, _F, _I, _P, _P, _LL,
+                                _P, _P]
     },
 }
 

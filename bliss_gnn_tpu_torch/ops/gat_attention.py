@@ -4,10 +4,11 @@ attn), times f_src; f32 [N, H, O], zero for a dst with no in-edges.
 
 Counterpart of ``bliss_gnn_tpu/ops/gat_pallas.py`` (banded and packed
 attention: TPU layouts of one online-softmax sweep). A CUDA tensor goes to
-the hand-written kernel ``csrc/gat_attention.cu`` (a warp per dst and
-head, one sweep with an online softmax; the design note is in the source);
-a CPU tensor goes to :func:`gat_attention_plain`, the three-pass
-``fullgraph.full_gat_attention``.
+the hand-written kernel ``csrc/gat_attention.cu`` (a block per dst, a warp
+per head and edge split, src rows streamed through a shared-memory ring
+with ``cp.async``, one sweep with an online softmax; the design note is in
+the source); a CPU tensor goes to :func:`gat_attention_plain`, the
+three-pass ``fullgraph.full_gat_attention``.
 
 The caller is ``models.inference``: the GATv2 layers of full-graph
 layerwise inference.
@@ -15,6 +16,7 @@ layerwise inference.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -23,7 +25,7 @@ from bliss_gnn_tpu_torch.ops._args import index_i32
 from bliss_gnn_tpu_torch.ops.fullgraph import full_gat_attention
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VEC = {torch.float32: 4, torch.bfloat16: 8}
+MAX_VECTORS = 128  # 16-byte vectors per head row the kernel takes
 
 
 def gat_attention_plain(feat: torch.Tensor, attn: torch.Tensor,
@@ -33,6 +35,20 @@ def gat_attention_plain(feat: torch.Tensor, attn: torch.Tensor,
     n = csc_indptr.shape[0] - 1
     return full_gat_attention(feat, attn, negative_slope, csc_indptr,
                               csc_src, n, int(csc_indptr[-1].item()))
+
+
+def gat_plan(h: int, o: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(O padded to whole 16-byte vectors, edge splits per head) of the
+    kernel for ``h`` heads of ``o`` features of ``dtype``. A block holds
+    min(h, 8) heads times the splits, at most 8 warps; each head takes as
+    many splits as fit, at most 4 (the fastest of those timed on an H100
+    at (4, 256) and (1, 41): 2 and 4)."""
+    vec = 16 // dtype.itemsize
+    op = -(-o // vec) * vec
+    if op > MAX_VECTORS * vec:
+        raise ValueError(f"gat_attention: O = {o} is past the kernel's "
+                         f"{MAX_VECTORS * vec} for {dtype}")
+    return op, min(4, 8 // min(h, 8))
 
 
 def gat_attention(feat: torch.Tensor, attn: torch.Tensor,
@@ -53,23 +69,28 @@ def gat_attention(feat: torch.Tensor, attn: torch.Tensor,
     if feat.dtype not in _DTYPE_CODE:
         raise TypeError(f"gat_attention: no kernel for {feat.dtype}")
     h, o = feat.shape[1], feat.shape[2]
-    vec = _VEC[feat.dtype] if o % _VEC[feat.dtype] == 0 else 1
-    if o > 4 * 32 * vec:
-        raise ValueError(f"gat_attention: O = {o} is past the kernel's "
-                         f"{4 * 32 * vec} for {feat.dtype}")
+    op, splits = gat_plan(h, o, feat.dtype)
     feat = feat.contiguous()
-    if feat.data_ptr() % 16 != 0:  # the kernel loads 16-byte vectors
+    attn = attn.reshape(h, o).to(torch.float32)
+    if op != o:  # rows of whole 16-byte vectors; the copy is in the call
+        fp = feat.new_zeros((feat.shape[0], h, op))
+        fp[..., :o] = feat
+        feat = fp
+        attn = torch.nn.functional.pad(attn, (0, op - o))
+    elif feat.data_ptr() % 16 != 0:  # the kernel loads 16-byte vectors
         feat = feat.clone()
-    attn = attn.reshape(h, o).to(torch.float32).contiguous()
+    attn = attn.contiguous()
     indptr = index_i32(csc_indptr, "gat_attention csc_indptr")
     src = index_i32(csc_src, "gat_attention csc_src")
     n = indptr.shape[0] - 1
     out = torch.empty((n, h, o), dtype=torch.float32, device=feat.device)
+    if n == 0:
+        return out
     lib = _build.load("gat_attention")
     err = lib.bliss_gat_attention(
-        feat.data_ptr(), _DTYPE_CODE[feat.dtype], h, o, attn.data_ptr(),
-        ctypes.c_float(negative_slope), indptr.data_ptr(), src.data_ptr(), n,
-        out.data_ptr(), _build.stream_of(feat))
+        feat.data_ptr(), _DTYPE_CODE[feat.dtype], h, op, o, attn.data_ptr(),
+        ctypes.c_float(negative_slope), splits, indptr.data_ptr(),
+        src.data_ptr(), n, out.data_ptr(), _build.stream_of(feat))
     gat_attention.launches += 1
     _build.check(err, "gat_attention")
     return out

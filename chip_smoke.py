@@ -21,10 +21,12 @@ fan-outs 4096/2048/1024):
 then holds each kernel against its plain PyTorch version at the paths'
 shapes (phase ``kernel``): K2 also with five tables in one launch, K4 bitwise
 on distinct indices and within m - 1 bf16 ulps on an index repeated m times.
-Each kernel row carries ``ms`` (CUDA events around 20 back-to-back wrapper
-calls: the slower of the host's issue rate and the device) and, for K1-K5
-and their library calls, ``device_ms`` (the same calls captured in a CUDA
-graph and replayed), and for K2 and K4 the wrapper's host time ``host_us``.
+Each kernel row carries ``ms`` (CUDA events around back-to-back wrapper
+calls: the slower of the host's launch rate and the device) and
+``device_ms`` (the same calls captured in a CUDA graph and replayed; also
+for the library calls of K1-K6), for K2 and K4 the wrapper's host time
+``host_us``, and for K6 and K7 the kernel launches of one wrapper call, as
+its launch count moved (K6 launches once per column slice).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 Every phase prints one JSON line. The line before the last is the kernels'
@@ -693,13 +695,14 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
     from bliss_gnn_tpu_torch.ops.gat_attention import (
         gat_attention,
         gat_attention_plain,
+        gat_plan,
     )
     from bliss_gnn_tpu_torch.ops.rowscatter import (
         row_scatter_add,
         row_scatter_add_plain,
     )
     from bliss_gnn_tpu_torch.ops.segsum import segment_sum
-    from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain
+    from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain, spmm_plan
 
     g = torch.Generator(device=dev).manual_seed(8)
     rows = []
@@ -768,6 +771,10 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
             fail(f"spmm F={f} differs from its plain version: {err} > {tol}")
         xf = x.float()
         name = f"spmm[F={f}]"
+        ld, cols, _ = spmm_plan(n, f, x.dtype)
+        before = spmm.launches  # the wrapper counts each slice's launch
+        spmm(x, ip, src)
+        per_call = spmm.launches - before
         rows.append(kernel_row(
             name, shape_launches.get(name, 0), "spmm_csr.cu",
             "bliss_gnn_tpu/ops/spmm_pallas.py:259", err,
@@ -776,7 +783,13 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
             time_ms(lambda: spmm_plain(x, ip, src), 1, torch, warmup=0),
             time_ms(lambda: torch.sparse.mm(csr, xf), 3, torch, warmup=1),
             n * f * 2 + (n + 1) * 4 + n_edges * 4 + n * f * 4, n_edges * f,
-            shape=f"{n} x {f} bf16, {n_edges} edges", **where))
+            device_ms=device_time_ms(lambda: spmm(x, ip, src), torch, reps=3,
+                                     replays=2),
+            library_device_ms=device_time_ms(
+                lambda: torch.sparse.mm(csr, xf), torch, reps=3, replays=2),
+            kernel_launches_per_call=per_call, slice_cols=cols,
+            padded_cols=ld, shape=f"{n} x {f} bf16, {n_edges} edges",
+            **where))
         del x, xf
     del csr
 
@@ -794,6 +807,10 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
             fail(f"gat_attention ({h}, {o}) differs from its plain version: "
                  f"{err} > {tol}")
         name = f"gat_attention[H={h},O={o}]"
+        op, splits = gat_plan(h, o, feat.dtype)
+        before = gat_attention.launches
+        gat_attention(feat, attn, 0.2, ip, src)
+        per_call = gat_attention.launches - before
         rows.append(kernel_row(
             name, shape_launches.get(name, 0), "gat_attention.cu",
             "bliss_gnn_tpu/ops/gat_pallas.py:70", err,
@@ -805,6 +822,11 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
             None,
             n * h * o * 2 + (n + 1) * 4 + n_edges * 4 + n * h * o * 4
             + h * o * 4, n_edges * h * (7 * o + 2),
+            device_ms=device_time_ms(
+                lambda: gat_attention(feat, attn, 0.2, ip, src), torch,
+                reps=2, replays=2),
+            kernel_launches_per_call=per_call, padded_cols=op,
+            splits_per_head=splits,
             shape=f"{n} x {h} x {o} bf16, {n_edges} edges", **where))
         del feat
     return rows

@@ -27,6 +27,7 @@ from bliss_gnn_tpu_torch.ops.segsum import (
     segment_sum_diff,
     segment_sum_plain,
 )
+from bliss_gnn_tpu_torch.ops import spmm as spmm_mod
 from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain
 
 pytestmark = pytest.mark.cuda
@@ -251,25 +252,54 @@ def _csc(gen, dev, n, hub):
 @pytest.mark.parametrize("f,dtype,weighted", [(256, torch.bfloat16, False),
                                               (41, torch.bfloat16, False),
                                               (41, torch.float32, True),
-                                              (128, torch.float32, False)])
+                                              (128, torch.float32, False),
+                                              (300, torch.bfloat16, True),
+                                              (300, torch.float32, False)])
 def test_spmm_kernel(dev, gen, f, dtype, weighted):
-    indptr, src, e = _csc(gen, dev, 3000, hub=5000)
+    """Any F (300 pads to 304 bf16 columns and takes two slices, f32
+    three), a hub row of 30,000 edges, one launch per slice; two calls give
+    the same bits (no atomics)."""
+    indptr, src, e = _csc(gen, dev, 3000, hub=30_000)
     x = torch.randn((3000, f), generator=gen, device=dev).to(dtype)
     w = torch.rand(e, generator=gen, device=dev) if weighted else None
     before = spmm.launches
     got = spmm(x, indptr, src, w)
-    assert spmm.launches == before + 1
+    assert spmm.launches == before + spmm_mod.spmm_plan(3000, f, dtype)[2]
     want = spmm_plain(x, indptr, src, w)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
     assert not got[::97].any()  # rows without in-edges
+    assert torch.equal(spmm(x, indptr, src, w), got)
+
+
+@pytest.mark.parametrize("slice_cols", [8, 32, 64, 128])
+def test_spmm_kernel_column_slices(dev, gen, monkeypatch, slice_cols):
+    """F = 256 cut into L2 slices of 8 to 128 bf16 columns, one launch
+    each, against the plain version."""
+    indptr, src, e = _csc(gen, dev, 3000, hub=30_000)
+    monkeypatch.setattr(spmm_mod, "L2_SLICE_BYTES", 3000 * 2 * slice_cols)
+    assert spmm_mod.spmm_plan(3000, 256, torch.bfloat16) == (
+        256, slice_cols, 256 // slice_cols)
+    x = torch.randn((3000, 256), generator=gen, device=dev).to(torch.bfloat16)
+    before = spmm.launches
+    got = spmm(x, indptr, src)
+    assert spmm.launches == before + 256 // slice_cols
+    torch.testing.assert_close(got, spmm_plain(x, indptr, src), rtol=1e-4,
+                               atol=1e-3)
+    assert torch.equal(spmm(x, indptr, src), got)
 
 
 @pytest.mark.parametrize("h,o,dtype", [(4, 256, torch.bfloat16),
                                        (1, 41, torch.bfloat16),
                                        (2, 64, torch.float32),
-                                       (3, 41, torch.float32)])
+                                       (3, 41, torch.float32),
+                                       (8, 64, torch.bfloat16),
+                                       (1, 300, torch.bfloat16),
+                                       (1, 500, torch.float32),
+                                       (16, 8, torch.float32)])
 def test_gat_attention_kernel(dev, gen, h, o, dtype):
-    indptr, src, _ = _csc(gen, dev, 2000, hub=3000)
+    """Every lane-group width (1 to 32 lanes, 2 and 4 chunks), 1 to 16
+    heads, a hub row of 30,000 edges; two calls give the same bits."""
+    indptr, src, _ = _csc(gen, dev, 2000, hub=30_000)
     feat = torch.randn((2000, h, o), generator=gen, device=dev).to(dtype)
     attn = torch.randn((1, h, o), generator=gen, device=dev) / o ** 0.5
     before = gat_attention.launches
@@ -278,3 +308,4 @@ def test_gat_attention_kernel(dev, gen, h, o, dtype):
     want = gat_attention_plain(feat, attn, 0.2, indptr, src)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert not got[::97].any()  # zero in-degree: zeros
+    assert torch.equal(gat_attention(feat, attn, 0.2, indptr, src), got)

@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""Times or probes the hand-written kernels of the ``bliss_gnn_tpu_torch``
+that Python finds on its path, so that two checkouts of the port can be
+compared on one NVIDIA GPU, each in a process of its own:
+
+    PYTHONPATH=<checkout> python3 tools/kernel_probe.py KERNEL [KERNEL ...]
+
+KERNEL is one of:
+
+    k2  K2 (``lut_gather``), the keep-mask lookup of the input-most layer
+        of ``chip_smoke.py``'s SAGE main path on an H100: 3,279,616 ids
+        (80% valid) into a 233,088-entry bool table; beside it
+        ``torch.take``.
+    k4  K4 (``exp3_apply``), one step's arm-weight update: 186,496 slots of
+        distinct indices (30% no-op) into 3 x (114,848,857 + EDGE_PAD) bf16
+        weights; beside it ``scatter_reduce_`` and the host time of K4's C
+        entry called straight through ctypes with its arguments ready, the
+        floor under any wrapper that launches through ctypes.
+    k6  K6 (``spmm``) at F = 256 and 41 on ``chip_smoke.py``'s
+        Reddit-shaped graph (232,965 nodes, 114.8M edges; its arrays are
+        kept in ``build/`` after the first run).
+    k7  K7 (``gat_attention``) at (H, O) = (4, 256) and (1, 41) on that
+        graph.
+    k4-repeats  K4 on the inputs of ``tests/test_torch_cuda.py``'s
+        ``test_exp3_apply_kernel`` (the same seed and draws): how often
+        each index repeats, and over 200 calls which entries differ from
+        the plain version by more than the test's rtol of 2^-7, by how many
+        bf16 ulps, and how often each index repeats there. For each entry
+        updated m = 2 to 4 times it also applies the m factors in every
+        order with one bf16 rounding after each, as the kernel does in
+        whatever order the card takes them, and counts the entries for
+        which some order lands more than 2^-7 from the plain version.
+
+K2 and K4 print ``ms`` (CUDA events around 20 back-to-back calls),
+``device_ms`` (20 calls captured in a CUDA graph, replayed 10 times) and
+``host_us`` (1,000 calls with no sync). K6 and K7 print ``ms`` and
+``device_ms`` (fewer calls: they take milliseconds), the kernel launches per
+wrapper call (the wrapper's launch count before and after one call), and
+the largest difference from the plain version on a CSC prefix of >= 4M
+edges. Their L2 probe times K6 at F = 256 and K7 at (4, 256) again with
+every src id taken modulo 16,384, so the rows they read (8 MB and 32 MB)
+fit in the 50 MB L2. Where the checkout's K6 cuts columns into L2 slices
+(``spmm_plan``) the probe also times slices of 32 to 256 columns, and where
+its K7 splits a dst's edges over warps (``gat_plan``) 1 to 8 splits per
+head, as many as the block's 8 warps hold. The timing functions are
+``chip_smoke.py``'s. One JSON line.
+"""
+import importlib.util
+import itertools
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+M, N_CAND, N_NODES = 3_279_616, 233_088, 232_965
+BLOCK_E_CAPS, N_EDGES = (150_016, 31_872, 4_608), 114_848_857
+
+
+def smoke_module():
+    """``chip_smoke.py`` of the checkout this script lies in, imported as
+    a module for its graph and timing functions."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def small_times(smoke, fn):
+    return {"ms": smoke.time_ms(fn, 20, torch),
+            "device_ms": smoke.device_time_ms(fn, torch),
+            "host_us": smoke.host_us(fn, torch)}
+
+
+def large_times(smoke, fn, reps):
+    return {"ms": smoke.time_ms(fn, reps, torch, warmup=1),
+            "device_ms": smoke.device_time_ms(fn, torch, reps=reps,
+                                              replays=2)}
+
+
+def probe_k2(smoke, dev):
+    from bliss_gnn_tpu_torch.ops.gather import lut_gather
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    nv = torch.tensor(int(0.8 * M), dtype=torch.int32, device=dev)
+    keys = torch.randint(0, N_NODES, (M,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lut = torch.rand(N_CAND, generator=g, device=dev) < 0.3
+    keys64 = keys.long()
+    return {"lut_gather": small_times(smoke, lambda: lut_gather(lut, keys, nv)),
+            "torch.take": small_times(smoke,
+                                      lambda: torch.take(lut, keys64))}
+
+
+def probe_k4(smoke, dev):
+    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
+    from bliss_gnn_tpu_torch.ops import _build
+    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    span = N_EDGES + EDGE_PAD
+    limit = len(BLOCK_E_CAPS) * span
+    u = sum(BLOCK_E_CAPS)
+    idx = torch.cat([
+        torch.randperm(N_EDGES, generator=g, device=dev)[:c] + l * span
+        for l, c in enumerate(BLOCK_E_CAPS)]).to(torch.int32)
+    idx = torch.where(torch.rand(u, generator=g, device=dev) < 0.3,
+                      torch.full_like(idx, limit), idx)
+    mult = torch.exp(torch.rand(u, generator=g, device=dev) * 0.5)
+    state = (torch.rand(limit, generator=g, device=dev) + 0.5).to(
+        torch.bfloat16)
+    valid = idx < limit
+    idx_v, mult_v = idx[valid].long(), mult[valid].to(torch.bfloat16)
+    c_entry = _build.load("exp3_apply").bliss_exp3_apply
+    c_args = (state.data_ptr(), idx.data_ptr(), mult.data_ptr(), u, limit,
+              torch.cuda.current_stream().cuda_stream)
+    return {
+        "exp3_apply": small_times(
+            smoke, lambda: exp3_apply(state, idx, mult, limit)),
+        "scatter_reduce_": small_times(
+            smoke, lambda: state.scatter_reduce_(0, idx_v, mult_v, "prod")),
+        "exp3_apply_c_entry_host_us": smoke.host_us(
+            lambda: c_entry(*c_args), torch),
+    }
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each value of the bf16 tensor ``x``."""
+    _, e = torch.frexp(x.float())  # |x| in [2^(e-1), 2^e)
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def probe_k4_repeats(smoke, dev, calls=200):
+    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply, exp3_apply_plain
+
+    # test_exp3_apply_kernel's inputs, drawn in its order from its seed
+    gen = torch.Generator(device=dev).manual_seed(0)
+    limit = 1 << 20
+    idx = torch.randint(0, limit, (30_000,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:5000] = idx[5000:10_000]
+    idx[-3000:] = limit
+    mult = torch.exp(torch.rand(30_000, generator=gen, device=dev) * 0.5)
+    state0 = (torch.rand(limit, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    ref = state0.clone()
+    exp3_apply_plain(ref, idx, mult, limit)
+    live = idx < limit
+    m = torch.zeros(limit, dtype=torch.int64, device=dev)
+    m.index_add_(0, idx[live].long(), torch.ones_like(idx[live].long()))
+    hist = torch.bincount(m)
+    ulp = bf16_ulp(ref)
+
+    def fails(got):  # the test's criterion: |got - ref| > 2^-7 |ref|
+        return (got.float() - ref.float()).abs() > 2.0 ** -7 * ref.float().abs()
+
+    fail_calls, fail_m, gaps, examples = 0, {}, {}, []
+    for _ in range(calls):
+        st = state0.clone()
+        exp3_apply(st, idx, mult, limit)
+        bad = fails(st).nonzero().flatten()
+        gap = ((st.float() - ref.float()).abs() / ulp).round().long()
+        for k in m.unique().tolist():
+            if k > 0:
+                sel = m == k
+                gaps[k] = max(gaps.get(k, 0), int(gap[sel].max()))
+        if bad.numel():
+            fail_calls += 1
+            for e in bad.tolist():
+                fail_m[int(m[e])] = fail_m.get(int(m[e]), 0) + 1
+                if len(examples) < 5:
+                    examples.append({
+                        "entry": e, "m": int(m[e]),
+                        "state": float(state0[e]),
+                        "factors": mult[idx == e].tolist(),
+                        "kernel": float(st[e]), "plain": float(ref[e]),
+                        "ulp_gap": int(gap[e])})
+
+    # every order of each entry's m factors, one bf16 rounding after each
+    idx_l = idx[live].long()
+    mult_l = mult[live]
+    order_fail, order_gap = {}, {}
+    for k in (2, 3, 4):
+        entries = (m == k).nonzero().flatten()
+        if not entries.numel():
+            continue
+        # the factors of each entry, in slot order: [entries, k]
+        pos = torch.searchsorted(entries, idx_l)
+        hit = (pos < entries.numel()) & (
+            entries[pos.clamp(max=entries.numel() - 1)] == idx_l)
+        ent_of = pos[hit]
+        fac = mult_l[hit]
+        order = torch.sort(ent_of, stable=True).indices
+        fac = fac[order].reshape(-1, k)
+        start = state0[entries]
+        want = ref[entries]
+        worst = torch.zeros(entries.numel(), dtype=torch.bool, device=dev)
+        gmax = torch.zeros(entries.numel(), device=dev)
+        for perm in itertools.permutations(range(k)):
+            v = start
+            for j in perm:
+                v = (v.float() * fac[:, j]).to(torch.bfloat16)
+            d = (v.float() - want.float()).abs()
+            worst |= d > 2.0 ** -7 * want.float().abs()
+            gmax = torch.maximum(gmax, d / bf16_ulp(want))
+        order_fail[k] = f"{int(worst.sum())} of {entries.numel()}"
+        order_gap[k] = int(gmax.round().max())
+    return {
+        "entries_by_times_updated": {str(k): int(c) for k, c in
+                                     enumerate(hist.tolist()) if k > 0},
+        "calls": calls, "calls_failing_the_test": fail_calls,
+        "failing_entries_by_m": {str(k): v for k, v in
+                                 sorted(fail_m.items())},
+        "max_ulp_gap_by_m": {str(k): v for k, v in sorted(gaps.items())},
+        "examples": examples,
+        "entries_some_order_fails_by_m": {str(k): v for k, v in
+                                          order_fail.items()},
+        "max_ulp_gap_any_order_by_m": {str(k): v for k, v in
+                                       order_gap.items()},
+    }
+
+
+def graph_arrays(smoke):
+    cache = ROOT / "build" / "reddit_shaped_csc_seed0.npz"
+    if cache.exists():
+        z = np.load(cache)
+        return z["indptr"], z["src"]
+    indptr, src = smoke.reddit_shaped_csc()
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(cache, indptr=indptr, src=src)
+    return indptr, src
+
+
+class FullGraph:
+    """The Reddit-shaped CSC arrays on the card, the same with src ids
+    modulo 16,384 (the L2 probe), and a >= 4M-edge CSC prefix."""
+
+    def __init__(self, smoke, dev):
+        indptr_np, src_np = graph_arrays(smoke)
+        self.n = indptr_np.shape[0] - 1
+        n_edges = int(src_np.shape[0])
+        self.ip = torch.from_numpy(indptr_np.astype(np.int32)).to(dev)
+        self.src = torch.zeros(n_edges + 128, dtype=torch.int32, device=dev)
+        self.src[:n_edges] = torch.from_numpy(src_np).to(dev)
+        self.src_l2 = self.src % 16384
+        self.k = int(np.searchsorted(indptr_np, smoke.PREFIX_EDGES))
+        self.pip = self.ip.clone()
+        self.pip[self.k:] = int(indptr_np[self.k])
+
+
+def launches_per_call(wrapper, fn):
+    before = wrapper.launches
+    fn()
+    return wrapper.launches - before
+
+
+def probe_k6(smoke, dev, fg):
+    import bliss_gnn_tpu_torch.ops.spmm as k6
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    n, ip, src, pip, k = fg.n, fg.ip, fg.src, fg.pip, fg.k
+    rec = {}
+    for f in (256, 41):
+        x = torch.randn((n, f), generator=g, device=dev).to(torch.bfloat16)
+        err = (k6.spmm(x, pip, src)[:k]
+               - k6.spmm_plain(x, pip, src)[:k]).abs().max().item()
+        r = {"max_abs_err_prefix": err,
+             "kernel_launches_per_call": launches_per_call(
+                 k6.spmm, lambda: k6.spmm(x, ip, src)),
+             **large_times(smoke, lambda: k6.spmm(x, ip, src), 5)}
+        if f == 256:
+            r["l2_probe_src_mod_16384"] = large_times(
+                smoke, lambda: k6.spmm(x, ip, fg.src_l2), 5)
+            if hasattr(k6, "spmm_plan"):
+                keep = k6.L2_SLICE_BYTES
+                for cols in (32, 64, 128, 256):
+                    k6.L2_SLICE_BYTES = n * 2 * cols
+                    r[f"slice_{cols}"] = large_times(
+                        smoke, lambda: k6.spmm(x, ip, src), 5)
+                k6.L2_SLICE_BYTES = keep
+        rec[f"spmm[F={f}]"] = r
+        del x
+    return rec
+
+
+def probe_k7(smoke, dev, fg):
+    import bliss_gnn_tpu_torch.ops.gat_attention as k7
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    n, ip, src, pip, k = fg.n, fg.ip, fg.src, fg.pip, fg.k
+    rec = {}
+    for h, o in ((4, 256), (1, 41)):
+        feat = torch.randn((n, h, o), generator=g, device=dev).to(
+            torch.bfloat16)
+        attn = torch.randn((1, h, o), generator=g, device=dev) / o ** 0.5
+
+        def call(s=src):
+            return k7.gat_attention(feat, attn, 0.2, ip, s)
+
+        err = (k7.gat_attention(feat, attn, 0.2, pip, src)[:k]
+               - k7.gat_attention_plain(feat, attn, 0.2, pip, src)[:k]
+               ).abs().max().item()
+        r = {"max_abs_err_prefix": err,
+             "kernel_launches_per_call": launches_per_call(
+                 k7.gat_attention, call),
+             **large_times(smoke, call, 3)}
+        if h == 4:
+            r["l2_probe_src_mod_16384"] = large_times(
+                smoke, lambda: call(fg.src_l2), 3)
+        if hasattr(k7, "gat_plan"):
+            r["splits_per_head"] = k7.gat_plan(h, o, feat.dtype)[1]
+            plan = k7.gat_plan
+            for splits in (1, 2, 4, 8):
+                if min(h, 8) * splits <= 8:
+                    k7.gat_plan = lambda hh, oo, dt, s=splits: (
+                        plan(hh, oo, dt)[0], s)
+                    r[f"splits_{splits}"] = large_times(smoke, call, 3)
+            k7.gat_plan = plan
+        rec[f"gat_attention[H={h},O={o}]"] = r
+        del feat
+    return rec
+
+
+def main():
+    kernels = sys.argv[1:]
+    known = ("k2", "k4", "k6", "k7", "k4-repeats")
+    if not kernels or any(k not in known for k in kernels):
+        sys.exit(f"usage: kernel_probe.py KERNEL [KERNEL ...], KERNEL in "
+                 f"{', '.join(known)}")
+    if not torch.cuda.is_available():
+        sys.exit("kernel_probe: torch.cuda.is_available() is false")
+    import bliss_gnn_tpu_torch
+
+    smoke = smoke_module()
+    dev = torch.device("cuda")
+    rec = {"package": bliss_gnn_tpu_torch.__file__,
+           "nvidia_smi": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True,
+               text=True).stdout.strip()}
+    fg = FullGraph(smoke, dev) if {"k6", "k7"} & set(kernels) else None
+    for name in kernels:
+        if name == "k2":
+            rec.update(probe_k2(smoke, dev))
+        elif name == "k4":
+            rec.update(probe_k4(smoke, dev))
+        elif name == "k4-repeats":
+            rec["exp3_apply_test_inputs"] = probe_k4_repeats(smoke, dev)
+        elif name == "k6":
+            rec.update(probe_k6(smoke, dev, fg))
+        else:
+            rec.update(probe_k7(smoke, dev, fg))
+    print(json.dumps(rec), flush=True)
+
+
+if __name__ == "__main__":
+    main()
