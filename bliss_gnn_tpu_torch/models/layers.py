@@ -6,7 +6,9 @@ pre-softmax logits exported for the bandit).
 Parameters are f32; the compute is bf16, with explicit casts at the places
 the reference rounds (no autocast). When ``in_feats > out_feats`` the
 projection runs before the aggregation, so fewer features go through the
-segment sum.
+segment sum. A block's edges are sorted by dst on their valid prefix, so
+every sum by ``e_dst`` passes ``ids_sorted=True`` (the reduce-by-key route
+of K1 and K3); sums by ``e_src`` take the atomic route.
 """
 from __future__ import annotations
 
@@ -85,9 +87,9 @@ class SAGEConv(nn.Module):
         msg = gather_rows(src_val, block.e_src, src_val.shape[0], n_valid=nv)
         msg = msg * block.e_weight[:, None].to(COMPUTE_DTYPE)
         agg = masked_segment_sum(msg, block.e_dst, n_dst, block.e_mask,
-                                 n_valid=nv)
+                                 n_valid=nv, ids_sorted=True)
         deg = segment_count(block.e_dst, n_dst, block.e_mask,
-                            dtype=torch.float32, n_valid=nv)
+                            dtype=torch.float32, n_valid=nv, ids_sorted=True)
         agg = agg / torch.clamp(deg, min=1.0)[:, None].to(COMPUTE_DTYPE)
         h_neigh = agg if lin_before else _linear(agg, self.fc_neigh.weight)
         return (_linear(h_dst, self.fc_self.weight) + h_neigh
@@ -127,11 +129,12 @@ class GraphConv(nn.Module):
         msg = gather_rows(feat, block.e_src, feat.shape[0], n_valid=nv)
         msg = msg * block.e_weight[:, None].to(COMPUTE_DTYPE)
         rst = masked_segment_sum(msg, block.e_dst, n_dst, block.e_mask,
-                                 n_valid=nv)
+                                 n_valid=nv, ids_sorted=True)
         if not lin_before:
             rst = _dense(rst, self.fc)
         in_deg = segment_count(block.e_dst, n_dst, block.e_mask,
-                               dtype=torch.float32, n_valid=nv)
+                               dtype=torch.float32, n_valid=nv,
+                               ids_sorted=True)
         dst_norm = torch.rsqrt(torch.clamp(in_deg, min=1.0)).to(COMPUTE_DTYPE)
         rst = rst * dst_norm[:, None]
         return rst if self.activation is None else self.activation(rst)
@@ -182,16 +185,18 @@ class GATv2Conv(nn.Module):
         nv = block.n_valid_edges()
         el2 = gather_rows(feat2, block.e_src, feat2.shape[0], n_valid=nv)
         er2 = gather_rows(feat2[:n_dst], torch.clamp(block.e_dst, 0, n_dst - 1),
-                          n_dst, n_valid=nv)
+                          n_dst, n_valid=nv, ids_sorted=True)
         el = el2.reshape(-1, H, O)
         e_full = F.leaky_relu(el + er2.reshape(-1, H, O), self.negative_slope)
         e = (e_full * self.attn.to(COMPUTE_DTYPE)).sum(dim=-1)  # [E, H]
-        a = edge_softmax(e, block.e_dst, n_dst, block.e_mask)
+        a = edge_softmax(e, block.e_dst, n_dst, block.e_mask, n_valid=nv,
+                         ids_sorted=True)
         if self.training:
             a = dropout(a, self.attn_drop, generator)
         msg2 = (el * a[..., None].to(COMPUTE_DTYPE)).reshape(-1, H * O)
         rst = masked_segment_sum(msg2, block.e_dst, n_dst, block.e_mask,
-                                 n_valid=nv).reshape(n_dst, H, O)
+                                 n_valid=nv, ids_sorted=True
+                                 ).reshape(n_dst, H, O)
         if self.residual:
             res = h_dst if self.res_fc is None else _linear(
                 h_dst, self.res_fc.weight)

@@ -33,6 +33,29 @@ def valid_arg(n_valid, device: torch.device) -> Optional[torch.Tensor]:
     return torch.tensor([int(n_valid)], dtype=torch.int32, device=device)
 
 
+def sorted_valid_arg(n_valid, device: torch.device,
+                     what: str) -> torch.Tensor:
+    """``valid_arg`` for a sorted route, which needs the prefix bound: the
+    masked tail past it carries id 0."""
+    if n_valid is None:
+        raise ValueError(f"{what}: ids_sorted=True needs n_valid")
+    return valid_arg(n_valid, device)
+
+
+def check_sorted(ids: torch.Tensor, n_valid, what: str) -> None:
+    """The plain versions' check of an ``ids_sorted`` promise: ids
+    non-decreasing on the valid prefix. Checked on a CPU tensor only (on the
+    card it would cost a host sync); a missing ``n_valid`` raises anywhere."""
+    nv = sorted_valid_arg(n_valid, ids.device, what)
+    if ids.device.type != "cpu":
+        return
+    n = max(0, int(nv))
+    prefix = ids[:n]
+    if bool((prefix[1:] < prefix[:-1]).any()):
+        raise ValueError(f"{what}: ids_sorted=True but the ids decrease "
+                         f"inside the valid prefix of {n}")
+
+
 def prefix_mask(n: int, n_valid, device: torch.device) -> Optional[torch.Tensor]:
     """Boolean [n] mask of the valid prefix, or None when n_valid is None."""
     if n_valid is None:

@@ -36,10 +36,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points of each source: name -> argtypes
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "scatter_add": {"bliss_scatter_add_f32": [_P, _P, _P, _LL, _P, _I, _P]},
+    "scatter_add": {
+        "bliss_scatter_add_f32": [_P, _P, _P, _LL, _P, _I, _P],
+        "bliss_scatter_add_sorted_f32": [_P, _P, _P, _LL, _P, _I, _I, _P],
+    },
     "lut_gather": {"bliss_lut_gather": [_P, _I, _P, _LL, _P, _P]},
     "segment_sum": {
-        "bliss_segment_sum": [_P, _I, _P, _LL, _I, _P, _I, _P, _P, _P]
+        "bliss_segment_sum": [_P, _I, _P, _LL, _I, _P, _I, _P, _I, _P, _I,
+                              _P],
+        "bliss_segment_sum_sorted": [_P, _I, _P, _LL, _I, _P, _I, _P, _P, _P,
+                                     _LL, _I, _P],
+        "bliss_segment_sum_cast": [_P, _I, _P, _I, _I, _I, _P],
+        "bliss_segment_sum_fold": [_P, _P, _I, _LL, _I, _P, _P, _I, _P],
     },
     "exp3_apply": {"bliss_exp3_apply": [_P, _P, _P, _LL, _I, _P]},
     "row_scatter": {

@@ -34,24 +34,30 @@ def _mask_data(data: torch.Tensor, mask: Optional[torch.Tensor]):
 
 def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int, mask: Optional[torch.Tensor] = None,
-                       n_valid=None) -> torch.Tensor:
+                       n_valid=None, ids_sorted: bool = False) -> torch.Tensor:
     """Sum of ``data`` [E, ...] over segments; masked slots add zero.
 
     ``n_valid``: optional bound on the contiguous prefix holding every
-    unmasked slot; the kernels skip the rest."""
+    unmasked slot; the kernels skip the rest. ``ids_sorted``: the ids are
+    non-decreasing on that prefix (a block's edges by dst, frontier chunks
+    by owner), so K1 and K3 take their reduce by key; it needs ``n_valid``.
+    The wide-row route (K5) takes the flag and ignores it."""
+    if ids_sorted and n_valid is None:
+        raise ValueError("masked_segment_sum: ids_sorted=True needs n_valid")
     data = _mask_data(data, mask)
     ids = segment_ids if mask is None else torch.where(mask, segment_ids, 0)
     if not data.is_floating_point() or data.dim() > 2:
         raise TypeError(f"masked_segment_sum: no route for {data.dtype} "
                         f"of rank {data.dim()}")
     if data.dim() == 1:
-        return scatter_add_diff(ids, data, num_segments, n_valid).to(data.dtype)
+        return scatter_add_diff(ids, data, num_segments, n_valid,
+                                ids_sorted).to(data.dtype)
     e, f = data.shape
     if (f % 128 == 0 and f >= ROW_SCATTER_MIN_FEATS
             and e >= ROW_SCATTER_MIN_ROWS):
         return row_scatter_add_diff(data, ids, num_segments,
                                     n_valid).to(data.dtype)
-    return segment_sum_diff(data, ids, num_segments, n_valid)
+    return segment_sum_diff(data, ids, num_segments, n_valid, ids_sorted)
 
 
 def masked_segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -105,30 +111,35 @@ def gather_v(x_dst, e_dst, mask=None):
 class _GatherRows(torch.autograd.Function):
     """Row take that reads zero for out-of-range ids; its backward is the
     segment sum of the cotangent rows into ``n_rows`` (K3, or K5 for wide
-    rows, on the card), bounded by ``n_valid``."""
+    rows, on the card), bounded by ``n_valid``, by the sorted route when
+    ``ids_sorted``."""
 
     @staticmethod
-    def forward(ctx, x, idx, n_rows, n_valid):
+    def forward(ctx, x, idx, n_rows, n_valid, ids_sorted):
         keep = (idx >= 0) & (idx < x.shape[0])
         out = x[torch.where(keep, idx, 0).long()]
         out = out.masked_fill(
             ~keep.reshape(keep.shape + (1,) * (x.dim() - 1)), 0)
         ctx.save_for_backward(idx)
-        ctx.n_rows, ctx.n_valid = n_rows, n_valid
+        ctx.n_rows, ctx.n_valid, ctx.ids_sorted = n_rows, n_valid, ids_sorted
         return out
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        dx = masked_segment_sum(g, idx, ctx.n_rows, n_valid=ctx.n_valid)
-        return dx, None, None, None
+        dx = masked_segment_sum(g, idx, ctx.n_rows, n_valid=ctx.n_valid,
+                                ids_sorted=ctx.ids_sorted)
+        return dx, None, None, None, None
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor,
-                n_rows: Optional[int] = None, n_valid=None) -> torch.Tensor:
-    """``x[idx]`` with zero for out-of-range ids (the JAX ``_gather_rows``)."""
+                n_rows: Optional[int] = None, n_valid=None,
+                ids_sorted: bool = False) -> torch.Tensor:
+    """``x[idx]`` with zero for out-of-range ids (the JAX ``_gather_rows``).
+    ``ids_sorted``: ``idx`` is non-decreasing on the ``n_valid`` prefix,
+    which the backward's segment sum may use."""
     n_rows = x.shape[0] if n_rows is None else n_rows
-    return _GatherRows.apply(x, idx, n_rows, n_valid)
+    return _GatherRows.apply(x, idx, n_rows, n_valid, ids_sorted)
 
 
 def u_mul_e_sum(x_src, e_src, e_vals, e_dst, n_dst: int, mask=None):
@@ -154,22 +165,26 @@ def segment_mean(data, segment_ids, num_segments: int, mask=None):
 
 
 def segment_count(segment_ids, num_segments: int, mask=None,
-                  dtype=torch.int32, n_valid=None) -> torch.Tensor:
+                  dtype=torch.int32, n_valid=None,
+                  ids_sorted: bool = False) -> torch.Tensor:
     """Per-segment counts of a padded edge list, counted in f32 through K1
-    (exact: a count stays far below 2^24)."""
+    (exact: a count stays far below 2^24); ``ids_sorted`` as in
+    :func:`masked_segment_sum`."""
     ones = torch.ones(segment_ids.shape[0], dtype=torch.float32,
                       device=segment_ids.device)
     out = masked_segment_sum(ones, segment_ids, num_segments, mask,
-                             n_valid=n_valid)
+                             n_valid=n_valid, ids_sorted=ids_sorted)
     if dtype == torch.float32:
         return out
     return torch.round(out).to(dtype)
 
 
 def edge_softmax(logits: torch.Tensor, e_dst: torch.Tensor, n_dst: int,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mask: Optional[torch.Tensor] = None, n_valid=None,
+                 ids_sorted: bool = False) -> torch.Tensor:
     """Softmax of edge scores [E] or [E, H] over each dst's incoming edges,
     in f32, returned in the logits' dtype; masked edges give exactly 0.
+    ``n_valid`` and ``ids_sorted`` go to the denominator's segment sum.
 
     The per-dst max only shifts the exponent (the result does not depend
     on it), so it carries no gradient."""
@@ -178,6 +193,7 @@ def edge_softmax(logits: torch.Tensor, e_dst: torch.Tensor, n_dst: int,
     seg_max = masked_segment_max(compute.detach(), e_dst, n_dst, mask)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
     ex = _mask_data(torch.exp(compute - seg_max[ids]), mask)
-    denom = masked_segment_sum(ex, e_dst, n_dst, mask)
+    denom = masked_segment_sum(ex, e_dst, n_dst, mask, n_valid=n_valid,
+                               ids_sorted=ids_sorted)
     denom = torch.clamp(denom, min=torch.finfo(torch.float32).tiny)
     return _mask_data(ex / denom[ids], mask).to(logits.dtype)

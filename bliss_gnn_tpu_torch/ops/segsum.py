@@ -1,28 +1,49 @@
 """K3: row segment-sum, out[S, F] = sum of data[e, :] into row ids[e].
 
 Counterpart of ``bliss_gnn_tpu/ops/segsum_pallas.py``. A CUDA tensor goes to
-the hand-written kernel ``csrc/segment_sum.cu`` (warp per edge row, f32
-atomics into a scratch, one cast pass); a CPU tensor goes to
+the hand-written kernel ``csrc/segment_sum.cu``; a CPU tensor goes to
 :func:`segment_sum_plain`. bf16 and f32 payloads accumulate in f32 and come
-back in their own dtype.
+back in their own dtype. Two routes (the design notes are in the source):
+ids sorted on the valid prefix (``ids_sorted=True``) take a reduce by key
+with no atomics, no scratch of the output's size and the same bits on every
+call, in two launches (tiles, then a fold of the runs that cross tiles) for
+rows of whole 16-byte vectors and in one for narrow rows (F = 41); other
+ids take a memset and float4 atomics into an f32 scratch, then a cast
+kernel: two launches (one for f32 rows of whole float4s, which accumulate
+straight into the output). ``segment_sum.launches`` adds one per kernel
+launched; memsets are not counted.
 
-Callers are the SAGE block aggregation and, through the backward of
-``segment.gather_rows``, the message gradient into the src table.
+Callers are the block aggregations by dst (sorted) and, through the
+backward of ``segment.gather_rows``, the message gradient into the src
+table (unsorted).
 """
 from __future__ import annotations
 
 import torch
 
 from bliss_gnn_tpu_torch.ops import _build
-from bliss_gnn_tpu_torch.ops._args import index_i32, prefix_mask, valid_arg
+from bliss_gnn_tpu_torch.ops._args import (
+    check_sorted,
+    index_i32,
+    prefix_mask,
+    sorted_valid_arg,
+    valid_arg,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# edge rows per warp tile of the sorted route with rows of whole 16-byte
+# vectors (csrc tile_rows)
+SORTED_TILE_ROWS = 64
 
 
 def segment_sum_plain(data: torch.Tensor, ids: torch.Tensor,
-                      num_segments: int, n_valid=None) -> torch.Tensor:
+                      num_segments: int, n_valid=None,
+                      ids_sorted: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: f32 accumulation, output in
-    data's dtype; ids outside [0, S) and rows past ``n_valid`` add 0."""
+    data's dtype; ids outside [0, S) and rows past ``n_valid`` add 0. With
+    ``ids_sorted`` on a CPU tensor it checks the caller's promise."""
+    if ids_sorted:
+        check_sorted(ids, n_valid, "segment_sum")
     keep = (ids >= 0) & (ids < num_segments)
     live = prefix_mask(ids.shape[0], n_valid, ids.device)
     if live is not None:
@@ -35,11 +56,22 @@ def segment_sum_plain(data: torch.Tensor, ids: torch.Tensor,
     return acc.to(data.dtype)
 
 
+def _sorted_vec(data: torch.Tensor) -> int:
+    """Columns per lane on the sorted route: one 16-byte vector when rows
+    are whole aligned vectors, else one column."""
+    vec = 16 // data.element_size()
+    aligned = data.shape[1] % vec == 0 and data.data_ptr() % 16 == 0
+    return vec if aligned else 1
+
+
 def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
-                n_valid=None) -> torch.Tensor:
-    """[num_segments, F] sum of ``data`` [E, F] rows by ``ids`` [E]."""
+                n_valid=None, ids_sorted: bool = False) -> torch.Tensor:
+    """[num_segments, F] sum of ``data`` [E, F] rows by ``ids`` [E].
+
+    ``ids_sorted`` promises ids non-decreasing on the valid prefix (it
+    needs ``n_valid``); nothing on the card checks the promise."""
     if data.device.type == "cpu":
-        return segment_sum_plain(data, ids, num_segments, n_valid)
+        return segment_sum_plain(data, ids, num_segments, n_valid, ids_sorted)
     if data.device.type != "cuda" or ids.device != data.device:
         raise ValueError(f"segment_sum: no kernel for {data.device}/{ids.device}")
     if data.dim() != 2 or ids.shape[0] != data.shape[0]:
@@ -49,22 +81,65 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
     data = data.contiguous()
     ids = index_i32(ids, "segment_sum ids")
     e, f = data.shape
-    nv = valid_arg(n_valid, data.device)
+    code = _DTYPE_CODE[data.dtype]
     out = torch.empty((num_segments, f), dtype=data.dtype, device=data.device)
-    acc = (torch.empty((num_segments, f), dtype=torch.float32,
-                       device=data.device)
-           if data.dtype != torch.float32 else None)
     lib = _build.load("segment_sum")
+    stream = _build.stream_of(data)
+    if ids_sorted:
+        nv = sorted_valid_arg(n_valid, data.device, "segment_sum")
+        vec = _sorted_vec(data)
+        # rows of 16-byte vectors carry runs across tiles to a second
+        # launch; narrow rows have no carries and no scratch
+        n_tiles = max(1, -(-e // SORTED_TILE_ROWS)) if vec > 1 else 0
+        c_int = c_val = None
+        if vec > 1:
+            c_int = torch.empty(3 * n_tiles, dtype=torch.int32,
+                                device=data.device)
+            c_val = torch.empty((2 * n_tiles, f), dtype=torch.float32,
+                                device=data.device)
+        err = lib.bliss_segment_sum_sorted(
+            data.data_ptr(), code, ids.data_ptr(), e, f, nv.data_ptr(),
+            num_segments, out.data_ptr(), _build.ptr(c_int), _build.ptr(c_val),
+            n_tiles, vec, stream)
+        _count(f"sorted {e}x{f}")
+        _build.check(err, "segment_sum (sorted tiles)")
+        if vec > 1:
+            err = lib.bliss_segment_sum_fold(
+                c_int.data_ptr(), c_val.data_ptr(), code, e, f, nv.data_ptr(),
+                out.data_ptr(), vec, stream)
+            _count(f"sorted {e}x{f}")
+            _build.check(err, "segment_sum (sorted fold)")
+        return out
+    nv = valid_arg(n_valid, data.device)
+    fp = -(-f // 4) * 4  # scratch rows padded to whole float4 atomics
+    align = 16 if data.dtype == torch.float32 else 8
+    vec4 = int(f % 4 == 0 and data.data_ptr() % align == 0)
+    acc = (torch.empty((num_segments, fp), dtype=torch.float32,
+                       device=data.device)
+           if data.dtype != torch.float32 or fp != f else None)
     err = lib.bliss_segment_sum(
-        data.data_ptr(), _DTYPE_CODE[data.dtype], ids.data_ptr(), e, f,
-        _build.ptr(nv), num_segments, _build.ptr(acc), out.data_ptr(),
-        _build.stream_of(data))
-    segment_sum.launches += 1
+        data.data_ptr(), code, ids.data_ptr(), e, f, _build.ptr(nv),
+        num_segments, _build.ptr(acc), fp, out.data_ptr(), vec4, stream)
+    _count(f"unsorted {e}x{f}")
     _build.check(err, "segment_sum")
+    if acc is not None:
+        err = lib.bliss_segment_sum_cast(acc.data_ptr(), fp, out.data_ptr(),
+                                         code, num_segments, f, stream)
+        _count(f"unsorted {e}x{f}")
+        _build.check(err, "segment_sum (cast)")
     return out
 
 
+def _count(key: str) -> None:
+    """One kernel launched: the total and its route and shape's count."""
+    segment_sum.launches += 1
+    by = segment_sum.launches_by_shape
+    by[key] = by.get(key, 0) + 1
+
+
 segment_sum.launches = 0
+# the same launches by route and input shape, e.g. "sorted 150016x256"
+segment_sum.launches_by_shape = {}
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -72,20 +147,21 @@ class _SegmentSum(torch.autograd.Function):
     zero for ids outside [0, S) (they added nothing forward)."""
 
     @staticmethod
-    def forward(ctx, data, ids, num_segments, n_valid):
+    def forward(ctx, data, ids, num_segments, n_valid, ids_sorted):
         ctx.save_for_backward(ids)
         ctx.num_segments = num_segments
-        return segment_sum(data, ids, num_segments, n_valid)
+        return segment_sum(data, ids, num_segments, n_valid, ids_sorted)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         keep = (ids >= 0) & (ids < ctx.num_segments)
         dmsg = g[torch.where(keep, ids, 0).long()]
-        return dmsg.masked_fill(~keep[:, None], 0), None, None, None
+        return dmsg.masked_fill(~keep[:, None], 0), None, None, None, None
 
 
-def segment_sum_diff(data, ids, num_segments: int, n_valid=None):
+def segment_sum_diff(data, ids, num_segments: int, n_valid=None,
+                     ids_sorted: bool = False):
     if data.requires_grad:
-        return _SegmentSum.apply(data, ids, num_segments, n_valid)
-    return segment_sum(data, ids, num_segments, n_valid)
+        return _SegmentSum.apply(data, ids, num_segments, n_valid, ids_sorted)
+    return segment_sum(data, ids, num_segments, n_valid, ids_sorted)

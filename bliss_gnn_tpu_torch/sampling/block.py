@@ -62,11 +62,13 @@ class Block:
         return torch.where(self.e_mask, iota, 0).max()
 
     def in_degrees(self, dtype=torch.int32) -> torch.Tensor:
-        """Kept-edge in-degree per dst slot (K1 through segment_count)."""
+        """Kept-edge in-degree per dst slot (K1 through segment_count, by
+        its sorted route: a block's edges are sorted by dst)."""
         from bliss_gnn_tpu_torch.ops.segment import segment_count
 
         return segment_count(self.e_dst, self.n_dst_cap, self.e_mask,
-                             dtype=dtype)
+                             dtype=dtype, n_valid=self.n_valid_edges(),
+                             ids_sorted=True)
 
 
 def _round_up(x: int, m: int) -> int:

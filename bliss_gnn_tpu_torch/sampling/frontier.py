@@ -51,10 +51,14 @@ class Frontier(NamedTuple):
     def ck(self) -> int:
         return self.eid.shape[0] // self.chunk_gidx.shape[0]
 
+    def n_valid_chunks(self) -> torch.Tensor:
+        """0-dim int32: the number of valid chunks, which form a prefix."""
+        return self.chunk_valid.sum(dtype=torch.int32)
+
     def n_valid_slots(self) -> torch.Tensor:
-        """0-dim int32: valid chunks form a prefix, so every unmasked slot
-        lies in [0, n_valid_chunks * ck)."""
-        return self.chunk_valid.sum(dtype=torch.int32) * self.ck
+        """0-dim int32: every unmasked slot lies in [0, n_valid_chunks *
+        ck)."""
+        return self.n_valid_chunks() * self.ck
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -90,10 +94,14 @@ def frontier_seed_broadcast(frontier: Frontier,
 def frontier_segment_sum(frontier: Frontier, vals: torch.Tensor,
                          n_seed_cap: int) -> torch.Tensor:
     """Per-seed sum of per-slot values (zero on masked slots): per-chunk
-    partial sums, then one scatter-add of the partials by chunk owner."""
+    partial sums, then one scatter-add of the partials by chunk owner. The
+    owners are a running max, so they are sorted, and the valid chunks are
+    a prefix: the sorted route of K1."""
     partial = vals.reshape(-1, frontier.ck).sum(dim=1)
     partial = torch.where(frontier.chunk_valid, partial, 0.0)
-    return masked_segment_sum(partial, frontier.chunk_owner, n_seed_cap)
+    return masked_segment_sum(
+        partial, frontier.chunk_owner, n_seed_cap,
+        n_valid=frontier.n_valid_chunks(), ids_sorted=True)
 
 
 def gather_in_edges(csc_indptr: torch.Tensor, csc_src: torch.Tensor,

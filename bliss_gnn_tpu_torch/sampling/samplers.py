@@ -274,13 +274,15 @@ def _build_block(frontier: Frontier, cand: Candidates, sel: torch.Tensor,
     p_src_edge = p_src_edge.to(torch.float32)
     e_src = torch.where(e_mask_b, e_src_r, 0)
     wt = _safe_div(w, p_src_edge)
+    # kept edges keep the frontier's slot order, so e_dst is sorted on the
+    # first nk slots: the sorted route of K1
     d = segment_count(e_dst, n_seed_cap, e_mask_b, dtype=torch.float32,
-                      n_valid=nk)
+                      n_valid=nk, ids_sorted=True)
     if debias == "ladies":
         wt = wt * lut_gather(d, e_dst, n_valid=nk)
     elif debias == "bandit":
         wt_sum = masked_segment_sum(wt, e_dst, n_seed_cap, e_mask_b,
-                                    n_valid=nk)
+                                    n_valid=nk, ids_sorted=True)
         wt = wt * lut_gather(_safe_div(d, wt_sum), e_dst, n_valid=nk)
     wt = torch.where(e_mask_b, wt, 0.0)
 
@@ -418,9 +420,12 @@ def _calculate_alpha(graph: DeviceGraph, cfg: SamplerConfig, block: Block,
         if a_ij is None:
             raise ValueError("the GAT reward needs the per-edge logits a_ij")
         n = block.n_dst_cap
-        q_sum = masked_segment_sum(block.e_q, block.e_dst, n, block.e_mask)
+        nv = block.n_valid_edges()
+        q_sum = masked_segment_sum(block.e_q, block.e_dst, n, block.e_mask,
+                                   n_valid=nv, ids_sorted=True)
         a = a_ij.to(torch.float32)
-        a_sum = masked_segment_sum(a, block.e_dst, n, block.e_mask)
+        a_sum = masked_segment_sum(a, block.e_dst, n, block.e_mask,
+                                   n_valid=nv, ids_sorted=True)
         a_dst, q_dst = lut_gather_multi((a_sum, q_sum), block.e_dst)
         ratio = torch.nan_to_num(a / a_dst)
         alpha = ratio * q_dst

@@ -19,8 +19,14 @@ fan-outs 4096/2048/1024):
                aggregations on a CSC prefix of >= 4M edges;
 
 then holds each kernel against its plain PyTorch version at the paths'
-shapes (phase ``kernel``): K2 also with five tables in one launch, K4 bitwise
-on distinct indices and within m - 1 bf16 ulps on an index repeated m times.
+shapes (phase ``kernel``): K1 and K3 at each call site's shape, on the ids
+of one more sampled step on the main path's final plan (phase
+``call_sites``: the layer-0 block's valid edges and largest kept in-degree),
+their sorted routes also against themselves (two calls, the same bits); K2
+also with five tables in one launch; K4 bitwise on distinct indices and
+within m - 1 bf16 ulps on an index repeated m times. K1's and K3's
+``launches`` count their route over the main path (K3's at the row's
+width); ``launches_at_this_shape`` the row's own shape.
 Each kernel row carries ``ms`` (CUDA events around back-to-back wrapper
 calls: the slower of the host's launch rate and the device) and
 ``device_ms`` (the same calls captured in a CUDA graph and replayed; also
@@ -329,10 +335,12 @@ def main():
     # -- phase 3b: the main path, counted --------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers)
     state, step, times, metrics_log, final = train(tight, seed=0, widen=True)
     launches = {name: wrappers[name].launches for name in step_kernels}
+    # K1's and K3's launches by route and input shape (call site)
+    by_shape = {name: dict(wrappers[name].launches_by_shape)
+                for name in ("scatter_add", "segment_sum")}
     peak = torch.cuda.max_memory_allocated()
     step_ms = times[WARMUP_STEPS:]
     step_med = statistics.median(step_ms)
@@ -353,6 +361,9 @@ def main():
           "sampling_ms": statistics.median(samp_ms),
           "loss": losses, "launches": launches,
           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "launches_per_step_by_shape": {
+              k: {s: v / n_steps for s, v in d.items()}
+              for k, d in by_shape.items()},
           "overflow": overflow,
           "steps_overflowed": sum(
               any(int(v) > 0 for k, v in m.items()
@@ -366,9 +377,17 @@ def main():
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss {losses}")
     missing = [k for k, v in launches.items() if v <= 0]
+    missing += [f"{k} {route}" for k, d in by_shape.items()
+                for route in ("sorted", "unsorted")
+                if not any(s.startswith(route + " ") for s in d)]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
     profile_steps(torch, state, step, seeds, smask, step_med, smi_line)
+    sites = call_site_inputs(torch, graph, cfg, final, state.exp3_weights,
+                             seeds, smask)
+    emit({"phase": "call_sites", "plan_block_e_caps": final.block_e_caps,
+          **{k: v for k, v in sites.items()
+             if not isinstance(v, torch.Tensor)}})
     sage_model = state.model
     del state, step, metrics_log
     torch.cuda.empty_cache()
@@ -383,8 +402,7 @@ def main():
                                   else ())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_counts(wrappers)
         mstate, _, mtimes, mlog, mfinal = train(final, seed=seed, widen=True,
                                                 cfg=mcfg)
         mlaunches = {k: wrappers[k].launches for k in kernels}
@@ -439,13 +457,53 @@ def main():
     # -- phase 6: each kernel against its plain version -------------------
     del sage_model, gcn_model, gat_model
     torch.cuda.empty_cache()
-    rows = kernel_checks(torch, dev, final, n_edges, launches)
+    rows = kernel_checks(torch, dev, final, n_edges, launches, sites,
+                         by_shape)
     rows += wide_kernel_checks(torch, dev, gfinal, graph, indptr_np,
                                glaunches, layer_launches)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def reset_counts(wrappers):
+    """Sets every wrapper's launch count, and K1's and K3's counts by
+    shape, to 0."""
+    for fn in wrappers.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_shape"):
+            fn.launches_by_shape = {}
+
+
+def call_site_inputs(torch, graph, cfg, plan, exp3, seeds, smask, seed=5):
+    """The inputs of K1's and K3's sorted and unsorted call sites, from one
+    more sampled step on ``plan`` with the arm weights ``exp3``: the layer-0
+    and output-layer blocks' edge lists (``e_dst`` sorted, ``e_src`` not)
+    with their valid prefixes and dst and src caps, and the layer-0
+    frontier's chunk owners (sorted) with the valid chunk count. Also the
+    layer-0 and output-layer blocks' largest kept in-degrees, the skew the
+    sorted routes see.
+    Ints are plain ints (host syncs: this is set-up)."""
+    from bliss_gnn_tpu_torch.sampling.frontier import gather_in_edges
+    from bliss_gnn_tpu_torch.sampling.samplers import sample_blocks
+
+    gen = torch.Generator(device=seeds.device).manual_seed(seed)
+    blocks, _ = sample_blocks(graph, cfg, plan, gen, seeds, smask, exp3)
+    out = {}
+    for tag, b in (("0", blocks[0]), ("out", blocks[-1])):
+        out.update({f"e_dst{tag}": b.e_dst, f"e_src{tag}": b.e_src,
+                    f"nv{tag}": int(b.n_valid_edges()),
+                    f"n_dst{tag}": b.n_dst_cap, f"n_src{tag}": b.n_src_cap})
+    fr = gather_in_edges(graph.csc_indptr, graph.csc_src, blocks[1].src_gids,
+                         blocks[1].src_mask, plan.frontier_caps[0])
+    deg = blocks[0].in_degrees()
+    out.update(owner0=fr.chunk_owner,
+               n_chunks0=int(fr.chunk_valid.sum(dtype=torch.int32)),
+               chunk_edges0=fr.ck, max_in_degree0=int(deg.max()),
+               dsts_with_edges0=int((deg > 0).sum()),
+               max_in_degree_out=int(blocks[-1].in_degrees().max()))
+    return out
 
 
 def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line, n=3):
@@ -617,8 +675,7 @@ def inference_phase(torch, graph, indptr_np, models, wrappers, smi_line):
 
     n_layers = len(FANOUTS)
     shape_launches, runs = {}, {}
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers)
     for name, model in models.items():
         model.eval()
         kname = "gat_attention" if name == "gat" else "spmm"
@@ -701,7 +758,7 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
         row_scatter_add,
         row_scatter_add_plain,
     )
-    from bliss_gnn_tpu_torch.ops.segsum import segment_sum
+    from bliss_gnn_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
     from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain, spmm_plan
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -733,6 +790,30 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
                  f"in {bad} entries")
         lib5 = torch.zeros((s, f5), device=dev, dtype=torch.bfloat16)
         ids64 = ids.long()
+        k3_sorted = {}
+        if ordered:
+            # K3's sorted route on the dst-sorted inputs, the route K5's
+            # sorted calls are to take: held to K3's tolerance and to equal
+            # bits on two calls before it is timed
+            def k3_call():
+                return segment_sum(data, ids, s, nv_d, ids_sorted=True)
+
+            got3 = k3_call()
+            want3 = segment_sum_plain(data, ids, s, nv_d,
+                                      ids_sorted=True).float()
+            diff3 = (got3.float() - want3).abs()
+            bad3 = (diff3 > BF16_ULP * want3.abs() + 1e-3).sum().item()
+            if bad3:
+                fail(f"segment_sum (sorted, K5's inputs) differs from its "
+                     f"plain version in {bad3} entries")
+            if not torch.equal(k3_call(), got3):
+                fail("segment_sum (sorted, K5's inputs): two calls give "
+                     "different bits")
+            k3_sorted = dict(
+                segment_sum_sorted_max_abs_err_same_inputs=diff3.max().item(),
+                segment_sum_sorted_device_ms_same_inputs=device_time_ms(
+                    k3_call, torch))
+            del got3, want3, diff3
         rows.append(kernel_row(
             f"row_scatter_add[{label}]", glaunches["row_scatter_add"],
             "row_scatter.cu", "bliss_gnn_tpu/ops/rowscatter_pallas.py:42",
@@ -748,7 +829,8 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
                 lambda: lib5.index_add_(0, ids64, data), torch),
             shape=f"{e} x {f5} bf16 rows ({nv} valid) into {s}",
             segment_sum_ms_same_inputs=time_ms(
-                lambda: segment_sum(data, ids, s, nv_d), 20, torch)))
+                lambda: segment_sum(data, ids, s, nv_d), 20, torch),
+            **k3_sorted))
         del got, want, diff, lib5
     del data
 
@@ -838,11 +920,21 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def kernel_checks(torch, dev, plan, n_edges, launches):
+def route_launches(by_shape, route, f=None):
+    """Launches of one route of K1 or K3 over the main path, all shapes (of
+    K3's, those of row width ``f``)."""
+    return sum(v for k, v in by_shape.items() if k.startswith(route + " ")
+               and (f is None or k.endswith(f"x{f}")))
+
+
+def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape):
     """Each kernel and its plain version on the same card tensors, at the
-    shapes of the main path's input-most layer; plus one PyTorch library
-    call of the same function as a yardstick. ``ms`` is event-timed over
-    back-to-back wrapper calls, ``device_ms`` from CUDA-graph replays."""
+    shapes of the main path's input-most layer (K1 and K3 at each call
+    site's shape, from the real sampled block of ``sites``); plus one
+    PyTorch library call of the same function as a yardstick. ``ms`` is
+    event-timed over back-to-back wrapper calls, ``device_ms`` from
+    CUDA-graph replays. ``by_shape``: K1's and K3's main-path launches by
+    route and shape."""
     from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply, exp3_apply_plain
     from bliss_gnn_tpu_torch.ops.gather import (
@@ -854,9 +946,7 @@ def kernel_checks(torch, dev, plan, n_edges, launches):
     from bliss_gnn_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
     from bliss_gnn_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
 
-    k1 = (scatter_add, scatter_add_plain)
     k2 = (lut_gather, lut_gather_plain)
-    k3 = (segment_sum, segment_sum_plain)
     k4 = (exp3_apply, exp3_apply_plain)
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -868,35 +958,65 @@ def kernel_checks(torch, dev, plan, n_edges, launches):
     def on_card(n):  # the main path hands the kernels n_valid on the card
         return torch.tensor(n, dtype=torch.int32, device=dev)
 
+    def live_prefix(n, nv):
+        return torch.arange(n, device=dev) < nv
+
     m = plan.frontier_caps[0]  # frontier slots of the input-most layer
     nv = int(0.8 * m)
-    live = torch.arange(m, device=dev) < nv
     nv_d = on_card(nv)
     # the keep-mask lookup sel[src_cpos]: K1's keys are K2's ids
     keys = torch.randint(0, N_NODES, (m,), generator=g, device=dev,
                          dtype=torch.int32)
-
-    # K1: the importance sum of r^2 by src candidate
-    n_out = plan.cand_caps[0]
-    vals = torch.where(live, torch.rand(m, generator=g, device=dev), 0.0)
-    got = k1[0](keys, vals, n_out, nv_d)
-    want = k1[1](keys, vals, n_out, nv_d)
-    err = (got - want).abs().max().item()
-    tol = 1e-5 * want.abs().max().item() + 1e-6
-    if err > tol:
-        fail(f"scatter_add differs from its plain version: {err} > {tol}")
-    lib_buf = torch.zeros(n_out, device=dev)
     keys64 = keys.long()
-    row("scatter_add", "scatter_add.cu",
-        "bliss_gnn_tpu/ops/scatter_pallas.py:61", err, tol,
-        time_ms(lambda: k1[0](keys, vals, n_out, nv_d), 20, torch),
-        time_ms(lambda: k1[1](keys, vals, n_out, nv_d), 5, torch),
-        time_ms(lambda: lib_buf.index_add_(0, keys64, vals), 20, torch),
-        nv * 8 + n_out * 4, nv,
-        device_ms=device_time_ms(lambda: k1[0](keys, vals, n_out, nv_d),
-                                 torch),
-        library_device_ms=device_time_ms(
-            lambda: lib_buf.index_add_(0, keys64, vals), torch))
+
+    def k1_row(site, keys, n_out, nv, route):
+        """K1 at one call site: against its plain version, the sorted route
+        also against itself (two calls, the same bits)."""
+        sort = route == "sorted"
+        vals = torch.where(live_prefix(keys.shape[0], nv),
+                           torch.rand(keys.shape[0], generator=g, device=dev),
+                           0.0)
+        nv_d = on_card(nv)
+
+        def call():
+            return scatter_add(keys, vals, n_out, nv_d, ids_sorted=sort)
+
+        got = call()
+        want = scatter_add_plain(keys, vals, n_out, nv_d, ids_sorted=sort)
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item() + 1e-6
+        if err > tol:
+            fail(f"scatter_add ({site}) differs from its plain version: "
+                 f"{err} > {tol}")
+        if sort and not torch.equal(call(), got):
+            fail(f"scatter_add ({site}): two calls give different bits")
+        lib = torch.zeros(n_out, device=dev)
+        k64 = keys.long()
+        rows.append(kernel_row(
+            f"scatter_add[{route}: {site}]", route_launches(
+                by_shape["scatter_add"], route), "scatter_add.cu",
+            "bliss_gnn_tpu/ops/scatter_pallas.py:61", err, tol,
+            time_ms(call, 20, torch),
+            time_ms(lambda: scatter_add_plain(keys, vals, n_out, nv_d), 5,
+                    torch),
+            time_ms(lambda: lib.index_add_(0, k64, vals), 20, torch),
+            nv * 8 + n_out * 4, nv,
+            device_ms=device_time_ms(call, torch),
+            library_device_ms=device_time_ms(
+                lambda: lib.index_add_(0, k64, vals), torch),
+            launches_at_this_shape=by_shape["scatter_add"].get(
+                f"{route} n={keys.shape[0]}", 0),
+            repeat_bitwise=sort or None,
+            shape=f"{keys.shape[0]} keys ({nv} valid) into {n_out}"))
+
+    # K1 unsorted: the importance sum of r^2 by src candidate, random keys
+    k1_row("importance sum", keys, plan.cand_caps[0], nv, "unsorted")
+    # K1 sorted: the per-dst sums of the real layer-0 block (kept count,
+    # debias sum, SAGE degree, in-degree) and the frontier's chunk sums
+    k1_row("block e_dst", sites["e_dst0"], sites["n_dst0"], sites["nv0"],
+           "sorted")
+    k1_row("chunk owners", sites["owner0"], sites["n_dst0"],
+           sites["n_chunks0"], "sorted")
 
     # K2, one table: the keep-mask lookup sel[src_cpos]
     lut = torch.rand(plan.cand_caps[0], generator=g, device=dev) < 0.3
@@ -966,33 +1086,56 @@ def kernel_checks(torch, dev, plan, n_edges, launches):
               f"tables (3 int32, 2 f32)"))
     del got, want, slots
 
-    # K3: the layer-0 SAGE aggregation, [block edges, 256] into dst slots
-    e, s = plan.block_e_caps[0], plan.dst_caps[0]
-    nv3 = int(0.6 * e)
-    ids = torch.sort(torch.randint(0, s, (e,), generator=g, device=dev,
-                                   dtype=torch.int32)).values
-    data = torch.randn((e, HIDDEN), generator=g, device=dev).to(torch.bfloat16)
-    data[nv3:] = 0
-    nv3_d = on_card(nv3)
-    got = k3[0](data, ids, s, nv3_d).float()
-    want = k3[1](data, ids, s, nv3_d).float()
-    err = (got - want).abs().max().item()
-    bad = ((got - want).abs() > BF16_ULP * want.abs() + 1e-3).sum().item()
-    if bad:
-        fail(f"segment_sum differs from its plain version in {bad} entries")
-    lib3 = torch.zeros((s, HIDDEN), device=dev, dtype=torch.bfloat16)
-    ids64 = ids.long()
-    row("segment_sum", "segment_sum.cu",
-        "bliss_gnn_tpu/ops/segsum_pallas.py:44", err,
-        "rtol 2^-7 (one bf16 ulp) + atol 1e-3",
-        time_ms(lambda: k3[0](data, ids, s, nv3_d), 20, torch),
-        time_ms(lambda: k3[1](data, ids, s, nv3_d), 5, torch),
-        time_ms(lambda: lib3.index_add_(0, ids64, data), 20, torch),
-        nv3 * (HIDDEN * 2 + 4) + s * HIDDEN * 2, nv3 * HIDDEN,
-        device_ms=device_time_ms(lambda: k3[0](data, ids, s, nv3_d), torch),
-        library_device_ms=device_time_ms(
-            lambda: lib3.index_add_(0, ids64, data), torch))
-    del data, lib3
+    # K3: the SAGE aggregations by dst (sorted: layer 0 at F = 256, the
+    # output layer at F = 41) and the gather backwards into the src table
+    # (unsorted), on the real blocks' ids, bf16 rows zero past the prefix
+    for tag, f in (("0", HIDDEN), ("out", N_CLASSES)):
+        for route, ids, n_out in (
+                ("sorted", sites[f"e_dst{tag}"], sites[f"n_dst{tag}"]),
+                ("unsorted", sites[f"e_src{tag}"], sites[f"n_src{tag}"])):
+            e, nv3 = ids.shape[0], sites[f"nv{tag}"]
+            sort = route == "sorted"
+            data = torch.randn((e, f), generator=g, device=dev).to(
+                torch.bfloat16)
+            data[nv3:] = 0
+            nv3_d = on_card(nv3)
+
+            def call():
+                return segment_sum(data, ids, n_out, nv3_d, ids_sorted=sort)
+
+            got = call()
+            want = segment_sum_plain(data, ids, n_out, nv3_d,
+                                     ids_sorted=sort).float()
+            diff = (got.float() - want).abs()
+            err = diff.max().item()
+            bad = (diff > BF16_ULP * want.abs() + 1e-3).sum().item()
+            site = ("aggregation" if sort else "gather backward") + (
+                " layer 0" if tag == "0" else " output layer")
+            if bad:
+                fail(f"segment_sum ({route}, {site}) differs from its plain "
+                     f"version in {bad} entries")
+            if sort and not torch.equal(call(), got):
+                fail(f"segment_sum ({site}): two calls give different bits")
+            lib3 = torch.zeros((n_out, f), device=dev, dtype=torch.bfloat16)
+            ids64 = ids.long()
+            rows.append(kernel_row(
+                f"segment_sum[{route}, F={f}: {site}]",
+                route_launches(by_shape["segment_sum"], route, f),
+                "segment_sum.cu", "bliss_gnn_tpu/ops/segsum_pallas.py:44",
+                err, "rtol 2^-7 (one bf16 ulp) + atol 1e-3",
+                time_ms(call, 20, torch),
+                time_ms(lambda: segment_sum_plain(data, ids, n_out, nv3_d),
+                        5, torch),
+                time_ms(lambda: lib3.index_add_(0, ids64, data), 20, torch),
+                nv3 * (f * 2 + 4) + n_out * f * 2, nv3 * f,
+                device_ms=device_time_ms(call, torch),
+                library_device_ms=device_time_ms(
+                    lambda: lib3.index_add_(0, ids64, data), torch),
+                launches_at_this_shape=by_shape["segment_sum"].get(
+                    f"{route} {e}x{f}", 0),
+                repeat_bitwise=sort or None,
+                shape=f"{e} x {f} bf16 ({nv3} valid) into {n_out}"))
+            del data, lib3, got, want, diff
 
     # K4: the arm-weight update of one step, all three layers, on a state
     # of random weights: distinct indices as on the main path, 30% no-op

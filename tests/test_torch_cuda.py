@@ -104,14 +104,122 @@ def test_lut_gather_multi_kernel(dev, gen, k):
 
 @pytest.mark.parametrize("f,dtype", [(256, torch.bfloat16),
                                      (41, torch.bfloat16),
-                                     (41, torch.float32)])
+                                     (41, torch.float32),
+                                     (256, torch.float32)])
 def test_segment_sum_kernel(dev, gen, f, dtype):
+    """The unsorted route: a memset, float4 atomics into an f32 scratch,
+    then a cast kernel (two launches); f32 at F % 4 == 0 accumulates
+    straight into the output (one launch)."""
     ids = torch.randint(-2, 300, (20_000,), generator=gen, device=dev,
                         dtype=torch.int32)
     data = torch.randn((20_000, f), generator=gen, device=dev).to(dtype)
+    n_launch = 1 if dtype == torch.float32 and f % 4 == 0 else 2
+    before = segment_sum.launches
+    key = f"unsorted 20000x{f}"
+    by = segment_sum.launches_by_shape.get(key, 0)
     got = segment_sum(data, ids, 298, n_valid=15_000).float()
+    assert segment_sum.launches == before + n_launch
+    assert segment_sum.launches_by_shape[key] == by + n_launch
     want = segment_sum_plain(data, ids, 298, n_valid=15_000).float()
     torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-3)
+
+
+def _sorted_ids(gen, dev, n, s, hub):
+    """``n`` int32 ids in order: two below 0, ``hub`` copies of row 5 (a
+    hub holding more than half of them), three past ``s``, the rest uniform
+    over the rows not divisible by 7, so every 7th row is empty."""
+    m = n - hub - 5
+    base = (torch.randint(0, s // 7, (m,), generator=gen, device=dev) * 7
+            + torch.randint(1, 7, (m,), generator=gen, device=dev))
+    ids = torch.cat([torch.full((2,), -1, device=dev), base,
+                     torch.full((hub,), 5, device=dev),
+                     torch.full((3,), s + 2, device=dev)])
+    return torch.sort(ids).values.to(torch.int32)
+
+
+# n_valid of the sorted-route cases, by case; past it the ids are 0 (the
+# masked tail) and the payload is junk that must add nothing
+_SORTED_CASES = {"hub": 31_000, "full": 40_000, "empty": 0, "unaligned": 39_999}
+
+
+def _sorted_inputs(gen, dev, case, f=None, dtype=torch.float32):
+    n, s = 40_000, 3000
+    ids = _sorted_ids(gen, dev, n + 1, s, hub=21_000)
+    shape = (n + 1,) if f is None else (n + 1, f)
+    data = torch.randn(shape, generator=gen, device=dev)
+    if f is None:  # multiples of 1/64: every order of the sums is exact
+        data = torch.round(data * 64) / 64
+    data = data.to(dtype)
+    nv = _SORTED_CASES[case]
+    if case == "unaligned":  # views 4 (K1) or 2-4 (K3) bytes off 16
+        flat = data.reshape(-1)[1:1 + n * (f or 1)]
+        ids, data = ids[1:], flat.reshape((n,) if f is None else (n, f))
+        assert ids.data_ptr() % 16 and data.data_ptr() % 16
+    else:
+        ids, data = ids[:n].clone(), data[:n]
+    ids[nv:] = 0
+    return ids, data, s, torch.tensor(nv, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("case", list(_SORTED_CASES))
+def test_scatter_add_sorted_kernel(dev, gen, case):
+    """The sorted route: one launch, no atomics; a hub row of 21,000 keys
+    (one warp reads on through 164 tiles of 128), empty rows, ids out of
+    range."""
+    keys, vals, s, nv = _sorted_inputs(gen, dev, case)
+    before = scatter_add.launches
+    key = f"sorted n={keys.shape[0]}"
+    by = scatter_add.launches_by_shape.get(key, 0)
+    got = scatter_add(keys, vals, s, nv, ids_sorted=True)
+    assert scatter_add.launches == before + 1
+    assert scatter_add.launches_by_shape[key] == by + 1
+    want = scatter_add_plain(keys, vals, s, nv, ids_sorted=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    if case != "empty":
+        assert not got[::7].any()  # rows no key names read 0
+        assert got[5] != 0
+
+
+@pytest.mark.parametrize("f,dtype", [(256, torch.bfloat16),
+                                     (41, torch.bfloat16),
+                                     (256, torch.float32),
+                                     (41, torch.float32),
+                                     (1024, torch.bfloat16)])
+@pytest.mark.parametrize("case", list(_SORTED_CASES))
+def test_segment_sum_sorted_kernel(dev, gen, case, f, dtype):
+    """The sorted route on 16-byte rows (F = 256, and 1024 as K5's GATv2
+    rows: two launches, tiles and the carry fold) and on narrow rows (F =
+    41, or an unaligned view: one launch, a block per output row), bf16
+    and f32."""
+    ids, data, s, nv = _sorted_inputs(gen, dev, case, f, dtype)
+    n_launch = 2 if f % 8 == 0 and case != "unaligned" else 1
+    before = segment_sum.launches
+    key = f"sorted {ids.shape[0]}x{f}"
+    by = segment_sum.launches_by_shape.get(key, 0)
+    got = segment_sum(data, ids, s, nv, ids_sorted=True)
+    assert segment_sum.launches == before + n_launch
+    assert segment_sum.launches_by_shape[key] == by + n_launch
+    assert got.dtype == dtype
+    want = segment_sum_plain(data, ids, s, nv, ids_sorted=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+    if case != "empty":
+        assert not got[::7].any()
+        assert got[5].abs().sum() > 0
+
+
+def test_sorted_routes_repeat_bitwise(dev, gen):
+    """No atomics on the sorted routes: two calls on the same inputs give
+    the same bits, whatever the order of the f32 sums."""
+    keys, _, s, nv = _sorted_inputs(gen, dev, "hub")
+    vals = torch.randn(keys.shape[0], generator=gen, device=dev)
+    assert torch.equal(scatter_add(keys, vals, s, nv, ids_sorted=True),
+                       scatter_add(keys, vals, s, nv, ids_sorted=True))
+    for f in (256, 41):
+        data = torch.randn((keys.shape[0], f), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        assert torch.equal(segment_sum(data, keys, s, nv, ids_sorted=True),
+                           segment_sum(data, keys, s, nv, ids_sorted=True))
 
 
 def test_segment_sum_grad_is_row_gather(dev, gen):
@@ -126,6 +234,10 @@ def test_segment_sum_grad_is_row_gather(dev, gen):
 
 
 def test_exp3_apply_kernel(dev, gen):
+    """Entries updated once or twice within one bf16 ulp (rtol 2^-7); an
+    entry updated m >= 3 times rounds after each update in the card's
+    order, so it is held to K4's contract of m - 1 ulps (as in
+    ``test_exp3_apply_duplicates_within_m_minus_1_ulps``)."""
     limit = 1 << 20
     idx = torch.randint(0, limit, (30_000,), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -137,8 +249,16 @@ def test_exp3_apply_kernel(dev, gen):
     ref = state.clone()
     exp3_apply(state, idx, mult, limit)
     exp3_apply_plain(ref, idx, mult, limit)
-    torch.testing.assert_close(state.float(), ref.float(), rtol=2.0 ** -7,
-                               atol=0.0)
+    live = idx < limit
+    m = torch.zeros(limit, dtype=torch.float32, device=dev)
+    m.index_add_(0, idx[live].long(), torch.ones_like(mult[live]))
+    many = m >= 3
+    assert many.any()  # the seed-0 draw repeats some indices 3 and 4 times
+    torch.testing.assert_close(state.float()[~many], ref.float()[~many],
+                               rtol=2.0 ** -7, atol=0.0)
+    ulp = torch.maximum(_bf16_ulp(state), _bf16_ulp(ref))[many]
+    diff = (state.float() - ref.float()).abs()[many]
+    assert (diff <= (m[many] - 1) * ulp).all()
 
 
 def _exp3_inputs(gen, dev, limit, u):

@@ -67,6 +67,78 @@ def test_scatter_add_grad_is_gather():
     np.testing.assert_array_equal(vals.grad.numpy(), w[keys])
 
 
+def _sorted_keys(rng, e, n_out, hub):
+    """``e`` sorted int32 keys: ``hub`` copies of row 3 (more than half),
+    the rest over the rows not divisible by 5 (every 5th row empty)."""
+    rest = rng.integers(0, n_out // 5, e - hub) * 5 + rng.integers(1, 5,
+                                                                     e - hub)
+    return np.sort(np.concatenate([rest, np.full(hub, 3)])).astype(np.int32)
+
+
+@pytest.mark.parametrize("n_valid", [0, 2100, 3000])
+def test_scatter_add_sorted_matches_banked_kernel(n_valid):
+    """The sorted route (on the CPU, its plain version, which checks the
+    promise) against the JAX kernel: a hub row, empty rows, n_valid 0."""
+    rng = np.random.default_rng(13)
+    e, n_out = 3000, 700
+    keys = _sorted_keys(rng, e, n_out, hub=1700)
+    vals = rng.normal(size=e).astype(np.float32)
+    keys[n_valid:], vals[n_valid:] = 0, 0.0  # the masked tail
+    want = np.asarray(banked_scatter_add(
+        jnp.asarray(keys), jnp.asarray(vals), n_out, tile=1024,
+        interpret=True, n_valid=jnp.int32(n_valid)))
+    got = scatter_add(_t(keys), _t(vals), n_out, n_valid=n_valid,
+                      ids_sorted=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+    assert not got[::5].any()
+    via = tseg.masked_segment_sum(_t(vals), _t(keys), n_out,
+                                  n_valid=n_valid, ids_sorted=True).numpy()
+    np.testing.assert_array_equal(via, got)
+
+
+@pytest.mark.parametrize("f,n_valid", [(128, 4096), (41, 3000), (41, 0)])
+def test_segment_sum_sorted_matches_onehot_kernel(monkeypatch, f, n_valid):
+    monkeypatch.setattr(segsum_pallas, "INTERPRET", True)
+    rng = np.random.default_rng(14)
+    e, s = 4096, 96
+    ids = _sorted_keys(rng, e, s, hub=2200)
+    data = rng.normal(size=(e, f)).astype(np.float32)
+    ids[n_valid:], data[n_valid:] = 0, 0.0
+    jd = jnp.asarray(data, jnp.bfloat16)
+    want = np.asarray(segsum_pallas.onehot_segment_sum(
+        jd, jnp.asarray(ids), jnp.int32(n_valid), s).astype(jnp.float32))
+    td = _t(data).to(torch.bfloat16)
+    got = segment_sum(td, _t(ids), s, n_valid=n_valid, ids_sorted=True)
+    assert got.dtype == torch.bfloat16
+    # bf16 rounding of the inputs and the sums; accumulation is f32 in both
+    np.testing.assert_allclose(_bf16_np(got), want, rtol=2e-2, atol=2e-1)
+    assert not _bf16_np(got)[::5].any()
+    via = tseg.masked_segment_sum(td, _t(ids), s, n_valid=n_valid,
+                                  ids_sorted=True)
+    assert torch.equal(via, got)
+
+
+def test_sorted_route_promise_is_checked():
+    """ids_sorted needs n_valid on every route; on a CPU tensor the plain
+    versions check that the ids do not decrease inside the prefix (and only
+    there: the masked tail carries id 0)."""
+    ids = _t(np.array([0, 2, 2, 5, 0, 0], np.int32))
+    vals = torch.ones(6)
+    rows = torch.ones(6, 4)
+    with pytest.raises(ValueError, match="n_valid"):
+        scatter_add(ids, vals, 6, ids_sorted=True)
+    with pytest.raises(ValueError, match="n_valid"):
+        segment_sum(rows, ids, 6, ids_sorted=True)
+    with pytest.raises(ValueError, match="n_valid"):
+        tseg.masked_segment_sum(vals, ids, 6, ids_sorted=True)
+    assert scatter_add(ids, vals, 6, n_valid=4, ids_sorted=True).tolist() == [
+        1, 0, 2, 0, 0, 1]
+    with pytest.raises(ValueError, match="decrease"):
+        scatter_add(ids, vals, 6, n_valid=5, ids_sorted=True)
+    with pytest.raises(ValueError, match="decrease"):
+        segment_sum(rows, ids, 6, n_valid=6, ids_sorted=True)
+
+
 # -- K2 ---------------------------------------------------------------------
 
 

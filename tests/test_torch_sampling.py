@@ -13,16 +13,20 @@ import jax.numpy as jnp
 
 from bliss_gnn_tpu.graph import datasets as jdata
 from bliss_gnn_tpu.graph import structure as jstruct
+from bliss_gnn_tpu.models import gnn as jgnn
 from bliss_gnn_tpu.sampling import block as jblock
 from bliss_gnn_tpu.sampling import frontier as jfr
 from bliss_gnn_tpu.sampling import samplers as jsamp
+from bliss_gnn_tpu.train import steps as jsteps
 
 from bliss_gnn_tpu_torch import convert
 from bliss_gnn_tpu_torch.graph import datasets as tdata
 from bliss_gnn_tpu_torch.graph import structure as tstruct
+from bliss_gnn_tpu_torch.models import gnn as tgnn
 from bliss_gnn_tpu_torch.sampling import block as tblock
 from bliss_gnn_tpu_torch.sampling import frontier as tfr
 from bliss_gnn_tpu_torch.sampling import samplers as tsamp
+from bliss_gnn_tpu_torch.train import steps as tsteps
 
 torch.set_num_threads(1)
 
@@ -355,3 +359,106 @@ def test_exp3_update_matches(synth_pair, monkeypatch, normalize, formula):
     # the port multiplies in f32 and rounds once: one bf16 ulp apart
     np.testing.assert_allclose(_np(got)[:, :E], want_le, rtol=2.0 ** -7)
     assert not _np(got)[:, E:].any()
+
+
+# -- the sorted routes' promise on a sampled step -----------------------------
+
+CONVERT = {"sage": convert.sage_params_from_jax,
+           "gcn": convert.gcn_params_from_jax,
+           "gat": convert.gat_params_from_jax}
+
+
+def _spy(monkeypatch, module, name, record):
+    """Wrap ``module.name`` so that each call's arguments and result are
+    appended to ``record``."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kw):
+        out = fn(*args, **kw)
+        record.append((args, out))
+        return out
+
+    monkeypatch.setattr(module, name, spy)
+
+
+@pytest.mark.parametrize("model", ["sage", "gcn", "gat"])
+def test_sampled_step_is_dst_sorted_and_matches(synth_pair, monkeypatch,
+                                                model):
+    """One fused poisson-bandit step of each model, as the sorted routes of
+    K1 and K3 see it: every block's ``e_dst`` and every frontier's chunk
+    owners are non-decreasing on their valid prefixes, which hold only
+    valid slots (the CPU step's plain versions also check each sorted
+    call). Its blocks, loss and arm weights equal the JAX step's, the
+    sampler fed the JAX draws (tolerances as in the step tests: bf16
+    compute, rtol 2e-2)."""
+    gj, gt = synth_pair
+    fanouts, batch, hidden, n_cls, lr = (16, 8), 4, 16, 4, 1e-3
+    kind, E = "poisson-bandit", gj.n_edges
+    cfg_j = jsamp.SamplerConfig(kind=kind, fanouts=fanouts, model=model)
+    cfg_t = tsamp.SamplerConfig(kind=kind, fanouts=fanouts, model=model)
+    args = (batch, fanouts, gj.n_nodes, E)
+    plan_j = jblock.CapacityPlan.build(*args, kind=kind, frontier_slack=16.0)
+    plan_t = tblock.CapacityPlan.build(*args, kind=kind, frontier_slack=16.0)
+    dj, dt = gj.to_device(), tstruct.DeviceGraph.from_graph(gt, device="cpu")
+    seeds, smask = np.arange(batch, dtype=np.int32), np.ones(batch, bool)
+    exp3_j = jsamp.init_exp3_weights(2, E)
+    exp3_t = convert.exp3_from_jax(np.asarray(exp3_j, np.float32), E)
+    with jax.disable_jit():
+        b0, _ = jsamp.sample_blocks(dj, cfg_j, plan_j, jax.random.PRNGKey(9),
+                                    jnp.asarray(seeds), jnp.asarray(smask),
+                                    exp3_j)
+    kw = dict(dropout=0.0, **({"attn_drop": 0.0} if model == "gat" else {}))
+    model_j = jgnn.build_model(model, hidden, n_cls, 2, **kw)
+    params = model_j.init(jax.random.PRNGKey(0), b0,
+                          jnp.take(dj.ndata["features"], b0[0].src_gids,
+                                   axis=0))
+    model_t = tgnn.build_model(model, 16, hidden, n_cls, 2, device="cpu",
+                               **kw)
+    model_t.load_state_dict(CONVERT[model](jax.tree.map(np.asarray, params)))
+
+    draws = _record_draws(monkeypatch)
+    blocks_j, blocks_t, frontier_sums = [], [], []
+    _spy(monkeypatch, jsteps, "sample_blocks", blocks_j)
+    _spy(monkeypatch, tsteps, "sample_blocks", blocks_t)
+    _spy(monkeypatch, tsamp, "frontier_segment_sum", frontier_sums)
+    tx = jsteps.make_optimizer(lr, 10)
+    state_j = jsteps.TrainState(params=params, opt_state=tx.init(params),
+                                exp3_weights=exp3_j,
+                                key=jax.random.PRNGKey(3),
+                                step=jnp.zeros((), jnp.int32))
+    with jax.disable_jit():
+        step_j = jsteps.make_train_step(dj, model_j, tx, cfg_j, plan_j, False,
+                                        donate=False)
+        new_j, m_j = step_j(state_j, jnp.asarray(seeds), jnp.asarray(smask),
+                            dj)
+    opt, sched = tsteps.make_optimizer(model_t.parameters(), lr, 10)
+    state_t = tsteps.TrainState(model_t, opt, sched, exp3_t,
+                                torch.Generator().manual_seed(0))
+    step_t = tsteps.make_train_step(dt, cfg_t, plan_t, False, device="cpu")
+    state_t, m_t = step_t(state_t, torch.from_numpy(seeds),
+                          torch.from_numpy(smask),
+                          draws=[torch.from_numpy(d) for d in draws[::-1]])
+
+    (_, (bt, _)), = blocks_t
+    for b in bt:
+        nv = int(b.n_valid_edges())
+        assert nv == int(b.num_edges()) > 0  # the prefix is all valid
+        e_dst = _np(b.e_dst)[:nv]
+        assert (np.diff(e_dst) >= 0).all()
+    assert len(frontier_sums) == 2 * len(fanouts)  # EXP3 and importance
+    for (frontier, _, _), _ in frontier_sums:
+        nc = int(frontier.chunk_valid.sum())
+        assert nc > 0 and not _np(frontier.chunk_valid)[nc:].any()
+        assert (np.diff(_np(frontier.chunk_owner)[:nc]) >= 0).all()
+
+    (_, (bj, _)), = blocks_j
+    assert_blocks_match(bt, bj)
+    np.testing.assert_allclose(float(m_t["train_loss"]),
+                               float(m_j["train_loss"]), rtol=2e-2)
+    for k in m_j:
+        if k not in ("train_loss", "f1"):
+            assert int(m_t[k]) == int(m_j[k]), k
+    want = np.asarray(new_j.exp3_weights, np.float32).reshape(2, -1)[:, :E]
+    assert np.any(want != 1.0)
+    np.testing.assert_allclose(_np(state_t.exp3_weights)[:, :E], want,
+                               rtol=2e-2)

@@ -7,6 +7,20 @@ compared on one NVIDIA GPU, each in a process of its own:
 
 KERNEL is one of:
 
+    k1  K1 (``scatter_add``) at chip_smoke.py's main-path call sites on an
+        H100: the importance sum (unsorted: 3,279,616 random keys, 80%
+        valid, into 233,088), and, on the ids of one sampled layer-0 block
+        and its frontier, the per-dst block sums (sorted ``e_dst``) and the
+        frontier chunk sums (sorted chunk owners); a checkout whose K1 has
+        the sorted route (``ids_sorted``) takes it. Beside them the atomic
+        ceiling of the unsorted shape (``tools/k1_atomic_ceiling.cu``: the
+        same red.global.add.f32s with no payload loads, to K1's addresses
+        and to hashed ones) and ``index_add_``.
+    k3  K3 (``segment_sum``) at the main path's shapes on the same sampled
+        blocks: the aggregations by dst (sorted) at F = 256 (layer 0) and
+        F = 41 (the output layer), the gather backwards by src (unsorted)
+        into the src caps, and run M's uniform sorted ids (150,016 rows,
+        90,009 valid, into 3,712); beside each ``index_add_``.
     k2  K2 (``lut_gather``), the keep-mask lookup of the input-most layer
         of ``chip_smoke.py``'s SAGE main path on an H100: 3,279,616 ids
         (80% valid) into a 233,088-entry bool table; beside it
@@ -31,7 +45,10 @@ KERNEL is one of:
         whatever order the card takes them, and counts the entries for
         which some order lands more than 2^-7 from the plain version.
 
-K2 and K4 print ``ms`` (CUDA events around 20 back-to-back calls),
+The K1/K3 inputs come from one ``sample_blocks`` step on the final plan of
+chip_smoke.py's runs (the caps below) with fresh arm weights, cached in
+``build/`` by the first process so that every process times the same ids.
+K1 and K3 print ``ms`` and ``device_ms``. K2 and K4 print ``ms`` (CUDA events around 20 back-to-back calls),
 ``device_ms`` (20 calls captured in a CUDA graph, replayed 10 times) and
 ``host_us`` (1,000 calls with no sync). K6 and K7 print ``ms`` and
 ``device_ms`` (fewer calls: they take milliseconds), the kernel launches per
@@ -45,7 +62,10 @@ its K7 splits a dst's edges over warps (``gat_plan``) 1 to 8 splits per
 head, as many as the block's 8 warps hold. The timing functions are
 ``chip_smoke.py``'s. One JSON line.
 """
+import ctypes
+import dataclasses
 import importlib.util
+import inspect
 import itertools
 import json
 import pathlib
@@ -58,6 +78,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 M, N_CAND, N_NODES = 3_279_616, 233_088, 232_965
 BLOCK_E_CAPS, N_EDGES = (150_016, 31_872, 4_608), 114_848_857
+FRONTIER_CAPS = (3_279_616, 1_291_648, 243_456)
 
 
 def smoke_module():
@@ -70,10 +91,12 @@ def smoke_module():
     return mod
 
 
-def small_times(smoke, fn):
-    return {"ms": smoke.time_ms(fn, 20, torch),
-            "device_ms": smoke.device_time_ms(fn, torch),
-            "host_us": smoke.host_us(fn, torch)}
+def small_times(smoke, fn, host=True):
+    t = {"ms": smoke.time_ms(fn, 20, torch),
+         "device_ms": smoke.device_time_ms(fn, torch)}
+    if host:
+        t["host_us"] = smoke.host_us(fn, torch)
+    return t
 
 
 def large_times(smoke, fn, reps):
@@ -242,7 +265,7 @@ class FullGraph:
     def __init__(self, smoke, dev):
         indptr_np, src_np = graph_arrays(smoke)
         self.n = indptr_np.shape[0] - 1
-        n_edges = int(src_np.shape[0])
+        self.n_edges = n_edges = int(src_np.shape[0])
         self.ip = torch.from_numpy(indptr_np.astype(np.int32)).to(dev)
         self.src = torch.zeros(n_edges + 128, dtype=torch.int32, device=dev)
         self.src[:n_edges] = torch.from_numpy(src_np).to(dev)
@@ -250,6 +273,162 @@ class FullGraph:
         self.k = int(np.searchsorted(indptr_np, smoke.PREFIX_EDGES))
         self.pip = self.ip.clone()
         self.pip[self.k:] = int(indptr_np[self.k])
+
+
+def call_sites(smoke, dev, fg):
+    """chip_smoke.py's ``call_site_inputs`` on the Reddit-shaped graph and
+    the final plan of its runs, fresh arm weights, from the first process's
+    cache when there is one."""
+    cache = ROOT / "build" / "k1_k3_call_sites.pt"
+    if not cache.exists():
+        from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
+        from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+        from bliss_gnn_tpu_torch.sampling.samplers import (
+            SamplerConfig,
+            init_exp3_weights,
+        )
+
+        deg = (fg.ip[1:] - fg.ip[:-1]).long()
+        w = torch.zeros(fg.n_edges + EDGE_PAD, dtype=torch.bfloat16,
+                        device=dev)
+        w[:fg.n_edges] = (1.0 / deg.clamp(min=1).float()).repeat_interleave(
+            deg, output_size=fg.n_edges).to(torch.bfloat16)
+        dummy = torch.zeros(1, dtype=torch.int32, device=dev)
+        graph = DeviceGraph(csc_indptr=fg.ip, csc_src=fg.src,
+                            csr_indptr=dummy, csr_dst=dummy, csr_eid=dummy,
+                            ndata={}, edata={"w": w}, n_nodes=fg.n,
+                            n_edges=fg.n_edges)
+        cfg = SamplerConfig(kind="poisson-bandit", fanouts=smoke.FANOUTS)
+        plan = dataclasses.replace(
+            CapacityPlan.build(smoke.BATCH, smoke.FANOUTS, fg.n, fg.n_edges,
+                               kind=cfg.kind, dense_candidates=True),
+            frontier_caps=FRONTIER_CAPS, block_e_caps=BLOCK_E_CAPS)
+        seeds = torch.from_numpy(np.random.default_rng(0).integers(
+            0, fg.n, smoke.BATCH).astype(np.int32)).to(dev)
+        smask = torch.ones(smoke.BATCH, dtype=torch.bool, device=dev)
+        sites = smoke.call_site_inputs(
+            torch, graph, cfg, plan,
+            init_exp3_weights(len(smoke.FANOUTS), fg.n_edges, device=dev),
+            seeds, smask)
+        torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                    for k, v in sites.items()}, cache)
+        del graph, w
+    sites = torch.load(cache)
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in sites.items()}
+
+
+def sorted_kw(wrapper):
+    """``ids_sorted=True`` where the checkout's wrapper has that route."""
+    return ({"ids_sorted": True}
+            if "ids_sorted" in inspect.signature(wrapper).parameters else {})
+
+
+def prefix_vals(g, dev, n, nv):
+    return torch.where(torch.arange(n, device=dev) < nv,
+                       torch.rand(n, generator=g, device=dev), 0.0)
+
+
+def ceiling_lib():
+    """``tools/k1_atomic_ceiling.cu``, built once per checkout of the tools
+    with the package's nvcc and flags."""
+    from bliss_gnn_tpu_torch.ops import _build
+
+    src = ROOT / "tools" / "k1_atomic_ceiling.cu"
+    out = ROOT / "build" / "libk1_atomic_ceiling.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                        str(out), str(src)], check=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k1_atomic_ceiling.argtypes = [i, p, p, ctypes.c_longlong, p, i, p]
+    lib.k1_atomic_ceiling.restype = i
+    return lib
+
+
+def probe_k1(smoke, dev, sites):
+    from bliss_gnn_tpu_torch.ops.scatter import scatter_add
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    nv = int(0.8 * M)
+    nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
+    keys = torch.randint(0, N_NODES, (M,), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = prefix_vals(g, dev, M, nv)
+    lib_out = torch.zeros(N_CAND, device=dev)
+    keys64 = keys.long()
+    rec = {"scatter_add[unsorted: importance sum]": {
+        **small_times(smoke, lambda: scatter_add(keys, vals, N_CAND, nv_d),
+                      host=False),
+        "index_add_device_ms": smoke.device_time_ms(
+            lambda: lib_out.index_add_(0, keys64, vals), torch)}}
+    lib = ceiling_lib()
+    for kind, name in ((0, "keys"), (1, "hash")):
+        def ceiling(kind=kind):
+            err = lib.k1_atomic_ceiling(
+                kind, keys.data_ptr(), lib_out.data_ptr(), M, nv_d.data_ptr(),
+                N_CAND, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"k1_atomic_ceiling: CUDA error {err}")
+        rec[f"atomic_ceiling[{name}]"] = {
+            "device_ms": smoke.device_time_ms(ceiling, torch)}
+    kw = sorted_kw(scatter_add)
+    for site, k, n_out, nvs in (
+            ("block e_dst", sites["e_dst0"], sites["n_dst0"], sites["nv0"]),
+            ("chunk owners", sites["owner0"], sites["n_dst0"],
+             sites["n_chunks0"])):
+        v = prefix_vals(g, dev, k.shape[0], nvs)
+        nvs_d = torch.tensor(nvs, dtype=torch.int32, device=dev)
+        k64 = k.long()
+        out = torch.zeros(n_out, device=dev)
+        rec[f"scatter_add[sorted: {site}]"] = {
+            **small_times(smoke,
+                          lambda: scatter_add(k, v, n_out, nvs_d, **kw),
+                          host=False),
+            "index_add_device_ms": smoke.device_time_ms(
+                lambda: out.index_add_(0, k64, v), torch),
+            "sorted_route": bool(kw),
+            "shape": f"{k.shape[0]} keys ({nvs} valid) into {n_out}"}
+    return rec
+
+
+def probe_k3(smoke, dev, sites):
+    from bliss_gnn_tpu_torch.ops.segsum import segment_sum
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    kw = sorted_kw(segment_sum)
+    e0 = BLOCK_E_CAPS[0]
+    uniform = torch.sort(torch.randint(0, sites["n_dst0"], (e0,), generator=g,
+                                       device=dev, dtype=torch.int32)).values
+    cases = [("sorted, F=256: uniform ids, run M's inputs", uniform,
+              sites["n_dst0"], int(0.6 * e0), 256)]
+    for tag, f in (("0", 256), ("out", 41)):
+        where = "layer 0" if tag == "0" else "output layer"
+        cases += [
+            (f"sorted, F={f}: aggregation {where}", sites[f"e_dst{tag}"],
+             sites[f"n_dst{tag}"], sites[f"nv{tag}"], f),
+            (f"unsorted, F={f}: gather backward {where}", sites[f"e_src{tag}"],
+             sites[f"n_src{tag}"], sites[f"nv{tag}"], f)]
+    rec = {}
+    for name, ids, n_out, nv, f in cases:
+        e = ids.shape[0]
+        data = torch.randn((e, f), generator=g, device=dev).to(torch.bfloat16)
+        data[nv:] = 0
+        nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
+        extra = kw if name.startswith("sorted") else {}
+        out = torch.zeros((n_out, f), device=dev, dtype=torch.bfloat16)
+        ids64 = ids.long()
+        rec[f"segment_sum[{name}]"] = {
+            **small_times(smoke,
+                          lambda: segment_sum(data, ids, n_out, nv_d, **extra),
+                          host=False),
+            "index_add_device_ms": smoke.device_time_ms(
+                lambda: out.index_add_(0, ids64, data), torch),
+            "sorted_route": bool(extra),
+            "shape": f"{e} x {f} bf16 ({nv} valid) into {n_out}"}
+        del data, out
+    return rec
 
 
 def launches_per_call(wrapper, fn):
@@ -327,7 +506,7 @@ def probe_k7(smoke, dev, fg):
 
 def main():
     kernels = sys.argv[1:]
-    known = ("k2", "k4", "k6", "k7", "k4-repeats")
+    known = ("k1", "k2", "k3", "k4", "k6", "k7", "k4-repeats")
     if not kernels or any(k not in known for k in kernels):
         sys.exit(f"usage: kernel_probe.py KERNEL [KERNEL ...], KERNEL in "
                  f"{', '.join(known)}")
@@ -342,9 +521,15 @@ def main():
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip()}
-    fg = FullGraph(smoke, dev) if {"k6", "k7"} & set(kernels) else None
+    fg = (FullGraph(smoke, dev) if {"k1", "k3", "k6", "k7"} & set(kernels)
+          else None)
+    sites = call_sites(smoke, dev, fg) if {"k1", "k3"} & set(kernels) else None
     for name in kernels:
-        if name == "k2":
+        if name == "k1":
+            rec.update(probe_k1(smoke, dev, sites))
+        elif name == "k3":
+            rec.update(probe_k3(smoke, dev, sites))
+        elif name == "k2":
             rec.update(probe_k2(smoke, dev))
         elif name == "k4":
             rec.update(probe_k4(smoke, dev))
