@@ -51,7 +51,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "exp3_apply": {"bliss_exp3_apply": [_P, _P, _P, _LL, _I, _P]},
     "row_scatter": {
-        "bliss_row_scatter_add": [_P, _I, _P, _LL, _I, _P, _I, _P, _P]
+        "bliss_row_scatter_tiles": [_P, _I, _P, _P, _LL, _I, _P, _I, _P, _I,
+                                    _P, _P, _LL, _I, _P],
+        "bliss_row_scatter_fold": [_P, _P, _LL, _I, _P, _P, _I, _I, _P],
+        "bliss_row_scatter_count": [_P, _LL, _P, _I, _P, _P, _P],
+        "bliss_row_scatter_place": [_P, _LL, _P, _I, _P, _P, _P, _P, _P],
+        "bliss_row_scatter_order": [_P, _I, _P, _P, _P],
     },
     "spmm_csr": {
         "bliss_spmm_csr": [_P, _I, _I, _LL, _I, _I, _P, _P, _P, _I, _P, _P]

@@ -40,8 +40,8 @@ def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     ``n_valid``: optional bound on the contiguous prefix holding every
     unmasked slot; the kernels skip the rest. ``ids_sorted``: the ids are
     non-decreasing on that prefix (a block's edges by dst, frontier chunks
-    by owner), so K1 and K3 take their reduce by key; it needs ``n_valid``.
-    The wide-row route (K5) takes the flag and ignores it."""
+    by owner), so K1, K3 and K5 take their sorted route (a reduce by key
+    with no sort first); it needs ``n_valid``."""
     if ids_sorted and n_valid is None:
         raise ValueError("masked_segment_sum: ids_sorted=True needs n_valid")
     data = _mask_data(data, mask)
@@ -55,8 +55,8 @@ def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     e, f = data.shape
     if (f % 128 == 0 and f >= ROW_SCATTER_MIN_FEATS
             and e >= ROW_SCATTER_MIN_ROWS):
-        return row_scatter_add_diff(data, ids, num_segments,
-                                    n_valid).to(data.dtype)
+        return row_scatter_add_diff(data, ids, num_segments, n_valid,
+                                    ids_sorted, data.dtype)
     return segment_sum_diff(data, ids, num_segments, n_valid, ids_sorted)
 
 

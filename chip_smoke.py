@@ -11,7 +11,9 @@ fan-outs 4096/2048/1024):
                and 10 timed steps (K1-K4), then a torch.profiler breakdown
                of three more steps;
     gat_path   the fused step with GATv2 (hidden 256, heads 4/4/1) on the
-               main path's final plan, from fresh arm weights (K1-K5);
+               main path's final plan, from fresh arm weights (K1-K5), then
+               a torch.profiler breakdown of three more steps and one more
+               sampled step's layer-0 block (phase ``gat_call_sites``);
     gcn_path   the same with GCN-256 x3 (K1-K4);
     inference  full-graph layerwise inference of the three trained models
                (K6 for SAGE and GCN, K7 for GATv2), one counted pass each
@@ -24,9 +26,11 @@ of one more sampled step on the main path's final plan (phase
 ``call_sites``: the layer-0 block's valid edges and largest kept in-degree),
 their sorted routes also against themselves (two calls, the same bits); K2
 also with five tables in one launch; K4 bitwise on distinct indices and
-within m - 1 bf16 ulps on an index repeated m times. K1's and K3's
-``launches`` count their route over the main path (K3's at the row's
-width); ``launches_at_this_shape`` the row's own shape.
+within m - 1 bf16 ulps on an index repeated m times; K5 on uniform ids and
+on that GATv2 block's ids, at both output dtypes, both routes also against
+themselves. K1's and K3's ``launches`` count their route over the main
+path (K3's at the row's width), K5's over the GATv2 path;
+``launches_at_this_shape`` the row's own shape.
 Each kernel row carries ``ms`` (CUDA events around back-to-back wrapper
 calls: the slower of the host's launch rate and the device) and
 ``device_ms`` (the same calls captured in a CUDA graph and replayed; also
@@ -395,17 +399,20 @@ def main():
     def model_path(name, seed):
         """The counted fused step of ``name`` on the main path's final
         plan, from fresh weights and arm weights: its phase line and
-        checks. Returns the trained model, the launches and the last
-        plan."""
+        checks; for GATv2 also its profile and one more sampled step's
+        ids. Returns the trained model, the last plan, K5's launches by
+        route and shape, and those ids (None but for GATv2)."""
         mcfg = SamplerConfig(kind=cfg.kind, fanouts=FANOUTS, model=name)
         kernels = step_kernels + (("row_scatter_add",) if name == "gat"
                                   else ())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(wrappers)
-        mstate, _, mtimes, mlog, mfinal = train(final, seed=seed, widen=True,
-                                                cfg=mcfg)
+        mstate, mstep, mtimes, mlog, mfinal = train(final, seed=seed,
+                                                    widen=True, cfg=mcfg)
         mlaunches = {k: wrappers[k].launches for k in kernels}
+        # K5's launches by route and input shape (call site)
+        mby_shape = dict(row_scatter_add.launches_by_shape)
         mpeak = torch.cuda.max_memory_allocated()
         msamp_ms = []
         for _ in range(TIMED_STEPS):
@@ -418,7 +425,10 @@ def main():
         moverflow = {k: max(int(m[k]) for m in mlog)
                      for k in mlog[-1] if "overflow" in k}
         extra = {"heads": [GAT_HEADS[0]] * (len(FANOUTS) - 1)
-                 + [GAT_HEADS[1]]} if name == "gat" else {}
+                 + [GAT_HEADS[1]],
+                 "row_scatter_add_launches_per_step_by_shape": {
+                     k: v / n_steps for k, v in mby_shape.items()}
+                 } if name == "gat" else {}
         emit({"phase": f"{name}_path", "steps": n_steps, **extra,
               f"{name}_step_ms": statistics.median(mtimes[WARMUP_STEPS:]),
               f"{name}_step_ms_all": mtimes[WARMUP_STEPS:],
@@ -437,15 +447,31 @@ def main():
         if not all(math.isfinite(x) for x in mlosses):
             fail(f"{name}_path: non-finite loss {mlosses}")
         missing = [k for k in kernels if mlaunches[k] <= 0]
+        if name == "gat":
+            missing += [f"row_scatter_add {route}"
+                        for route in ("sorted", "unsorted")
+                        if route_launches(mby_shape, route) <= 0]
         if missing:
             fail(f"kernels not launched on the {name} path: {missing}")
+        msites = None
+        if name == "gat":
+            profile_steps(torch, mstate, mstep, seeds, smask,
+                          statistics.median(mtimes[WARMUP_STEPS:]), smi_line,
+                          model=name)
+            # the ids K5 sees: one more sampled step on the GATv2 plan
+            msites = call_site_inputs(torch, graph, mcfg, mfinal,
+                                      mstate.exp3_weights, seeds, smask)
+            emit({"phase": "gat_call_sites",
+                  "plan_block_e_caps": mfinal.block_e_caps,
+                  **{k: v for k, v in msites.items()
+                     if not isinstance(v, torch.Tensor)}})
         model = mstate.model
-        del mstate, mlog
+        del mstate, mstep, mlog
         torch.cuda.empty_cache()
-        return model, mlaunches, mfinal
+        return model, mfinal, mby_shape, msites
 
     # -- phase 4: the fused GATv2 and GCN steps on the final plan ---------
-    gat_model, glaunches, gfinal = model_path("gat", seed=2)
+    gat_model, gfinal, gby_shape, gsites = model_path("gat", seed=2)
     gcn_model, *_ = model_path("gcn", seed=3)
 
     # -- phase 5: full-graph layerwise inference --------------------------
@@ -460,7 +486,7 @@ def main():
     rows = kernel_checks(torch, dev, final, n_edges, launches, sites,
                          by_shape)
     rows += wide_kernel_checks(torch, dev, gfinal, graph, indptr_np,
-                               glaunches, layer_launches)
+                               gby_shape, gsites, layer_launches)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -506,10 +532,12 @@ def call_site_inputs(torch, graph, cfg, plan, exp3, seeds, smask, seed=5):
     return out
 
 
-def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line, n=3):
-    """``torch.profiler`` over ``n`` more fused steps, after the counted run.
-    Prints the device time per step by kernel and its share of the profiled
-    wall time and of the unprofiled median ``step_ms``."""
+def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line,
+                  model="sage", n=3):
+    """``torch.profiler`` over ``n`` more fused steps of ``model``, after
+    its counted run. Prints the device time per step by kernel and its
+    share of the profiled wall time and of the unprofiled median step
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -531,7 +559,8 @@ def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line, n=3):
         rows.append((us / n / 1e3, evt.count / n, evt.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    emit({"phase": "profile", "steps": n, "wall_ms_per_step": wall_ms,
+    emit({"phase": "profile", "model": model, "steps": n,
+          "wall_ms_per_step": wall_ms,
           "device_ms_per_step": device_ms,
           "device_busy_share": device_ms / wall_ms,
           "device_share_of_step_ms": device_ms / step_ms,
@@ -743,22 +772,19 @@ def inference_phase(torch, graph, indptr_np, models, wrappers, smi_line):
     return shape_launches
 
 
-def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
+def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, by_shape, sites,
                        shape_launches):
-    """K5 at a GATv2 layer-0 block's two shapes (and K3 on the same
-    inputs); K6 and K7 at the inference shapes, checked on the CSC prefix
-    and timed on the full graph, with one PyTorch library call as a
-    yardstick where one computes the same function."""
+    """K5 at a GATv2 layer-0 block's two shapes, on uniform ids and on the
+    ids of a sampled GATv2 layer-0 block (``sites``), with K3's sorted
+    route on the sorted inputs; K6 and K7 at the inference shapes, checked
+    on the CSC prefix and timed on the full graph, with one PyTorch library
+    call as a yardstick where one computes the same function. ``by_shape``:
+    K5's launches on the GAT path by route and shape."""
     from bliss_gnn_tpu_torch.ops.gat_attention import (
         gat_attention,
         gat_attention_plain,
         gat_plan,
     )
-    from bliss_gnn_tpu_torch.ops.rowscatter import (
-        row_scatter_add,
-        row_scatter_add_plain,
-    )
-    from bliss_gnn_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
     from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain, spmm_plan
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -767,13 +793,14 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
     # K5 at layer 0 of the GATv2 step, [block edges, 4 x 256] rows: the
     # message sum and the er-gather backward send dst-sorted ids into the
     # dst cap; the el-gather backward sends unsorted src ids into the src
-    # cap. ``launches`` is K5's count over the GAT path, both shapes.
+    # cap. Uniform ids (the inputs of the earlier K5 rows) and the real
+    # block's.
     e = gplan.block_e_caps[0]
     f5 = GAT_HEADS[0] * HIDDEN
     nv = int(0.6 * e)
-    nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
     data = torch.randn((e, f5), generator=g, device=dev).to(torch.bfloat16)
     data[nv:] = 0
+    cases = []
     for label, s, ordered in (("sorted ids, dst cap", gplan.dst_caps[0], True),
                               ("unsorted ids, src cap", gplan.src_cap(0),
                                False)):
@@ -781,58 +808,19 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
                             dtype=torch.int32)
         if ordered:
             ids = torch.sort(ids).values
-        got = row_scatter_add(data, ids, s, nv_d)
-        want = row_scatter_add_plain(data, ids, s, nv_d)
-        diff = (got - want).abs()
-        bad = (diff > 1e-5 * want.abs() + 1e-4).sum().item()
-        if bad:
-            fail(f"row_scatter_add ({label}) differs from its plain version "
-                 f"in {bad} entries")
-        lib5 = torch.zeros((s, f5), device=dev, dtype=torch.bfloat16)
-        ids64 = ids.long()
-        k3_sorted = {}
-        if ordered:
-            # K3's sorted route on the dst-sorted inputs, the route K5's
-            # sorted calls are to take: held to K3's tolerance and to equal
-            # bits on two calls before it is timed
-            def k3_call():
-                return segment_sum(data, ids, s, nv_d, ids_sorted=True)
-
-            got3 = k3_call()
-            want3 = segment_sum_plain(data, ids, s, nv_d,
-                                      ids_sorted=True).float()
-            diff3 = (got3.float() - want3).abs()
-            bad3 = (diff3 > BF16_ULP * want3.abs() + 1e-3).sum().item()
-            if bad3:
-                fail(f"segment_sum (sorted, K5's inputs) differs from its "
-                     f"plain version in {bad3} entries")
-            if not torch.equal(k3_call(), got3):
-                fail("segment_sum (sorted, K5's inputs): two calls give "
-                     "different bits")
-            k3_sorted = dict(
-                segment_sum_sorted_max_abs_err_same_inputs=diff3.max().item(),
-                segment_sum_sorted_device_ms_same_inputs=device_time_ms(
-                    k3_call, torch))
-            del got3, want3, diff3
-        rows.append(kernel_row(
-            f"row_scatter_add[{label}]", glaunches["row_scatter_add"],
-            "row_scatter.cu", "bliss_gnn_tpu/ops/rowscatter_pallas.py:42",
-            diff.max().item(), "rtol 1e-5 + atol 1e-4",
-            time_ms(lambda: row_scatter_add(data, ids, s, nv_d), 20, torch),
-            time_ms(lambda: row_scatter_add_plain(data, ids, s, nv_d), 5,
-                    torch),
-            time_ms(lambda: lib5.index_add_(0, ids64, data), 20, torch),
-            nv * (f5 * 2 + 4) + s * f5 * 4, nv * f5,
-            device_ms=device_time_ms(
-                lambda: row_scatter_add(data, ids, s, nv_d), torch),
-            library_device_ms=device_time_ms(
-                lambda: lib5.index_add_(0, ids64, data), torch),
-            shape=f"{e} x {f5} bf16 rows ({nv} valid) into {s}",
-            segment_sum_ms_same_inputs=time_ms(
-                lambda: segment_sum(data, ids, s, nv_d), 20, torch),
-            **k3_sorted))
-        del got, want, diff, lib5
-    del data
+        cases.append((label, ids, s, nv, ordered, data))
+    real = torch.randn((sites["e_dst0"].shape[0], f5), generator=g,
+                       device=dev).to(torch.bfloat16)
+    real[sites["nv0"]:] = 0
+    cases += [("sorted: GATv2 block e_dst", sites["e_dst0"], sites["n_dst0"],
+               sites["nv0"], True, real),
+              ("unsorted: GATv2 block e_src", sites["e_src0"],
+               sites["n_src0"], sites["nv0"], False, real)]
+    for label, ids, s, nv, ordered, data in cases:
+        rows.append(k5_row(torch, dev, label, data, ids, s, nv, ordered,
+                           route_launches(by_shape, "sorted" if ordered
+                                          else "unsorted")))
+    del data, real, cases
 
     n, n_edges = graph.n_nodes, graph.n_edges
     prefix, k, e_pre = csc_prefix(torch, graph, indptr_np)
@@ -912,6 +900,94 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, glaunches,
             shape=f"{n} x {h} x {o} bf16, {n_edges} edges", **where))
         del feat
     return rows
+
+
+def k5_row(torch, dev, label, data, ids, s, nv, ordered, launches):
+    """K5 on one input, against its plain version at both output dtypes:
+    f32 within rtol 1e-5 + atol 1e-4, bf16 (each sum rounded once) within
+    one bf16 ulp; two calls give the same bits. Timed at the path's bf16
+    output (the bound too), with f32's device time beside it; on sorted ids
+    K3's sorted route on the same inputs."""
+    from bliss_gnn_tpu_torch.ops.rowscatter import (
+        row_scatter_add,
+        row_scatter_add_plain,
+    )
+    from bliss_gnn_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
+
+    e, f = data.shape
+    nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
+    bf16 = torch.bfloat16
+
+    def call(out_dtype=bf16):
+        return row_scatter_add(data, ids, s, nv_d, ordered, out_dtype)
+
+    got = call(torch.float32)
+    want = row_scatter_add_plain(data, ids, s, nv_d, ordered)
+    diff = (got - want).abs()
+    bad = (diff > 1e-5 * want.abs() + 1e-4).sum().item()
+    if bad:
+        fail(f"row_scatter_add ({label}) differs from its plain version "
+             f"in {bad} entries")
+    same_bits = torch.equal(call(torch.float32), got)
+    before = row_scatter_add.launches
+    got_b = call()
+    per_call = row_scatter_add.launches - before
+    want_b = row_scatter_add_plain(data, ids, s, nv_d, ordered, bf16).float()
+    diff_b = (got_b.float() - want_b).abs()
+    bad_b = (diff_b > BF16_ULP * want_b.abs() + 1e-4).sum().item()
+    if bad_b:
+        fail(f"row_scatter_add ({label}, bf16 out) differs from its plain "
+             f"version by more than one bf16 ulp in {bad_b} entries")
+    same_bits = same_bits and torch.equal(call(), got_b)
+    if not same_bits:
+        fail(f"row_scatter_add ({label}): two calls give different bits")
+    del got, want, got_b, want_b, diff_b
+    extra = {}
+    if ordered:
+        # K3's sorted route on the same inputs: held to K3's tolerance and
+        # to equal bits on two calls before it is timed
+        def k3_call():
+            return segment_sum(data, ids, s, nv_d, ids_sorted=True)
+
+        got3 = k3_call()
+        want3 = segment_sum_plain(data, ids, s, nv_d, ids_sorted=True).float()
+        diff3 = (got3.float() - want3).abs()
+        if (diff3 > BF16_ULP * want3.abs() + 1e-3).sum().item():
+            fail(f"segment_sum (sorted, K5's {label}) differs from its plain "
+                 f"version")
+        if not torch.equal(k3_call(), got3):
+            fail(f"segment_sum (sorted, K5's {label}): two calls give "
+                 f"different bits")
+        extra = dict(
+            segment_sum_sorted_max_abs_err_same_inputs=diff3.max().item(),
+            segment_sum_sorted_device_ms_same_inputs=device_time_ms(
+                k3_call, torch))
+        del got3, want3, diff3
+    else:
+        live = ids[:nv].long()
+        live = live[(live >= 0) & (live < s)]
+        extra["max_key_repeats"] = int(torch.bincount(live).max().item())
+    lib = torch.zeros((s, f), device=dev, dtype=bf16)
+    ids64 = ids.long()
+    r = kernel_row(
+        f"row_scatter_add[{label}]", launches, "row_scatter.cu",
+        "bliss_gnn_tpu/ops/rowscatter_pallas.py:42", diff.max().item(),
+        "f32 out: rtol 1e-5 + atol 1e-4; bf16 out: one bf16 ulp",
+        time_ms(call, 20, torch),
+        time_ms(lambda: row_scatter_add_plain(data, ids, s, nv_d, ordered,
+                                              bf16), 5, torch),
+        time_ms(lambda: lib.index_add_(0, ids64, data), 20, torch),
+        nv * (f * 2 + 4) + s * f * 2, nv * f,
+        device_ms=device_time_ms(call, torch),
+        f32_out_device_ms=device_time_ms(lambda: call(torch.float32), torch),
+        library_device_ms=device_time_ms(
+            lambda: lib.index_add_(0, ids64, data), torch),
+        kernel_launches_per_call=per_call, out_dtype="bfloat16",
+        repeat_bitwise=same_bits,
+        k5_route="sorted" if ordered else "unsorted",
+        shape=f"{e} x {f} bf16 rows ({nv} valid) into {s}", **extra)
+    del lib, diff
+    return r
 
 
 def bf16_ulp(torch, x):

@@ -324,21 +324,97 @@ def test_exp3_apply_all_noop_leaves_state(dev, gen):
     assert torch.equal(state, before)
 
 
-@pytest.mark.parametrize("dtype,n_valid", [(torch.bfloat16, None),
-                                           (torch.bfloat16, 30_001),
-                                           (torch.float32, 12_345)])
-def test_row_scatter_kernel(dev, gen, dtype, n_valid):
-    # unsorted ids, some outside [0, S); zero rows issue no atomic
+@pytest.mark.parametrize("dtype,n_valid,out_dtype", [
+    (torch.bfloat16, None, torch.float32),
+    (torch.bfloat16, 30_001, torch.float32),
+    (torch.float32, 12_345, torch.float32),
+    (torch.bfloat16, 30_001, torch.bfloat16),
+    (torch.float32, 12_345, torch.bfloat16)])
+def test_row_scatter_kernel(dev, gen, dtype, n_valid, out_dtype):
+    """The unsorted route: a counting sort of the ids (count with the scan,
+    place, order), then the reduce by key (tiles, fold): five launches. Ids
+    outside [0, S), a hub of 1,000 ids, every 7th row empty."""
     ids = torch.randint(-3, 3003, (40_000,), generator=gen, device=dev,
                         dtype=torch.int32)
-    data = torch.randn((40_000, 1024), generator=gen, device=dev).to(dtype)
+    ids[ids % 7 == 0] += 1
+    ids[torch.randperm(40_000, generator=gen, device=dev)[:1000]] = 5
+    data = _exact(torch.randn((40_000, 1024), generator=gen, device=dev)
+                  .to(dtype))
     data[::7] = 0
     before = row_scatter_add.launches
-    got = row_scatter_add(data, ids, 3000, n_valid)
-    assert row_scatter_add.launches == before + 1
-    assert got.dtype == torch.float32
-    want = row_scatter_add_plain(data, ids, 3000, n_valid)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    key = "unsorted 40000x1024"
+    by = row_scatter_add.launches_by_shape.get(key, 0)
+    got = row_scatter_add(data, ids, 3000, n_valid, out_dtype=out_dtype)
+    assert row_scatter_add.launches == before + 5
+    assert row_scatter_add.launches_by_shape[key] == by + 5
+    assert got.dtype == out_dtype
+    want = row_scatter_add_plain(data, ids, 3000, n_valid,
+                                 out_dtype=out_dtype)
+    _assert_row_sums_close(got, want)
+    assert not got[7::7].any()
+    assert torch.equal(row_scatter_add(data, ids, 3000, n_valid,
+                                       out_dtype=out_dtype), got)
+
+
+def _exact(data):
+    """``data`` rounded in place to multiples of 1/64: every order of its f32
+    sums is exact, so a hub's thousands of adds leave no rounding error
+    that depends on the order."""
+    return data.copy_(torch.round(data.float() * 64) / 64)
+
+
+def _assert_row_sums_close(got, want):
+    """f32 sums to rtol 1e-5 + atol 1e-4; a bf16 output, each sum rounded
+    once, to one bf16 ulp (the f32 sums' order differs from the plain
+    version's, so a value near a rounding boundary may round the other
+    way)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(_SORTED_CASES))
+def test_row_scatter_sorted_kernel(dev, gen, case, dtype, out_dtype):
+    """The sorted route at F = 1024: two launches (tiles, carry fold), no
+    atomics, no memset; a hub row of 21,000 ids, every 7th row empty, ids
+    below 0 and past S, the n_valid prefix, bf16 and f32 payloads and
+    outputs, and an unaligned view of the payload."""
+    ids, data, s, nv = _sorted_inputs(gen, dev, case, 1024, dtype)
+    _exact(data)
+    before = row_scatter_add.launches
+    key = f"sorted {ids.shape[0]}x1024"
+    by = row_scatter_add.launches_by_shape.get(key, 0)
+    got = row_scatter_add(data, ids, s, nv, ids_sorted=True,
+                          out_dtype=out_dtype)
+    assert row_scatter_add.launches == before + 2
+    assert row_scatter_add.launches_by_shape[key] == by + 2
+    assert got.dtype == out_dtype
+    want = row_scatter_add_plain(data, ids, s, nv, ids_sorted=True,
+                                 out_dtype=out_dtype)
+    _assert_row_sums_close(got, want)
+    if case != "empty":
+        assert not got[::7].any()
+        assert got[5].abs().sum() > 0
+
+
+@pytest.mark.parametrize("ids_sorted", [True, False])
+def test_row_scatter_repeat_bitwise(dev, gen, ids_sorted):
+    """No atomics on the payload on either route: two calls on the same
+    inputs give the same bits (the unsorted route's permutation is the
+    stable one)."""
+    ids, data, s, nv = _sorted_inputs(gen, dev, "hub", 1024, torch.bfloat16)
+    if not ids_sorted:  # uniform ids in edge order with a hub of 900
+        ids = torch.randint(0, s, ids.shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[torch.randperm(ids.shape[0], generator=gen, device=dev)[:900]] = 5
+    for out_dtype in (torch.float32, torch.bfloat16):
+        a = row_scatter_add(data, ids, s, nv, ids_sorted, out_dtype)
+        assert torch.equal(a, row_scatter_add(data, ids, s, nv, ids_sorted,
+                                              out_dtype))
 
 
 def test_row_scatter_grad_is_row_gather(dev, gen):

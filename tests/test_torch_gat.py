@@ -138,13 +138,23 @@ def test_edge_softmax_and_grad_match(shape):
 # -- K5 ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype,n_valid", [(np.float32, None),
-                                           (np.float32, 3100),
-                                           ("bf16", 4500)])
-def test_row_scatter_plain_matches_pallas_interpret(dtype, n_valid):
+@pytest.mark.parametrize("dtype,n_valid,ordered", [
+    pytest.param(np.float32, None, False, id="float32-None"),
+    pytest.param(np.float32, 3100, False, id="float32-3100"),
+    pytest.param("bf16", 4500, False, id="bf16-4500"),
+    pytest.param(np.float32, 3100, True, id="float32-3100-sorted"),
+    pytest.param("bf16", 4500, True, id="bf16-4500-sorted")])
+def test_row_scatter_plain_matches_pallas_interpret(dtype, n_valid, ordered):
+    """Unsorted ids, and dst-sorted ids with ``ids_sorted=True`` (the GATv2
+    message sum's and er-gather backward's promise: a hub row of 700 ids,
+    empty rows, ids at or past S in the tail past the prefix)."""
     rng = np.random.default_rng(5)
     e, f, s = 5000, 256, 300
     ids = rng.integers(0, s, e).astype(np.int32)  # unsorted
+    if ordered:
+        ids[:700] = 17  # a hub
+        ids = np.sort(np.where(ids % 5 == 3, ids + 1, ids))  # empty rows
+        ids[n_valid:] = s + rng.integers(0, 3, e - n_valid)
     data = rng.normal(size=(e, f)).astype(np.float32)
     if n_valid is not None:
         data[n_valid:] = 0.0  # the callers' promise: zeros past the prefix
@@ -155,10 +165,45 @@ def test_row_scatter_plain_matches_pallas_interpret(dtype, n_valid):
         dj, dt = jnp.asarray(data), _t(data)
     nv = None if n_valid is None else jnp.int32(n_valid)
     want = np.asarray(jrow.banked_row_scatter_add(
-        jnp.asarray(ids), dj, s, n_valid=nv, interpret=True))
-    got = row_scatter_add(dt, _t(ids), s, n_valid=n_valid)
+        jnp.asarray(np.clip(ids, 0, s - 1)) if ordered else jnp.asarray(ids),
+        dj, s, n_valid=nv, interpret=True))
+    got = row_scatter_add(dt, _t(ids), s, n_valid=n_valid, ids_sorted=ordered)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if ordered:
+        assert not got.numpy()[3::5].any()  # rows no id names read 0
+
+
+def test_row_scatter_sorted_promise_is_checked_on_cpu():
+    """A broken ``ids_sorted`` promise raises on a CPU tensor (on the card
+    it would give wrong sums silently), and the flag needs ``n_valid``."""
+    ids = torch.tensor([0, 2, 1, 3, 0, 0], dtype=torch.int32)
+    data = torch.ones((6, 16))
+    with pytest.raises(ValueError, match="decrease"):
+        row_scatter_add(data, ids, 4, n_valid=4, ids_sorted=True)
+    with pytest.raises(ValueError, match="needs n_valid"):
+        row_scatter_add(data, ids, 4, ids_sorted=True)
+    # the decrease lies past the prefix: the promise holds
+    got = row_scatter_add(data, ids, 4, n_valid=2, ids_sorted=True)
+    assert got.sum() == 2 * 16
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+def test_row_scatter_bf16_out_is_f32_rounded_once(ordered):
+    rng = np.random.default_rng(9)
+    e, f, s, nv = 3000, 128, 97, 2600
+    ids = rng.integers(-2, s + 2, e).astype(np.int32)
+    if ordered:
+        ids = np.sort(ids)
+    data = _t(rng.normal(size=(e, f)).astype(np.float32)).to(torch.bfloat16)
+    f32 = row_scatter_add(data, _t(ids), s, nv, ordered)
+    got = row_scatter_add(data, _t(ids), s, nv, ordered,
+                          out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    assert torch.equal(
+        row_scatter_add_plain(data, _t(ids), s, nv, ordered, torch.bfloat16),
+        got)
 
 
 def test_row_scatter_drops_out_of_range_ids_and_dead_rows():
@@ -195,11 +240,13 @@ def test_row_scatter_grad_matches_jax(monkeypatch):
                                         (1 << 15, 384, False),
                                         ((1 << 15) - 1, 1024, False)])
 def test_wide_payloads_route_to_row_scatter(monkeypatch, e, f, routed):
+    """K5 takes the wide payloads, with the caller's ``ids_sorted`` and
+    the payload's dtype as its output dtype."""
     calls = []
     real = tseg.row_scatter_add_diff
 
     def spy(*args):
-        calls.append(args[0].shape)
+        calls.append((args[0].shape, args[4], args[5]))
         return real(*args)
 
     monkeypatch.setattr(tseg, "row_scatter_add_diff", spy)
@@ -209,11 +256,27 @@ def test_wide_payloads_route_to_row_scatter(monkeypatch, e, f, routed):
     data = rng.normal(size=(e, f)).astype(np.float32)
     mask = rng.random(e) < 0.9
     got = tseg.masked_segment_sum(_t(data), _t(ids), s, _t(mask))
-    assert len(calls) == int(routed)
+    assert calls == [((e, f), False, torch.float32)] * int(routed)
     want = jseg.masked_segment_sum(jnp.asarray(data), jnp.asarray(ids), s,
                                    jnp.asarray(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-4)
+    # dst-sorted ids on a valid prefix, bf16: the sorted route, bf16 out
+    nv = e - 100
+    ids_s = np.sort(ids[:nv])
+    mask_s = np.arange(e) < nv
+    calls.clear()
+    got = tseg.masked_segment_sum(
+        _t(data).to(torch.bfloat16), _t(np.concatenate([ids_s, ids[nv:]])),
+        s, _t(mask_s), n_valid=nv, ids_sorted=True)
+    assert calls == [((e, f), True, torch.bfloat16)] * int(routed)
+    assert got.dtype == torch.bfloat16
+    # the reference sums the same bf16 values in f32, then rounds once
+    data_b = _np(_t(data[:nv]).to(torch.bfloat16))
+    want = jseg.masked_segment_sum(jnp.asarray(data_b), jnp.asarray(ids_s), s)
+    np.testing.assert_allclose(
+        _np(got), _np(jnp.asarray(want).astype(jnp.bfloat16)),
+        rtol=2 ** -7, atol=1e-5)
 
 
 # -- layers, models, reward and the fused step --------------------------------

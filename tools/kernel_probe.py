@@ -21,6 +21,23 @@ KERNEL is one of:
         F = 41 (the output layer), the gather backwards by src (unsorted)
         into the src caps, and run M's uniform sorted ids (150,016 rows,
         90,009 valid, into 3,712); beside each ``index_add_``.
+    k5  K5 (``row_scatter_add``) at the GATv2 layer-0 shapes: 150,016 x
+        1024 bf16 rows into the 3,712-row dst cap by sorted ids and into
+        the 8,064-row src cap by unsorted ids, on run M's uniform ids
+        (90,009 valid) and on the sampled block's ``e_dst``/``e_src``; bf16
+        and f32 outputs (a checkout without ``out_dtype`` returns f32, cast
+        after the call as its ``masked_segment_sum`` did), K3's sorted route
+        on the sorted inputs and ``index_add_`` beside them. Where the
+        checkout's K5 has a sorted route it takes it; where it has
+        ``TILE_ROWS`` the probe also times tiles of 32 to 256 rows, and the
+        unsorted route at F = 8 (the counting sort with almost no payload).
+    gat-step  the fused GATv2 step of ``chip_smoke.py``'s ``gat_path``
+        (hidden 256, heads 4/4/1) on the Reddit-shaped graph and the caps
+        below, fresh weights and arm weights from fixed seeds, so that two
+        checkouts sample the same blocks: the median wall time of 10 steps
+        after 3, then ``torch.profiler`` over 3 more: the device time per
+        step, K5's kernels' share of it (by kernel name) and the largest
+        kernels.
     k2  K2 (``lut_gather``), the keep-mask lookup of the input-most layer
         of ``chip_smoke.py``'s SAGE main path on an H100: 3,279,616 ids
         (80% valid) into a 233,088-entry bool table; beside it
@@ -45,7 +62,7 @@ KERNEL is one of:
         whatever order the card takes them, and counts the entries for
         which some order lands more than 2^-7 from the plain version.
 
-The K1/K3 inputs come from one ``sample_blocks`` step on the final plan of
+The K1/K3/K5 inputs come from one ``sample_blocks`` step on the final plan of
 chip_smoke.py's runs (the caps below) with fresh arm weights, cached in
 ``build/`` by the first process so that every process times the same ids.
 K1 and K3 print ``ms`` and ``device_ms``. K2 and K4 print ``ms`` (CUDA events around 20 back-to-back calls),
@@ -69,8 +86,10 @@ import inspect
 import itertools
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -431,6 +450,171 @@ def probe_k3(smoke, dev, sites):
     return rec
 
 
+def probe_k5(smoke, dev, sites):
+    from bliss_gnn_tpu_torch.ops import rowscatter
+    from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add
+    from bliss_gnn_tpu_torch.ops.segsum import segment_sum
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    params = inspect.signature(row_scatter_add).parameters
+    has_sorted, has_dtype = "ids_sorted" in params, "out_dtype" in params
+    e0, f = BLOCK_E_CAPS[0], 1024
+    n_dst, n_src = sites["n_dst0"], sites["n_src0"]
+    uni = int(0.6 * e0)
+    cases = [
+        ("sorted: uniform ids, run M's inputs", torch.sort(torch.randint(
+            0, n_dst, (e0,), generator=g, device=dev,
+            dtype=torch.int32)).values, n_dst, uni, True),
+        ("sorted: block e_dst", sites["e_dst0"], n_dst, sites["nv0"], True),
+        ("unsorted: uniform ids, run M's inputs", torch.randint(
+            0, n_src, (e0,), generator=g, device=dev, dtype=torch.int32),
+         n_src, uni, False),
+        ("unsorted: block e_src", sites["e_src0"], n_src, sites["nv0"],
+         False)]
+    rec = {}
+    for name, ids, n_out, nv, ordered in cases:
+        e = ids.shape[0]
+        data = torch.randn((e, f), generator=g, device=dev).to(torch.bfloat16)
+        data[nv:] = 0
+        nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
+        kw = {"ids_sorted": True} if ordered and has_sorted else {}
+
+        def call(out_dtype, kw=kw):
+            if has_dtype:
+                return row_scatter_add(data, ids, n_out, nv_d,
+                                       out_dtype=out_dtype, **kw)
+            out = row_scatter_add(data, ids, n_out, nv_d, **kw)
+            return out if out_dtype == torch.float32 else out.to(out_dtype)
+
+        before = row_scatter_add.launches
+        call(torch.bfloat16)
+        r = {"launches_per_call": row_scatter_add.launches - before,
+             "sorted_route": bool(kw), "out_dtype_arg": has_dtype,
+             "shape": f"{e} x {f} bf16 ({nv} valid) into {n_out}"}
+        for tag, dt in (("bf16_out", torch.bfloat16),
+                        ("f32_out", torch.float32)):
+            r[tag] = small_times(smoke, lambda dt=dt: call(dt), host=False)
+        if has_dtype and ordered:
+            r["repeat_bitwise"] = bool(torch.equal(call(torch.bfloat16),
+                                                   call(torch.bfloat16)))
+        if hasattr(rowscatter, "TILE_ROWS"):
+            kept = rowscatter.TILE_ROWS
+            for rows in (r for r in (32, 64, 128, 256) if r != kept):
+                rowscatter.TILE_ROWS = rows
+                r[f"bf16_out_tile_{rows}"] = small_times(
+                    smoke, lambda: call(torch.bfloat16), host=False)
+            rowscatter.TILE_ROWS = kept
+        if ordered:
+            r["segment_sum_sorted_device_ms"] = smoke.device_time_ms(
+                lambda: segment_sum(data, ids, n_out, nv_d,
+                                    **sorted_kw(segment_sum)), torch)
+        else:
+            d8 = torch.zeros((e, 8), device=dev, dtype=torch.bfloat16)
+            if has_dtype:
+                r["f8_device_ms"] = smoke.device_time_ms(
+                    lambda: row_scatter_add(d8, ids, n_out, nv_d,
+                                            out_dtype=torch.bfloat16), torch)
+            del d8
+        out = torch.zeros((n_out, f), device=dev, dtype=torch.bfloat16)
+        ids64 = ids.long()
+        r["index_add_device_ms"] = smoke.device_time_ms(
+            lambda: out.index_add_(0, ids64, data), torch)
+        if not ordered:  # how often the busiest key repeats
+            live = ids[:nv].long()
+            r["max_key_repeats"] = int(torch.bincount(
+                live[(live >= 0) & (live < n_out)], minlength=1).max())
+        rec[f"row_scatter_add[{name}]"] = r
+        del data, out
+    return rec
+
+
+# K5's kernels by name: this design's and the first one's (an earlier tree)
+K5_KERNELS = ("rowsum_tiles_kernel", "rowsum_fold_kernel", "count_scan_kernel",
+              "place_kernel", "order_kernel", "row_scatter_kernel")
+
+
+def probe_gat_step(smoke, dev, fg, n=3):
+    from torch.profiler import ProfilerActivity, profile
+
+    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig,
+        init_exp3_weights,
+    )
+    from bliss_gnn_tpu_torch.train.steps import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    deg = (fg.ip[1:] - fg.ip[:-1]).long()
+    w = torch.zeros(fg.n_edges + EDGE_PAD, dtype=torch.bfloat16, device=dev)
+    w[:fg.n_edges] = (1.0 / deg.clamp(min=1).float()).repeat_interleave(
+        deg, output_size=fg.n_edges).to(torch.bfloat16)
+    graph = DeviceGraph(
+        csc_indptr=fg.ip, csc_src=fg.src,
+        csr_indptr=smoke.out_indptr(torch, fg.src[:fg.n_edges], fg.n),
+        csr_dst=fg.ip[:1], csr_eid=fg.ip[:1],
+        ndata={"features": torch.randn((fg.n, smoke.N_FEATS), generator=gen,
+                                       device=dev, dtype=torch.bfloat16),
+               "labels": torch.randint(0, smoke.N_CLASSES, (fg.n,),
+                                       generator=gen, device=dev)},
+        edata={"w": w}, n_nodes=fg.n, n_edges=fg.n_edges)
+    cfg = SamplerConfig(kind="poisson-bandit", fanouts=smoke.FANOUTS,
+                        model="gat")
+    plan = dataclasses.replace(
+        CapacityPlan.build(smoke.BATCH, smoke.FANOUTS, fg.n, fg.n_edges,
+                           kind=cfg.kind, dense_candidates=True),
+        frontier_caps=FRONTIER_CAPS, block_e_caps=BLOCK_E_CAPS)
+    model = build_model("gat", smoke.N_FEATS, smoke.HIDDEN, smoke.N_CLASSES,
+                        len(smoke.FANOUTS), num_in_heads=smoke.GAT_HEADS[0],
+                        num_out_heads=smoke.GAT_HEADS[1], device=dev, seed=2)
+    opt, sched = make_optimizer(model.parameters(), 2e-3, 100)
+    state = TrainState(model, opt, sched,
+                       init_exp3_weights(len(smoke.FANOUTS), fg.n_edges,
+                                         device=dev),
+                       torch.Generator(device=dev).manual_seed(2))
+    step = make_train_step(graph, cfg, plan, False, device=dev)
+    seeds = torch.from_numpy(np.random.default_rng(0).integers(
+        0, fg.n, smoke.BATCH).astype(np.int32)).to(dev)
+    smask = torch.ones(smoke.BATCH, dtype=torch.bool, device=dev)
+    times = []
+    for _ in range(13):
+        t0 = time.perf_counter()
+        state, m = step(state, seeds, smask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, m = step(state, seeds, smask)
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if (not str(evt.device_type).endswith("CUDA")
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        rows.append((us / n / 1e3, evt.count / n, evt.key))
+    rows.sort(reverse=True)
+    k5 = [r for r in rows if any(k in r[2] for k in K5_KERNELS)]
+    return {"gat_step": {
+        "gat_step_ms": statistics.median(times[3:]),
+        "loss": float(m["train_loss"]),
+        "device_ms_per_step": sum(r[0] for r in rows),
+        "device_ops_per_step": sum(r[1] for r in rows),
+        "k5_device_ms_per_step": sum(r[0] for r in k5),
+        "k5_kernels_per_step": sum(r[1] for r in k5),
+        "k5": [{"ms": a, "calls": c, "name": k[:80]} for a, c, k in k5],
+        "top": [{"ms": a, "calls": c, "name": k[:80]}
+                for a, c, k in rows[:8]]}}
+
+
 def launches_per_call(wrapper, fn):
     before = wrapper.launches
     fn()
@@ -506,7 +690,8 @@ def probe_k7(smoke, dev, fg):
 
 def main():
     kernels = sys.argv[1:]
-    known = ("k1", "k2", "k3", "k4", "k6", "k7", "k4-repeats")
+    known = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k4-repeats",
+             "gat-step")
     if not kernels or any(k not in known for k in kernels):
         sys.exit(f"usage: kernel_probe.py KERNEL [KERNEL ...], KERNEL in "
                  f"{', '.join(known)}")
@@ -521,14 +706,19 @@ def main():
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip()}
-    fg = (FullGraph(smoke, dev) if {"k1", "k3", "k6", "k7"} & set(kernels)
-          else None)
-    sites = call_sites(smoke, dev, fg) if {"k1", "k3"} & set(kernels) else None
+    fg = (FullGraph(smoke, dev) if {"k1", "k3", "k5", "k6", "k7", "gat-step"}
+          & set(kernels) else None)
+    sites = (call_sites(smoke, dev, fg) if {"k1", "k3", "k5"} & set(kernels)
+             else None)
     for name in kernels:
         if name == "k1":
             rec.update(probe_k1(smoke, dev, sites))
         elif name == "k3":
             rec.update(probe_k3(smoke, dev, sites))
+        elif name == "k5":
+            rec.update(probe_k5(smoke, dev, sites))
+        elif name == "gat-step":
+            rec.update(probe_gat_step(smoke, dev, fg))
         elif name == "k2":
             rec.update(probe_k2(smoke, dev))
         elif name == "k4":
