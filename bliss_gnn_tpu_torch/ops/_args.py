@@ -20,7 +20,9 @@ def index_i32(t: torch.Tensor, what: str) -> torch.Tensor:
 def valid_arg(n_valid, device: torch.device) -> Optional[torch.Tensor]:
     """``n_valid`` (None, int or 1-element tensor) as a 1-element int32
     tensor on ``device`` (the tensor itself when it is one), so that a kernel
-    reads it without a host sync."""
+    reads it without a host sync. An int becomes a tensor through a
+    host-to-device copy, which CUDA-graph capture forbids: under capture it
+    raises, and the step's callers pass tensors already on the card."""
     if n_valid is None:
         return None
     if isinstance(n_valid, torch.Tensor):
@@ -30,6 +32,10 @@ def valid_arg(n_valid, device: torch.device) -> Optional[torch.Tensor]:
         if n_valid.dtype == torch.int32 and n_valid.device == device:
             return n_valid
         return n_valid.to(device=device, dtype=torch.int32).reshape(1)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("n_valid as a Python int needs a host-to-device "
+                           "copy, which CUDA-graph capture forbids: pass a "
+                           "tensor on the card")
     return torch.tensor([int(n_valid)], dtype=torch.int32, device=device)
 
 

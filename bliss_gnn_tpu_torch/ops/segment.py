@@ -184,7 +184,10 @@ def edge_softmax(logits: torch.Tensor, e_dst: torch.Tensor, n_dst: int,
                  ids_sorted: bool = False) -> torch.Tensor:
     """Softmax of edge scores [E] or [E, H] over each dst's incoming edges,
     in f32, returned in the logits' dtype; masked edges give exactly 0.
-    ``n_valid`` and ``ids_sorted`` go to the denominator's segment sum.
+    ``n_valid`` and ``ids_sorted`` go to the denominator's segment sum and
+    to its gather back onto the edges (``gather_rows``), whose backward is
+    a segment sum (K1 for one head, K3 for several; the sorted route when
+    the ids are sorted), not an index backward that serialises each hub.
 
     The per-dst max only shifts the exponent (the result does not depend
     on it), so it carries no gradient."""
@@ -196,4 +199,8 @@ def edge_softmax(logits: torch.Tensor, e_dst: torch.Tensor, n_dst: int,
     denom = masked_segment_sum(ex, e_dst, n_dst, mask, n_valid=n_valid,
                                ids_sorted=ids_sorted)
     denom = torch.clamp(denom, min=torch.finfo(torch.float32).tiny)
-    return _mask_data(ex / denom[ids], mask).to(logits.dtype)
+    one_head = denom.dim() == 2 and denom.shape[1] == 1
+    d = gather_rows(denom[:, 0] if one_head else denom, ids, n_dst,
+                    n_valid=n_valid, ids_sorted=ids_sorted)
+    d = d[:, None] if one_head else d
+    return _mask_data(ex / d, mask).to(logits.dtype)

@@ -13,7 +13,9 @@ of ``bliss_gnn_tpu/sampling/frontier.py``).
 Ownership maps are a scatter-max of each owner at its first position,
 forward-filled with ``cummax``. Scatters whose target may fall outside the
 table write to one extra dump slot that is sliced off, which is the
-reference's ``mode="drop"``. Nothing here syncs with the host.
+reference's ``mode="drop"``. Nothing here syncs with the host or copies
+from it (a ``t[idx] = True`` would copy the scalar, which CUDA-graph
+capture refuses: flags are set with ``index_fill_``).
 """
 from __future__ import annotations
 
@@ -182,8 +184,10 @@ def compact_candidates(seeds, seeds_mask, frontier: Frontier, c_cap: int,
     an [N] table, compact it, relabel through an [N] position table."""
     dev = seeds.device
     mark = torch.zeros(n_nodes + 1, dtype=torch.bool, device=dev)
-    mark[torch.where(seeds_mask, seeds, n_nodes).long()] = True
-    mark[torch.where(frontier.e_mask, frontier.src_gid, n_nodes).long()] = True
+    mark.index_fill_(0, torch.where(seeds_mask, seeds, n_nodes).long(), True)
+    mark.index_fill_(
+        0, torch.where(frontier.e_mask, frontier.src_gid, n_nodes).long(),
+        True)
     idx, out_mask, n = compact_by_mask(mark[:n_nodes], c_cap)
     gids = torch.where(out_mask, idx, SENTINEL)
     pos_of_gid = torch.zeros(n_nodes + 1, dtype=torch.int32, device=dev)
@@ -209,7 +213,7 @@ def dense_candidates(seeds, seeds_mask, frontier: Frontier, c_cap: int,
     if c_cap <= n_nodes:
         raise ValueError("dense candidates need c_cap > n_nodes")
     is_seed = torch.zeros(c_cap + 1, dtype=torch.bool, device=seeds.device)
-    is_seed[torch.where(seeds_mask, seeds, c_cap).long()] = True
+    is_seed.index_fill_(0, torch.where(seeds_mask, seeds, c_cap).long(), True)
     return Candidates(
         gids=_arange(c_cap, seeds), mask=None, n=None,
         src_cpos=frontier.src_gid,  # already zero on masked slots

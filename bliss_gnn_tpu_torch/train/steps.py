@@ -1,16 +1,34 @@
-"""The fused training step (counterpart of the single-device step body of
-``bliss_gnn_tpu/train/steps.py``):
+"""The fused training step and the sampled evaluation step (counterparts of
+the single-device step bodies of ``bliss_gnn_tpu/train/steps.py``):
 
     sample_blocks -> gather features and labels -> model forward/backward
     -> CE loss -> Adam (staircase decay) -> EXP3 rewards + arm-weight update
 
 The sampler reads the current arm weights; the update runs after the
-backward, in place. PyTorch runs eagerly, so the step is a plain function.
+backward, in place. One step runs eagerly. The chained steps run K batches:
+a plain loop on the CPU; on the card the step is captured once as a
+``torch.cuda.CUDAGraph`` after eager warm-up steps and replayed once per
+batch, the counterpart of the reference's one ``lax.scan`` dispatch.
+
+What capture asks of the step, and where it is met:
+- no host sync and no host-to-device copy inside it: every ``n_valid``
+  bound reaches the kernels as a tensor on the card (``ops/_args.py``
+  ``valid_arg`` raises on a Python int under capture); a sync raises;
+- Adam with ``capturable=True`` and a tensor rate (``make_optimizer``),
+  which :class:`StaircaseLR` fills between replays;
+- the state's generator registered with the graph, so that each replay
+  advances it by one step's draws, as an eager step does;
+- the kernels built before capture (the warm-up steps build them). K1's
+  and K3's routes depend on ``data_ptr()`` alignment, read at capture: the
+  graph's private pool gives every replay the same addresses, so the
+  route taken holds;
+- the wrappers' launch counters are Python: they count the captured
+  launches once, and no replay.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +52,7 @@ class TrainState:
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler
+    scheduler: StaircaseLR
     exp3_weights: Optional[torch.Tensor]
     generator: torch.Generator
     step: int = 0
@@ -64,31 +82,66 @@ def _block_count_metrics(blocks) -> Dict[str, torch.Tensor]:
     return out
 
 
+class StaircaseLR:
+    """``StepLR``'s staircase decay, stepped once per training step: the
+    rate is multiplied by ``gamma`` every ``period`` steps on the host, in
+    StepLR's float arithmetic, and written into the optimizer only then: a
+    float rate is set, the 0-dim tensor rate of a capturable Adam filled in
+    place (no host sync; StepLR reads a tensor rate back with ``.item()``
+    on every step)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, lr: float,
+                 period: int, gamma: float):
+        self.optimizer, self.period, self.gamma = optimizer, period, gamma
+        self.lr, self.last_epoch = lr, 0
+
+    def step(self) -> None:
+        self.last_epoch += 1
+        if self.last_epoch % self.period == 0:
+            self.lr *= self.gamma
+            for group in self.optimizer.param_groups:
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].fill_(self.lr)
+                else:
+                    group["lr"] = self.lr
+
+    def get_last_lr(self) -> List[float]:
+        return [self.lr] * len(self.optimizer.param_groups)
+
+
 def make_optimizer(params, lr: float, steps_per_epoch: int,
-                   gamma: float = 0.01, step_size: int = 5):
+                   gamma: float = 0.01, step_size: int = 5,
+                   capturable: bool = False):
     """Adam with the rate multiplied by ``gamma`` every ``step_size``
-    epochs (a staircase decay, stepped once per training step)."""
-    opt = torch.optim.Adam(params, lr=lr)
-    sched = torch.optim.lr_scheduler.StepLR(
-        opt, step_size=max(1, step_size * steps_per_epoch), gamma=gamma)
-    return opt, sched
+    epochs (a :class:`StaircaseLR`). With ``capturable`` (what the chained
+    step on the card needs) Adam keeps its step counts and its rate as
+    tensors beside the parameters, so that a CUDA graph of the step
+    replays it."""
+    params = list(params)
+    rate = (torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+            if capturable else lr)
+    opt = torch.optim.Adam(params, lr=rate, capturable=capturable)
+    return opt, StaircaseLR(opt, lr, max(1, step_size * steps_per_epoch),
+                            gamma)
 
 
-def make_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
-                    plan: CapacityPlan, multilabel: bool,
-                    device="cuda") -> Callable:
-    """The fused step ``step(state, seeds, seeds_mask, draws=None) ->
-    (state, metrics)``. ``device`` (default CUDA, which raises without a
-    card) must be where ``graph`` lives; ``draws`` injects the sampler's
-    per-block draws (see ``sample_blocks``)."""
+def _resolve(graph: DeviceGraph, device) -> torch.device:
     dev = resolve_device(device)
     if graph.device.type != dev.type:
         raise ValueError(f"graph is on {graph.device}, step asked for {dev}")
+    return dev
 
-    def step(state: TrainState, seeds: torch.Tensor,
+
+def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                    plan: CapacityPlan, multilabel: bool) -> Callable:
+    """The device work of one train step, ``body(state, seeds, seeds_mask,
+    draws) -> metrics``: everything but the host's schedule and step count,
+    so that a CUDA graph can hold it."""
+
+    def body(state: TrainState, seeds: torch.Tensor,
              seeds_mask: torch.Tensor,
              draws: Optional[Sequence[torch.Tensor]] = None,
-             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+             ) -> Dict[str, object]:
         gen = state.generator
         blocks, samp_stats = sample_blocks(
             graph, sampler_cfg, plan, gen, seeds, seeds_mask,
@@ -104,16 +157,15 @@ def make_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
-        state.scheduler.step()
 
         if sampler_cfg.is_bandit and not sampler_cfg.exp3_freeze:
             # unnormalised: every consumer renormalises per dst
             deltas = exp3_edge_deltas(graph, sampler_cfg, blocks,
                                       aux["embed_norms"], aux["a_ijs"])
             apply_exp3_deltas(state.exp3_weights, deltas, normalize=False)
-        f1 = f1_update(F1State.zero(dev), logits.detach(), labels, dst_mask,
-                       multilabel)
-        metrics = {
+        f1 = f1_update(F1State.zero(seeds.device), logits.detach(), labels,
+                       dst_mask, multilabel)
+        return {
             "train_loss": loss.detach(),
             "f1": f1,
             # the JAX step's key; K4 skips no update, so it is always 0
@@ -123,7 +175,266 @@ def make_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
                if "overflow" in k or "frontier_edges" in k
                or "n_block_edges_true" in k},
         }
+
+    return body
+
+
+def make_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                    plan: CapacityPlan, multilabel: bool,
+                    device="cuda") -> Callable:
+    """The fused step ``step(state, seeds, seeds_mask, draws=None) ->
+    (state, metrics)``. ``device`` (default CUDA, which raises without a
+    card) must be where ``graph`` lives; ``draws`` injects the sampler's
+    per-block draws (see ``sample_blocks``)."""
+    _resolve(graph, device)
+    body = _make_step_body(graph, sampler_cfg, plan, multilabel)
+
+    def step(state: TrainState, seeds: torch.Tensor,
+             seeds_mask: torch.Tensor,
+             draws: Optional[Sequence[torch.Tensor]] = None,
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        metrics = body(state, seeds, seeds_mask, draws)
+        state.scheduler.step()
         state.step += 1
         return state, metrics
 
     return step
+
+
+def _make_eval_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                    plan: CapacityPlan, multilabel: bool) -> Callable:
+    """One sampled validation batch (the JAX ``_make_eval_fn`` body):
+    ``body(state, generator, seeds, seeds_mask, draws) -> (f1, loss * n,
+    n)``, the model in eval mode (no dropout), no gradient, no EXP3
+    update."""
+
+    def body(state: TrainState, generator: Optional[torch.Generator],
+             seeds: torch.Tensor, seeds_mask: torch.Tensor,
+             draws: Optional[Sequence[torch.Tensor]] = None):
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                blocks, _ = sample_blocks(
+                    graph, sampler_cfg, plan, generator, seeds, seeds_mask,
+                    state.exp3_weights, draws=draws)
+                x = graph.ndata["features"][blocks[0].src_gids.long()]
+                labels = graph.ndata["labels"][blocks[-1].dst_gids.long()]
+                dst_mask = blocks[-1].dst_mask
+                logits, _ = model(blocks, x)
+                loss = cross_entropy_loss(logits, labels, dst_mask,
+                                          multilabel)
+                f1 = f1_update(F1State.zero(seeds.device), logits, labels,
+                               dst_mask, multilabel)
+                n = dst_mask.sum(dtype=torch.int32)
+        finally:
+            model.train(was_training)
+        return f1, loss * n, n
+
+    return body
+
+
+def make_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                   plan: CapacityPlan, multilabel: bool,
+                   device="cuda") -> Callable:
+    """The sampled validation step ``eval_step(state, generator, seeds,
+    seeds_mask, draws=None) -> (f1, loss * n, n)`` on the device: it
+    samples with the current arm weights, its draws from ``generator``
+    (the JAX step's key) or from ``draws``, and leaves the state as it
+    was."""
+    _resolve(graph, device)
+    return _make_eval_body(graph, sampler_cfg, plan, multilabel)
+
+
+# eager steps before capture: after them the lazy state (Adam's moments,
+# the kernels' builds, the library handles) exists
+CAPTURE_WARMUP_STEPS = 2
+
+
+class _Replay:
+    """A step captured once in a CUDA graph and replayed per batch.
+
+    ``run(bound, generator, fn, inputs)`` runs ``fn(*inputs)`` on one
+    batch's input tensors: the first ``CAPTURE_WARMUP_STEPS`` times eagerly
+    on a side stream (real steps), then it captures ``fn`` once, reading
+    static copies of the inputs, and replays it; later batches are copied
+    into those copies before each replay. ``bound`` holds what the graph
+    reads (the state, the generator, whether draws were injected): another
+    set starts over. A replay returns the graph's own output tensors, which
+    the next replay overwrites. A failed capture raises."""
+
+    def __init__(self):
+        self.bound: tuple = ()
+        self.warm = 0
+        self.graph = self.inputs = self.outputs = self.side = None
+
+    def run(self, bound: tuple, generator: Optional[torch.Generator],
+            fn: Callable, inputs: Sequence[torch.Tensor]):
+        if (len(bound) != len(self.bound)
+                or any(a is not b for a, b in zip(bound, self.bound))):
+            self.bound, self.warm, self.graph = bound, 0, None
+        if self.graph is not None:
+            for buf, x in zip(self.inputs, inputs):
+                buf.copy_(x)
+            self.graph.replay()
+            return self.outputs
+        if self.warm < CAPTURE_WARMUP_STEPS:
+            self.warm += 1
+            if self.side is None:
+                self.side = torch.cuda.Stream()
+            self.side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.side):
+                out = fn(*inputs)
+            torch.cuda.current_stream().wait_stream(self.side)
+            return out
+        self.inputs = tuple(x.clone() for x in inputs)
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            self.outputs = fn(*self.inputs)
+        self.graph = graph
+        graph.replay()
+        return self.outputs
+
+
+_F1_FIELDS = ("tp", "fp", "fn", "total")
+
+
+def _pack(metrics: Dict[str, object], device: torch.device):
+    """A step's metrics, every one a scalar, as one f64 vector (exact for
+    int32 counts and f32 values) and its layout, [(name, dtype)]."""
+    layout, vals = [], []
+    for name, v in metrics.items():
+        if isinstance(v, F1State):
+            layout += [(f"{name}.{f}", torch.float32) for f in _F1_FIELDS]
+            vals += [getattr(v, f) for f in _F1_FIELDS]
+        elif isinstance(v, torch.Tensor):
+            layout.append((name, v.dtype))
+            vals.append(v)
+        else:
+            layout.append((name, torch.int32))
+            vals.append(torch.full((), v, dtype=torch.float64, device=device))
+    return torch.stack([v.to(torch.float64) for v in vals]), layout
+
+
+def _unpack(rows: torch.Tensor, layout) -> Dict[str, object]:
+    """``_pack``'s vectors of K steps, [K, n], as metrics stacked over K."""
+    cols = {name: col.to(dtype)
+            for (name, dtype), col in zip(layout, rows.unbind(1))}
+    out: Dict[str, object] = {}
+    for name, col in cols.items():
+        head, _, field = name.partition(".")
+        if field in _F1_FIELDS:
+            out.setdefault(head, F1State(*(cols[f"{head}.{f}"]
+                                           for f in _F1_FIELDS)))
+        else:
+            out[name] = col
+    return out
+
+
+def _check_chain(seeds: torch.Tensor, seeds_mask: torch.Tensor,
+                 draws, n_steps: Optional[int]) -> int:
+    if seeds.dim() != 2 or tuple(seeds_mask.shape) != tuple(seeds.shape):
+        raise ValueError("seeds and seeds_mask must both be [K, B]")
+    k = seeds.shape[0]
+    if n_steps is not None and k != n_steps:
+        raise ValueError(f"{k} batches for a chain of {n_steps} steps")
+    if draws is not None and len(draws) != k:
+        raise ValueError(f"{len(draws)} draws for {k} batches")
+    return k
+
+
+def make_multi_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                          plan: CapacityPlan, multilabel: bool,
+                          n_steps: Optional[int] = None,
+                          device="cuda") -> Callable:
+    """K fused train steps per call: ``multi(state, seeds[K, B],
+    seeds_mask[K, B], draws=None) -> (state, metrics stacked over K)``,
+    ``draws[k]`` batch k's per-block draws: the steps of K calls of
+    :func:`make_train_step`'s step, the generator advancing as they would
+    advance it. K is ``seeds.shape[0]``, which must equal ``n_steps`` where
+    that is given.
+
+    On the CPU a plain loop of those steps. On the card the step is
+    captured once as a CUDA graph after ``CAPTURE_WARMUP_STEPS`` eager
+    steps and replayed once per batch (:class:`_Replay`), by every later
+    call whatever its K; the state's Adam must be capturable
+    (``make_optimizer(capturable=True)``). After the capture a chain issues
+    no host sync; the metrics stay on the card."""
+    dev = _resolve(graph, device)
+    body = _make_step_body(graph, sampler_cfg, plan, multilabel)
+    replay, layout = _Replay(), {}
+
+    def multi(state: TrainState, seeds: torch.Tensor,
+              seeds_mask: torch.Tensor, draws=None):
+        k = _check_chain(seeds, seeds_mask, draws, n_steps)
+        if (dev.type == "cuda"
+                and not state.optimizer.param_groups[0].get("capturable")):
+            raise ValueError("the chained step on the card replays Adam in a "
+                             "CUDA graph: make_optimizer(capturable=True)")
+
+        def packed(seeds, seeds_mask, *draws):
+            vec, layout["train"] = _pack(
+                body(state, seeds, seeds_mask, list(draws) or None), dev)
+            return vec
+
+        rows = None
+        for i in range(k):
+            inputs = (seeds[i], seeds_mask[i],
+                      *(() if draws is None else draws[i]))
+            if dev.type == "cuda":
+                vec = replay.run((state, state.generator, draws is not None),
+                                 state.generator, packed, inputs)
+            else:
+                vec = packed(*inputs)
+            state.scheduler.step()
+            state.step += 1
+            if rows is None:
+                rows = torch.empty((k, vec.shape[0]), dtype=torch.float64,
+                                   device=dev)
+            rows[i].copy_(vec)
+        return state, _unpack(rows, layout["train"])
+
+    return multi
+
+
+def make_multi_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                         plan: CapacityPlan, multilabel: bool,
+                         device="cuda") -> Callable:
+    """Chained validation: ``multi(state, generator, seeds[K, B],
+    seeds_mask[K, B], draws=None) -> (f1, loss * n, n)``, each the sum over
+    the K batches of :func:`make_eval_step`'s outputs, added in batch order
+    in their own dtypes, the generator advancing as K single calls would
+    advance it: the sums of the unchained loop, bit for bit. On the card
+    the eval step is captured once as a CUDA graph and replayed per batch,
+    as in :func:`make_multi_train_step`."""
+    dev = _resolve(graph, device)
+    body = _make_eval_body(graph, sampler_cfg, plan, multilabel)
+    replay = _Replay()
+
+    def multi(state: TrainState, generator: Optional[torch.Generator],
+              seeds: torch.Tensor, seeds_mask: torch.Tensor, draws=None):
+        k = _check_chain(seeds, seeds_mask, draws, None)
+
+        def packed(seeds, seeds_mask, *draws):
+            f1, loss_n, n = body(state, generator, seeds, seeds_mask,
+                                 list(draws) or None)
+            return torch.stack([f1.tp, f1.fp, f1.fn, f1.total, loss_n]), n
+
+        acc = torch.zeros(5, dtype=torch.float32, device=dev)
+        n_sum = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(k):
+            inputs = (seeds[i], seeds_mask[i],
+                      *(() if draws is None else draws[i]))
+            if dev.type == "cuda":
+                vec, n = replay.run((state, generator, draws is not None),
+                                    generator, packed, inputs)
+            else:
+                vec, n = packed(*inputs)
+            acc = acc + vec
+            n_sum = n_sum + n
+        return F1State(*acc[:4].unbind()), acc[4], n_sum
+
+    return multi

@@ -2,19 +2,30 @@
 """Smoke run of the PyTorch/CUDA port (``bliss_gnn_tpu_torch``) on one
 NVIDIA GPU: builds the seven CUDA kernels from ``bliss_gnn_tpu_torch/csrc``,
 checks small fused SAGE, GATv2 and GCN steps on the card against the CPU
-path, then drives four paths at the Reddit-shaped configuration (232,965
-nodes, 114.8M edges with self-loops, 602 features, 41 classes; batch 256,
-fan-outs 4096/2048/1024):
+path (and a SAGE step sampling ``full`` neighbourhoods), and small SAGE and
+GATv2 steps replayed from a CUDA graph against eager steps on the card,
+then drives five paths at the Reddit-shaped configuration (232,965 nodes,
+114.8M edges with self-loops, 602 features, 41 classes; batch 256, fan-outs
+4096/2048/1024):
 
     main_path  the fused poisson-bandit SAGE-256 x3 step: capacities refit
                from a pilot run and widened after an overflow; 3 warm-up
-               and 10 timed steps (K1-K4), then a torch.profiler breakdown
-               of three more steps;
+               and 10 timed eager steps (K1-K4); then the step replayed
+               from a CUDA graph (``make_multi_train_step``: single
+               replays, and a chain of 10 with one sync), then 3 more
+               replays each held against an eager step from the same
+               state; torch.profiler
+               breakdowns of three more eager and three more replayed
+               steps; then sampled validation (phase ``eval``: the eager
+               eval step and a chained eval of 8 batches);
     gat_path   the fused step with GATv2 (hidden 256, heads 4/4/1) on the
-               main path's final plan, from fresh arm weights (K1-K5), then
-               a torch.profiler breakdown of three more steps and one more
-               sampled step's layer-0 block (phase ``gat_call_sites``);
-    gcn_path   the same with GCN-256 x3 (K1-K4);
+               main path's final plan, from fresh arm weights (K1-K5),
+               eager and replayed, profiles of both, and one more sampled
+               step's layer-0 block (phase ``gat_call_sites``);
+    gcn_path   the same with GCN-256 x3 (K1-K4), its eager step profiled;
+    neighbor_path  SAGE-256 x3 with 10/10/10 uniform in-edges per dst
+               (DGL's NeighborSampler fan-outs; the main path's batch),
+               pilot and refit (K1-K3);
     inference  full-graph layerwise inference of the three trained models
                (K6 for SAGE and GCN, K7 for GATv2), one counted pass each
                timed per layer, then each checked against the plain
@@ -29,8 +40,9 @@ also with five tables in one launch; K4 bitwise on distinct indices and
 within m - 1 bf16 ulps on an index repeated m times; K5 on uniform ids and
 on that GATv2 block's ids, at both output dtypes, both routes also against
 themselves. K1's and K3's ``launches`` count their route over the main
-path (K3's at the row's width), K5's over the GATv2 path;
-``launches_at_this_shape`` the row's own shape.
+path's eager steps (K3's at the row's width), K5's over the GATv2 path's;
+``launches_at_this_shape`` the row's own shape. The wrappers count in
+Python, so a replayed step adds nothing to them.
 Each kernel row carries ``ms`` (CUDA events around back-to-back wrapper
 calls: the slower of the host's launch rate and the device) and
 ``device_ms`` (the same calls captured in a CUDA graph and replayed; also
@@ -64,6 +76,7 @@ HIDDEN = 256
 GAT_HEADS = (4, 1)  # per hidden layer, at the output
 PREFIX_EDGES = 4_000_000  # the CSC prefix the inference checks run on
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+LOCKSTEP_STEPS = 3  # replayed steps held against eager twins, each path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 BF16_ULP = 2.0 ** -7
@@ -244,9 +257,13 @@ def main():
     emit({"phase": "build", "seconds": round(build_s, 2),
           "kernels": sorted(_build.SIGNATURES)})
 
-    # -- phase 2: small fused steps, card against the CPU path ------------
+    # -- phase 2: small fused steps, card against the CPU path; replayed
+    # steps against eager ones ---------------------------------------------
     for name in ("sage", "gat", "gcn"):
         small_step_check(torch, dev, name)
+    small_step_check(torch, dev, "sage", kind="full")
+    for name in ("sage", "gat"):
+        small_replay_check(torch, dev, name)
 
     # -- phase 3a: graph and plan ----------------------------------------
     t0 = time.perf_counter()
@@ -297,9 +314,9 @@ def main():
                             len(FANOUTS), num_in_heads=GAT_HEADS[0],
                             num_out_heads=GAT_HEADS[1], device=dev, seed=seed)
         opt, sched = make_optimizer(model.parameters(), 2e-3, 100)
-        state = TrainState(model, opt, sched,
-                           init_exp3_weights(len(FANOUTS), n_edges,
-                                             device=dev), gen)
+        exp3 = (init_exp3_weights(len(cfg.fanouts), n_edges, device=dev)
+                if cfg.is_bandit else None)
+        state = TrainState(model, opt, sched, exp3, gen)
         step = make_train_step(graph, cfg, step_plan, False, device=dev)
         times, log = [], []
         for _ in range(n_steps):
@@ -308,7 +325,7 @@ def main():
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             log.append(m)
-            over = {k for l in range(3)
+            over = {k for l in range(len(cfg.fanouts))
                     for k in ("frontier_overflow", "block_edge_overflow")
                     if int(m[f"layer{l}/{k}"]) > 0}
             if widen and over:
@@ -359,6 +376,8 @@ def main():
     last = metrics_log[-1]
     overflow = {k: max(int(m[k]) for m in metrics_log)
                 for k in last if "overflow" in k}
+    replay, replay_one = replayed_steps(torch, graph, cfg, final, seeds,
+                                        smask, seed=0)
     emit({"phase": "main_path", "steps": n_steps,
           "step_ms": step_med,
           "step_ms_all": step_ms,
@@ -377,16 +396,22 @@ def main():
           "final_block_e_caps": final.block_e_caps,
           "num_edges": [int(last[f"num_edges/{l}"]) for l in range(3)],
           "num_nodes": [int(last[f"num_nodes/{l}"]) for l in range(4)],
-          "peak_memory_bytes": peak, "nvidia_smi": smi_line})
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"non-finite loss {losses}")
+          "peak_memory_bytes": peak, **replay, "nvidia_smi": smi_line})
+    if not all(math.isfinite(x) for x in losses + replay["replayed_loss"]):
+        fail(f"non-finite loss {losses} {replay['replayed_loss']}")
     missing = [k for k, v in launches.items() if v <= 0]
     missing += [f"{k} {route}" for k, d in by_shape.items()
                 for route in ("sorted", "unsorted")
                 if not any(s.startswith(route + " ") for s in d)]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
-    profile_steps(torch, state, step, seeds, smask, step_med, smi_line)
+    profile_steps(torch, lambda: step(state, seeds, smask), step_med,
+                  smi_line)
+    profile_steps(torch, replay_one, replay["replayed_step_ms"], smi_line,
+                  mode="replayed")
+    del replay_one
+    torch.cuda.empty_cache()
+    eval_phase(torch, graph, cfg, final, state, smi_line)
     sites = call_site_inputs(torch, graph, cfg, final, state.exp3_weights,
                              seeds, smask)
     emit({"phase": "call_sites", "plan_block_e_caps": final.block_e_caps,
@@ -424,6 +449,8 @@ def main():
         mlosses = [float(m["train_loss"]) for m in mlog]
         moverflow = {k: max(int(m[k]) for m in mlog)
                      for k in mlog[-1] if "overflow" in k}
+        mreplay, mreplay_one = replayed_steps(torch, graph, mcfg, mfinal,
+                                              seeds, smask, seed=seed)
         extra = {"heads": [GAT_HEADS[0]] * (len(FANOUTS) - 1)
                  + [GAT_HEADS[1]],
                  "row_scatter_add_launches_per_step_by_shape": {
@@ -443,9 +470,11 @@ def main():
                       or "block_edge_overflow" in k)
                   for m in mlog),
               "final_block_e_caps": mfinal.block_e_caps,
-              "peak_memory_bytes": mpeak, "nvidia_smi": smi_line})
-        if not all(math.isfinite(x) for x in mlosses):
-            fail(f"{name}_path: non-finite loss {mlosses}")
+              "peak_memory_bytes": mpeak, **mreplay, "nvidia_smi": smi_line})
+        if not all(math.isfinite(x)
+                   for x in mlosses + mreplay["replayed_loss"]):
+            fail(f"{name}_path: non-finite loss {mlosses} "
+                 f"{mreplay['replayed_loss']}")
         missing = [k for k in kernels if mlaunches[k] <= 0]
         if name == "gat":
             missing += [f"row_scatter_add {route}"
@@ -454,10 +483,15 @@ def main():
         if missing:
             fail(f"kernels not launched on the {name} path: {missing}")
         msites = None
+        profile_steps(torch, lambda: mstep(mstate, seeds, smask),
+                      statistics.median(mtimes[WARMUP_STEPS:]), smi_line,
+                      model=name)
         if name == "gat":
-            profile_steps(torch, mstate, mstep, seeds, smask,
-                          statistics.median(mtimes[WARMUP_STEPS:]), smi_line,
-                          model=name)
+            profile_steps(torch, mreplay_one, mreplay["replayed_step_ms"],
+                          smi_line, model=name, mode="replayed")
+        del mreplay_one
+        torch.cuda.empty_cache()
+        if name == "gat":
             # the ids K5 sees: one more sampled step on the GATv2 plan
             msites = call_site_inputs(torch, graph, mcfg, mfinal,
                                       mstate.exp3_weights, seeds, smask)
@@ -473,6 +507,10 @@ def main():
     # -- phase 4: the fused GATv2 and GCN steps on the final plan ---------
     gat_model, gfinal, gby_shape, gsites = model_path("gat", seed=2)
     gcn_model, *_ = model_path("gcn", seed=3)
+
+    # -- phase 4b: SAGE with DGL's per-dst neighbor sampling --------------
+    neighbor_path(torch, train, graph, deg_np, wrappers, seeds, smask,
+                  smi_line)
 
     # -- phase 5: full-graph layerwise inference --------------------------
     layer_launches = inference_phase(
@@ -532,12 +570,13 @@ def call_site_inputs(torch, graph, cfg, plan, exp3, seeds, smask, seed=5):
     return out
 
 
-def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line,
-                  model="sage", n=3):
-    """``torch.profiler`` over ``n`` more fused steps of ``model``, after
-    its counted run. Prints the device time per step by kernel and its
-    share of the profiled wall time and of the unprofiled median step
-    time."""
+def profile_steps(torch, run, step_ms, smi_line, model="sage", n=3,
+                  mode="eager"):
+    """``torch.profiler`` over ``n`` calls of ``run``, each one fused step
+    of ``model`` (``mode``: eager, or replayed from its CUDA graph), after
+    its counted run. Prints the device time per step by kernel, its share
+    of the profiled wall time and of the unprofiled median step time, and
+    the time of the index backwards (``indexing_backward*`` kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -545,7 +584,7 @@ def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = step(state, seeds, smask)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows = []
@@ -559,25 +598,349 @@ def profile_steps(torch, state, step, seeds, smask, step_ms, smi_line,
         rows.append((us / n / 1e3, evt.count / n, evt.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    emit({"phase": "profile", "model": model, "steps": n,
+    index_ms = sum(r[0] for r in rows if "indexing_backward" in r[2])
+    emit({"phase": "profile", "model": model, "mode": mode, "steps": n,
           "wall_ms_per_step": wall_ms,
           "device_ms_per_step": device_ms,
           "device_busy_share": device_ms / wall_ms,
           "device_share_of_step_ms": device_ms / step_ms,
           "device_ops_per_step": sum(r[1] for r in rows),
+          "indexing_backward_ms_per_step": index_ms,
+          "indexing_backward_share_of_device": index_ms / max(device_ms,
+                                                              1e-9),
           "top": [{"ms": a, "calls": c, "name": k[:90]}
                   for a, c, k in rows[:20]],
           "nvidia_smi": smi_line})
+    if device_ms <= 0:
+        fail(f"profile ({model}, {mode}): no device time recorded")
 
 
-def small_step_check(torch, dev, model_name):
+def load_train_state(torch, dst, src):
+    """Copies ``src``'s training state into ``dst`` (built alike, its Adam
+    state made by a step already): parameters, Adam's moments, step counts
+    and rate, the schedule's place, the arm weights and the generator."""
+    with torch.no_grad():
+        for p, q in zip(dst.model.parameters(), src.model.parameters()):
+            p.copy_(q)
+            for k, v in src.optimizer.state[q].items():
+                dst.optimizer.state[p][k].copy_(v)
+        dst.optimizer.param_groups[0]["lr"].copy_(
+            src.optimizer.param_groups[0]["lr"])
+        if src.exp3_weights is not None:
+            dst.exp3_weights.copy_(src.exp3_weights)
+    dst.scheduler.lr = src.scheduler.lr
+    dst.scheduler.last_epoch = src.scheduler.last_epoch
+    dst.generator.set_state(src.generator.get_state())
+    dst.step = src.step
+
+
+def replayed_steps(torch, graph, cfg, plan, seeds, smask, seed):
+    """The fused step of ``cfg.model`` on ``plan`` replayed from a CUDA
+    graph by one chained step (``make_multi_train_step``), from fresh
+    weights and arm weights and a capturable Adam: chains of one step, the
+    warm-ups and the capture, then TIMED_STEPS single replays, each
+    followed by a sync, then one chain of TIMED_STEPS with one sync at its
+    end. Then LOCKSTEP_STEPS more replays, each held against an eager step
+    of a twin state loaded with the replayed state just before (the same
+    weights, Adam state, arm weights and generator, so the same blocks and
+    dropout masks): the losses within 2^-7 of max(|loss|, 1), the step's
+    parameter update within 2^-4 of the eager update's norm, the arm
+    weights within 2^-6 (a few bf16 ulps). Free-running eager and replayed
+    runs cannot be held so: the unsorted K1 and K3 sums add with atomics
+    in a varying order, and the bandit's sampling carries the last bits
+    into other blocks within a few steps. Returns the median single
+    replay, the chained time per step, the peak memory with the graph's
+    pool, the losses and the lockstep errors, and a function that replays
+    one more step (the profile's)."""
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.sampling.samplers import init_exp3_weights
+    from bliss_gnn_tpu_torch.train.steps import (
+        CAPTURE_WARMUP_STEPS,
+        TrainState,
+        make_multi_train_step,
+        make_optimizer,
+        make_train_step,
+    )
+
+    dev = seeds.device
+
+    def fresh():
+        model = build_model(cfg.model, N_FEATS, HIDDEN, N_CLASSES,
+                            len(cfg.fanouts), num_in_heads=GAT_HEADS[0],
+                            num_out_heads=GAT_HEADS[1], device=dev,
+                            seed=seed)
+        opt, sched = make_optimizer(model.parameters(), 2e-3, 100,
+                                    capturable=True)
+        exp3 = (init_exp3_weights(len(cfg.fanouts), graph.n_edges,
+                                  device=dev) if cfg.is_bandit else None)
+        return TrainState(model, opt, sched, exp3,
+                          torch.Generator(device=dev).manual_seed(seed))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    multi = make_multi_train_step(graph, cfg, plan, False, device=dev)
+    s1, m1 = seeds[None], smask[None]
+    losses = []
+    for _ in range(CAPTURE_WARMUP_STEPS + 1):  # warm-ups, then the capture
+        state, m = multi(state, s1, m1)
+        losses.append(m["train_loss"])
+    torch.cuda.synchronize()
+    single = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = multi(state, s1, m1)
+        torch.cuda.synchronize()
+        single.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["train_loss"])
+    sk, mk = seeds.expand(TIMED_STEPS, -1), smask.expand(TIMED_STEPS, -1)
+    t0 = time.perf_counter()
+    state, m = multi(state, sk, mk)
+    torch.cuda.synchronize()
+    chained = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    losses.append(m["train_loss"])
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+
+    # lockstep: the twin's first step makes its Adam state
+    twin, eager_step = fresh(), make_train_step(graph, cfg, plan, False,
+                                                device=dev)
+    twin, _ = eager_step(twin, seeds, smask)
+    lock = []
+    for _ in range(LOCKSTEP_STEPS):
+        load_train_state(torch, twin, state)
+        pre = [p.detach().clone() for p in state.model.parameters()]
+        twin, me = eager_step(twin, seeds, smask)
+        state, mr = multi(state, s1, m1)
+        d_e = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                         zip(twin.model.parameters(), pre)])
+        d_r = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                         zip(state.model.parameters(), pre)])
+        le, lr_ = float(me["train_loss"]), float(mr["train_loss"][0])
+        rec = {"loss_eager": le, "loss_replayed": lr_,
+               "loss_err": abs(lr_ - le) / max(abs(le), 1.0),
+               "update_norm": float(d_e.norm()),
+               "update_err": float((d_r - d_e).norm()
+                                   / d_e.norm().clamp(min=1e-30))}
+        if state.exp3_weights is not None:
+            w_e, w_r = twin.exp3_weights.float(), state.exp3_weights.float()
+            rec["exp3_err"] = float(((w_r - w_e).abs()
+                                     / w_e.abs().clamp(min=1e-30)).max())
+        lock.append(rec)
+        del pre, d_e, d_r
+    del twin, eager_step
+    torch.cuda.empty_cache()
+    out = {"replayed_step_ms": statistics.median(single),
+           "replayed_step_ms_all": single,
+           "chained_step_ms": chained,
+           "replayed_loss": torch.cat(losses).tolist(),
+           "replay_steps": state.step,
+           "replay_peak_memory_bytes": peak[0],
+           "replay_peak_reserved_bytes": peak[1],
+           "replay_vs_eager_lockstep": lock,
+           "replay_vs_eager_tolerance": {"loss": 2.0 ** -7,
+                                         "update": 2.0 ** -4,
+                                         "exp3": 2.0 ** -6}}
+    bad = [r for r in lock
+           if not (r["loss_err"] <= 2.0 ** -7 and r["update_err"] <= 2.0 ** -4
+                   and r.get("exp3_err", 0.0) <= 2.0 ** -6
+                   and r["update_norm"] > 0)]
+    if bad:
+        fail(f"{cfg.model}: replayed steps differ from eager steps from the "
+             f"same state: {lock}")
+
+    def replay_one():
+        multi(state, s1, m1)
+
+    return out, replay_one
+
+
+def eval_phase(torch, graph, cfg, plan, state, smi_line, n_batches=8):
+    """Sampled validation of the trained main-path state on ``plan``: the
+    eager eval step (median of 5 calls, each followed by a sync) and a
+    chained eval of ``n_batches`` batches of BATCH random seeds
+    (``make_multi_eval_step``: the first chain warms up, captures and
+    replays; the second, timed with one sync, only replays). The arm
+    weights must come out bit-equal, and the counts whole."""
+    from bliss_gnn_tpu_torch.train.steps import (
+        make_eval_step,
+        make_multi_eval_step,
+    )
+
+    dev = graph.device
+    exp3 = state.exp3_weights.clone()
+    one = make_eval_step(graph, cfg, plan, False, device=dev)
+    multi = make_multi_eval_step(graph, cfg, plan, False, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bseeds = torch.from_numpy(np.random.default_rng(21).integers(
+        0, N_NODES, (n_batches, BATCH)).astype(np.int32)).to(dev)
+    bmask = torch.ones((n_batches, BATCH), dtype=torch.bool, device=dev)
+    eager = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        f1, loss_n, n = one(state, gen, bseeds[i], bmask[i])
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    f1, loss_n, n = multi(state, gen, bseeds, bmask)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    f1, loss_n, n = multi(state, gen, bseeds, bmask)
+    torch.cuda.synchronize()
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(state.exp3_weights, exp3)
+    rec = {"phase": "eval", "batches": n_batches,
+           "eval_step_ms": statistics.median(eager),
+           "eval_step_ms_all": eager,
+           "chained_eval_ms_first_with_capture": first_ms,
+           "chained_eval_ms": chain_ms,
+           "chained_eval_ms_per_batch": chain_ms / n_batches,
+           "n": int(n), "f1_total": float(f1.total),
+           "accuracy": float(f1.tp) / max(float(f1.total), 1.0),
+           "mean_loss": float(loss_n) / max(int(n), 1),
+           "arm_weights_bit_equal": same, "nvidia_smi": smi_line}
+    emit(rec)
+    if not same:
+        fail("eval changed the arm weights")
+    if int(n) != n_batches * BATCH or float(f1.total) != int(n):
+        fail(f"eval counted {int(n)} seeds, {float(f1.total)} in F1, of "
+             f"{n_batches * BATCH}")
+    if not math.isfinite(rec["mean_loss"]):
+        fail(f"eval: non-finite loss {rec['mean_loss']}")
+
+
+def neighbor_path(torch, train, graph, deg_np, wrappers, seeds, smask,
+                  smi_line):
+    """SAGE-256 x3 with DGL's per-dst neighbor sampling at its fan-outs,
+    10/10/10 in-edges per dst (``examples/pytorch/graphsage/
+    node_classification.py``'s ``NeighborSampler([10, 10, 10])``; that
+    example's batch is 1024, this phase keeps the main path's BATCH), on
+    the Reddit-shaped graph: a pilot at the a-priori caps, a refit, then the counted run
+    (K1-K3; no EXP3, so no K4), its sampling alone, finite losses, and a
+    profile of three more steps."""
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig,
+        sample_blocks,
+    )
+
+    fanouts = (10, 10, 10)
+    ncfg = SamplerConfig(kind="neighbor", fanouts=fanouts)
+    plan = CapacityPlan.build(BATCH, fanouts, graph.n_nodes, graph.n_edges,
+                              kind=ncfg.kind, deg_std=float(deg_np.std()),
+                              max_degree=int(deg_np.max()))
+    *_, pilot, _ = train(plan, seed=4, cfg=ncfg)
+    fr = [max(int(m[f"layer{l}/frontier_edges"]) for m in pilot)
+          for l in range(3)]
+    be = [max(int(m[f"layer{l}/n_block_edges_true"]) for m in pilot)
+          for l in range(3)]
+    tight = plan.refit(fr, be, max_degree=int(deg_np.max()))
+    del pilot
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    state, step, times, log, final = train(tight, seed=4, widen=True,
+                                           cfg=ncfg)
+    kernels = ("scatter_add", "lut_gather", "segment_sum")
+    launches = {k: wrappers[k].launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    samp_ms = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        sample_blocks(graph, ncfg, final, state.generator, seeds, smask)
+        torch.cuda.synchronize()
+        samp_ms.append((time.perf_counter() - t0) * 1e3)
+    losses = [float(m["train_loss"]) for m in log]
+    last = log[-1]
+    emit({"phase": "neighbor_path", "fanouts": fanouts, "steps": len(log),
+          "step_ms": statistics.median(times[WARMUP_STEPS:]),
+          "step_ms_all": times[WARMUP_STEPS:],
+          "sampling_ms": statistics.median(samp_ms), "loss": losses,
+          "launches_per_step": {k: v / len(log) for k, v in launches.items()},
+          "overflow": {k: max(int(m[k]) for m in log)
+                       for k in last if "overflow" in k},
+          "pilot_frontier_edges": fr, "pilot_block_edges": be,
+          "frontier_caps": final.frontier_caps,
+          "block_e_caps": final.block_e_caps, "dst_caps": final.dst_caps,
+          "num_edges": [int(last[f"num_edges/{l}"]) for l in range(3)],
+          "num_nodes": [int(last[f"num_nodes/{l}"]) for l in range(4)],
+          "peak_memory_bytes": peak, "nvidia_smi": smi_line})
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"neighbor_path: non-finite loss {losses}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"kernels not launched on the neighbor path: {missing}")
+    profile_steps(torch, lambda: step(state, seeds, smask),
+                  statistics.median(times[WARMUP_STEPS:]), smi_line,
+                  mode="eager, neighbor 10/10/10")
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def kernel_origins(prof, pattern):
+    """Where the device kernels whose names contain ``pattern`` come from,
+    in a profile taken with ``with_stack=True`` and ``record_shapes=True``:
+    the op that launched each and its input shapes, the autograd node that
+    op ran in, and the forward op that node differentiates (matched by
+    sequence number) with its package frames. One record per origin, with
+    its kernels' calls and device ms, largest first."""
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    forward = {}  # sequence number -> the forward op, the first event
+    for e in events:
+        if e.name.startswith("aten::") and e.sequence_nr >= 0:
+            forward.setdefault(e.sequence_nr, e)
+    origins = {}
+    for e in events:
+        hits = [k for k in getattr(e, "kernels", ()) if pattern in k.name]
+        if not hits:
+            continue
+        node = next((p for p in ancestors(e) if p.name.endswith("Backward0")),
+                    None)
+        fwd = forward.get(node.sequence_nr) if node is not None else None
+        frames = [p.name for p in ancestors(fwd or e)]
+        frames += list(getattr(fwd or e, "stack", None) or ())
+        frames = tuple(f for f in frames if "bliss_gnn_tpu_torch" in f)
+        for k in hits:
+            key = (k.name[:90], e.name, str(e.input_shapes),
+                   node.name if node else None,
+                   fwd.name if fwd else None, frames)
+            rec = origins.setdefault(key, [0, 0.0])
+            rec[0] += 1
+            rec[1] += k.duration / 1e3
+    return sorted(({"kernel": k[0], "launched_by": k[1], "input_shapes": k[2],
+                    "backward_of": k[3], "forward_op": k[4],
+                    "forward_frames": list(k[5]), "calls": c,
+                    "device_ms": ms}
+                   for k, (c, ms) in origins.items()),
+                  key=lambda r: -r["device_ms"])
+
+
+def small_graph(torch):
+    """The small steps' graph: 3,000 nodes, 60,000 edges, 64 features, 7
+    classes."""
+    from bliss_gnn_tpu_torch.graph.datasets import synthetic_graph
+    from bliss_gnn_tpu_torch.graph.structure import Graph, normalized_edata
+
+    g, n_cls, _ = synthetic_graph(3000, 60000, 64, 7, seed=3)
+    g = Graph.canonicalize(g)
+    g.edata["w"] = normalized_edata(g)
+    return g, n_cls
+
+
+def small_step_check(torch, dev, model_name, kind="poisson-bandit"):
     """Three fused steps of ``model_name`` at a small size on the card
     (kernels) and on the CPU (plain versions), from the same weights and
     the same draws: the blocks must be identical, the losses, parameters
-    and arm weights close (bf16 compute; rtol 2e-2)."""
-    from bliss_gnn_tpu_torch.graph.datasets import synthetic_graph
-    from bliss_gnn_tpu_torch.graph.structure import (
-        DeviceGraph, Graph, normalized_edata)
+    and arm weights close (bf16 compute; rtol 2e-2). ``kind="full"`` takes
+    every in-edge of every dst (two full hops) and draws nothing."""
+    from bliss_gnn_tpu_torch.graph.structure import DeviceGraph
     from bliss_gnn_tpu_torch.models.gnn import build_model
     from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
     from bliss_gnn_tpu_torch.sampling.samplers import (
@@ -585,16 +948,17 @@ def small_step_check(torch, dev, model_name):
     from bliss_gnn_tpu_torch.train.steps import (
         TrainState, make_optimizer, make_train_step)
 
-    g, n_cls, _ = synthetic_graph(3000, 60000, 64, 7, seed=3)
-    g = Graph.canonicalize(g)
-    g.edata["w"] = normalized_edata(g)
-    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128),
-                        model=model_name)
+    g, n_cls = small_graph(torch)
+    cfg = SamplerConfig(kind=kind, fanouts=(256, 128), model=model_name)
     plan = CapacityPlan.build(32, cfg.fanouts, g.n_nodes, g.n_edges,
                               kind=cfg.kind, dense_candidates=False)
     draws_gen = torch.Generator().manual_seed(4)
     draws = [[torch.rand(c, generator=draws_gen) for c in plan.cand_caps]
-             for _ in range(3)]
+             if kind != "full" else None for _ in range(3)]
+
+    def on(d, x):
+        return None if x is None else [t.to(d) for t in x]
+
     seeds = torch.arange(32, dtype=torch.int32)
     smask = torch.ones(32, dtype=torch.bool)
     out = {}
@@ -609,12 +973,11 @@ def small_step_check(torch, dev, model_name):
                         torch.Generator(device=d).manual_seed(0))
         step = make_train_step(dg, cfg, plan, False, device=d)
         blocks = sample_blocks(dg, cfg, plan, None, seeds.to(d), smask.to(d),
-                               st.exp3_weights,
-                               draws=[x.to(d) for x in draws[0]])[0]
+                               st.exp3_weights, draws=on(d, draws[0]))[0]
         losses = []
         for k in range(3):
             st, m = step(st, seeds.to(d), smask.to(d),
-                         draws=[x.to(d) for x in draws[k]])
+                         draws=on(d, draws[k]))
             losses.append(float(m["train_loss"]))
         out[where] = dict(
             eids=[b.eid.cpu() for b in blocks], losses=losses,
@@ -634,8 +997,9 @@ def small_step_check(torch, dev, model_name):
                     for n in c["params"])
     exp3_err = ((k["exp3"] - c["exp3"]).abs()
                 / c["exp3"].abs().clamp(min=1e-30)).max().item()
-    emit({"phase": "small_step_vs_cpu", "model": model_name,
+    emit({"phase": "small_step_vs_cpu", "model": model_name, "kind": kind,
           "same_blocks": same_blocks,
+          "num_edges": [int(b.num_edges()) for b in blocks],
           "loss_cuda": k["losses"], "loss_cpu": c["losses"],
           "loss_rel_err": loss_err, "exp3_rel_err": exp3_err,
           "tolerance": 2e-2, "param_err_over_tolerance": param_err})
@@ -645,6 +1009,122 @@ def small_step_check(torch, dev, model_name):
         fail(f"small {model_name} step: non-finite loss")
     if loss_err > 2e-2 or param_err > 1.0 or exp3_err > 2e-2:
         fail(f"small {model_name} step: card and CPU disagree")
+
+
+def small_replay_check(torch, dev, model_name, k=3):
+    """``k`` steps of ``model_name`` replayed from a CUDA graph
+    (``make_multi_train_step``: the chain's warm-up steps, the capture, k
+    replays) against as many eager steps on the card from the same state
+    (weights, arm weights, generator; capturable Adam whose rate halves
+    every 3 steps, so that the replays cross the staircase), at the small
+    size, the sampler's uniforms injected and dropout 0.1 drawn from the
+    state's generator: each step's blocks equal (the src tables, copied on
+    the device into a ring, so a replay records them too), the losses
+    within rtol 1e-5, every parameter and Adam moment within rtol 1e-5 and
+    1e-6 of its tensor's largest magnitude (far below one update, about
+    the rate per parameter), the arm weights within one bf16 ulp. The
+    replays were exact in every run; the bounds leave room for a last-bit
+    reorder of the atomic sums."""
+    from bliss_gnn_tpu_torch.graph.structure import DeviceGraph
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig, init_exp3_weights)
+    from bliss_gnn_tpu_torch.train import steps
+
+    g, n_cls = small_graph(torch)
+    dg = DeviceGraph.from_graph(g, device=dev)
+    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128),
+                        model=model_name)
+    plan = CapacityPlan.build(32, cfg.fanouts, g.n_nodes, g.n_edges,
+                              kind=cfg.kind, dense_candidates=False)
+    n = steps.CAPTURE_WARMUP_STEPS + k
+    draws_gen = torch.Generator().manual_seed(5)
+    draws = [[torch.rand(c, generator=draws_gen).to(dev)
+              for c in plan.cand_caps] for _ in range(n)]
+    seeds = torch.arange(32, dtype=torch.int32, device=dev)
+    smask = torch.ones(32, dtype=torch.bool, device=dev)
+    ring = [torch.zeros((n, plan.src_cap(l)), dtype=torch.int32, device=dev)
+            for l in range(2)]
+    row = torch.zeros(1, dtype=torch.long, device=dev)
+    sample = steps.sample_blocks
+
+    def recorded(*args, **kw):
+        blocks, stats = sample(*args, **kw)
+        for r, b in zip(ring, blocks):
+            r.index_copy_(0, row, b.src_gids[None])
+        row.add_(1)
+        return blocks, stats
+
+    def fresh():
+        model = build_model(model_name, 64, 32, n_cls, 2, dropout=0.1,
+                            attn_drop=0.1, device=dev)
+        opt, sched = steps.make_optimizer(model.parameters(), 1e-3, 1,
+                                          gamma=0.5, step_size=3,
+                                          capturable=True)
+        return steps.TrainState(model, opt, sched,
+                                init_exp3_weights(2, g.n_edges, device=dev),
+                                torch.Generator(device=dev).manual_seed(0))
+
+    def train_tensors(st):
+        out = {}
+        for name, p in st.model.named_parameters():
+            out[name] = p.detach().clone()
+            for key, v in st.optimizer.state[p].items():
+                out[f"{name}.{key}"] = v.detach().clone()
+        return out
+
+    steps.sample_blocks = recorded
+    try:
+        st, eager = fresh(), []
+        step = steps.make_train_step(dg, cfg, plan, False, device=dev)
+        for i in range(n):
+            st, m = step(st, seeds, smask, draws=draws[i])
+            eager.append(float(m["train_loss"]))
+        want_src, want_exp3 = [r.clone() for r in ring], st.exp3_weights
+        want_train = train_tensors(st)
+        row.zero_()
+        multi = steps.make_multi_train_step(dg, cfg, plan, False, n,
+                                            device=dev)
+        st, m = multi(fresh(), seeds.expand(n, -1), smask.expand(n, -1),
+                      draws=draws)
+        torch.cuda.synchronize()
+    finally:
+        steps.sample_blocks = sample
+    replayed = m["train_loss"].tolist()
+    same = [all(torch.equal(r[i], w[i]) for r, w in zip(ring, want_src))
+            for i in range(n)]
+    loss_err = max(abs(a - b) / max(abs(b), 1e-6)
+                   for a, b in zip(replayed, eager))
+    exp3_err = ((st.exp3_weights.float() - want_exp3.float()).abs()
+                / want_exp3.float().abs().clamp(min=1e-30)).max().item()
+    got_train = train_tensors(st)
+    # each tensor's error over its bound (rtol 1e-5, atol 1e-6 x max|want|)
+    train_err = max(
+        ((got_train[n].float() - w.float()).abs()
+         / (1e-5 * w.float().abs() + 1e-6 * w.float().abs().max()
+            ).clamp(min=1e-30)).max().item()
+        for n, w in want_train.items())
+    bitwise = all(torch.equal(got_train[n], w) for n, w in want_train.items())
+    emit({"phase": "small_replay_vs_eager", "model": model_name,
+          "eager_steps": steps.CAPTURE_WARMUP_STEPS, "replayed_steps": k,
+          "same_blocks_by_step": same, "loss_eager": eager,
+          "loss_replayed": replayed, "loss_rel_err": loss_err,
+          "exp3_rel_err": exp3_err, "train_tensors": len(want_train),
+          "train_err_over_tolerance": train_err,
+          "train_tensors_bitwise_equal": bitwise,
+          "lr": st.scheduler.get_last_lr()[0],
+          "tolerance": {"loss": 1e-5, "exp3": 2.0 ** -8,
+                        "train": "rtol 1e-5, atol 1e-6 x max|eager|"}})
+    if not all(same):
+        fail(f"replayed {model_name} steps sampled other blocks than eager "
+             f"ones: {same}")
+    if not all(math.isfinite(x) for x in replayed):
+        fail(f"replayed {model_name} steps: non-finite loss")
+    if (not loss_err <= 1e-5 or not exp3_err <= 2.0 ** -8
+            or not train_err <= 1.0 or got_train.keys() != want_train.keys()
+            or st.scheduler.get_last_lr() != [1e-3 / 2]):
+        fail(f"replayed {model_name} steps disagree with eager ones")
 
 
 def kernel_row(name, launches, src, replaces, err, tol, ms, plain_ms, lib_ms,

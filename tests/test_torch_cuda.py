@@ -445,6 +445,22 @@ def _csc(gen, dev, n, hub):
     return indptr, src, e
 
 
+def _exact_payload(gen, dev, shape, dtype):
+    """Integers in [-64, 64] over 64 (exact in bf16 too): with weights in
+    eighths (``_exact_weights``) every partial sum of the 30,000-edge hub
+    row is exact in f32, so no order of the plain version's ``index_add_``
+    atomics rounds it differently from the kernel's. Unit normals left the
+    hub's sums about 1e-3 apart, at the test's atol (one miss in 50 calls
+    at F = 300, f32; tools/kernel_probe.py k6-hub)."""
+    return (torch.randint(-64, 65, shape, generator=gen, device=dev)
+            / 64).to(dtype)
+
+
+def _exact_weights(gen, dev, e):
+    """Edge weights, integers in [0, 8] over 8."""
+    return torch.randint(0, 9, (e,), generator=gen, device=dev) / 8
+
+
 @pytest.mark.parametrize("f,dtype,weighted", [(256, torch.bfloat16, False),
                                               (41, torch.bfloat16, False),
                                               (41, torch.float32, True),
@@ -456,8 +472,8 @@ def test_spmm_kernel(dev, gen, f, dtype, weighted):
     three), a hub row of 30,000 edges, one launch per slice; two calls give
     the same bits (no atomics)."""
     indptr, src, e = _csc(gen, dev, 3000, hub=30_000)
-    x = torch.randn((3000, f), generator=gen, device=dev).to(dtype)
-    w = torch.rand(e, generator=gen, device=dev) if weighted else None
+    x = _exact_payload(gen, dev, (3000, f), dtype)
+    w = _exact_weights(gen, dev, e) if weighted else None
     before = spmm.launches
     got = spmm(x, indptr, src, w)
     assert spmm.launches == before + spmm_mod.spmm_plan(3000, f, dtype)[2]
@@ -475,7 +491,7 @@ def test_spmm_kernel_column_slices(dev, gen, monkeypatch, slice_cols):
     monkeypatch.setattr(spmm_mod, "L2_SLICE_BYTES", 3000 * 2 * slice_cols)
     assert spmm_mod.spmm_plan(3000, 256, torch.bfloat16) == (
         256, slice_cols, 256 // slice_cols)
-    x = torch.randn((3000, 256), generator=gen, device=dev).to(torch.bfloat16)
+    x = _exact_payload(gen, dev, (3000, 256), torch.bfloat16)
     before = spmm.launches
     got = spmm(x, indptr, src)
     assert spmm.launches == before + 256 // slice_cols
@@ -505,3 +521,216 @@ def test_gat_attention_kernel(dev, gen, h, o, dtype):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert not got[::97].any()  # zero in-degree: zeros
     assert torch.equal(gat_attention(feat, attn, 0.2, indptr, src), got)
+
+
+@pytest.mark.parametrize("case", list(_SORTED_CASES))
+def test_segment_sum_sorted_softmax_rows(dev, gen, case):
+    """K3's sorted route on GATv2's softmax-denominator backward rows, [E,
+    4] f32 (one 16-byte vector a row: two launches; an unaligned view:
+    one), with a hub of 21,000 rows; payloads in multiples of 1/64, so
+    every order of the f32 sums is exact."""
+    ids, data, s, nv = _sorted_inputs(gen, dev, case, 4, torch.float32)
+    _exact(data)
+    n_launch = 1 if case == "unaligned" else 2
+    before = segment_sum.launches
+    got = segment_sum(data, ids, s, nv, ids_sorted=True)
+    assert segment_sum.launches == before + n_launch
+    want = segment_sum_plain(data, ids, s, nv, ids_sorted=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    if case != "empty":
+        assert not got[::7].any()
+        assert got[5].abs().sum() > 0
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_edge_softmax_sorted_on_the_card(dev, gen, heads):
+    """GATv2's edge softmax on a block's sorted ids (a hub of 700 edges
+    into one dst, the masked tail past n_valid), forward and gradient, on
+    the card (its denominator's gather backward through K1 for one head,
+    K3 for four) against the CPU's plain versions."""
+    from bliss_gnn_tpu_torch.ops.segment import edge_softmax
+
+    s, e, nv = 300, 6000, 5000
+    ids = torch.randint(0, s, (nv - 700,), generator=gen, device=dev)
+    ids = torch.sort(torch.cat([ids, torch.full((700,), 40, device=dev)]))[0]
+    ids = torch.cat([ids, torch.zeros(e - nv, dtype=torch.long,
+                                      device=dev)]).int()
+    mask = torch.arange(e, device=dev) < nv
+    logits = torch.randn((e, heads), generator=gen, device=dev)
+    w = torch.randn((e, heads), generator=gen, device=dev)
+    nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
+    out = {}
+    for where in ("cuda", "cpu"):
+        x = logits.detach().to(where).requires_grad_()
+        a = edge_softmax(x, ids.to(where), s, mask.to(where),
+                         n_valid=nv_d.to(where), ids_sorted=True)
+        (a * w.to(where)).sum().backward()
+        out[where] = (a.detach().cpu(), x.grad.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _small_training(dev, model_name):
+    """chip_smoke.py's small step: a 3,000-node synthetic graph, batch 32,
+    fan-outs 256/128, poisson-bandit, dropout 0.1 (drawn from the state's
+    generator); returns the graph, config, plan and a fresh-state maker
+    with a capturable Adam whose rate halves every 3 steps (so a chain
+    crosses the staircase, and a replay that read a stale rate shows in
+    the parameters)."""
+    from bliss_gnn_tpu_torch.graph.datasets import synthetic_graph
+    from bliss_gnn_tpu_torch.graph.structure import (
+        DeviceGraph, Graph, normalized_edata)
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig, init_exp3_weights)
+    from bliss_gnn_tpu_torch.train import steps
+
+    g, n_cls, _ = synthetic_graph(3000, 60000, 64, 7, seed=3)
+    g = Graph.canonicalize(g)
+    g.edata["w"] = normalized_edata(g)
+    dg = DeviceGraph.from_graph(g, device=dev)
+    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128),
+                        model=model_name)
+    plan = CapacityPlan.build(32, cfg.fanouts, g.n_nodes, g.n_edges,
+                              kind=cfg.kind, dense_candidates=False)
+
+    def fresh():
+        model = build_model(model_name, 64, 32, n_cls, 2, dropout=0.1,
+                            attn_drop=0.1, device=dev)
+        opt, sched = steps.make_optimizer(model.parameters(), 1e-3, 1,
+                                          gamma=0.5, step_size=3,
+                                          capturable=True)
+        return steps.TrainState(model, opt, sched,
+                                init_exp3_weights(2, g.n_edges, device=dev),
+                                torch.Generator(device=dev).manual_seed(0))
+
+    return dg, cfg, plan, fresh
+
+
+def _train_tensors(state):
+    """The state's parameters and Adam's moments and step counts, by name,
+    cloned."""
+    out = {}
+    for name, p in state.model.named_parameters():
+        out[name] = p.detach().clone()
+        for k, v in state.optimizer.state[p].items():
+            out[f"{name}.{k}"] = v.detach().clone()
+    return out
+
+
+def _assert_same_training(got, want):
+    """Two ``_train_tensors``: the same names, each tensor within rtol 1e-5
+    and 1e-6 of its own largest magnitude (the replays were exact in every
+    run; the bound leaves room for a last-bit reorder of the atomic sums,
+    and is far below one Adam update, about the rate per parameter)."""
+    assert got.keys() == want.keys() and got
+    for name, w in want.items():
+        atol = 1e-6 * float(w.abs().max()) if w.is_floating_point() else 0
+        torch.testing.assert_close(got[name], w, rtol=1e-5, atol=atol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("model_name", ["sage", "gat"])
+def test_replayed_steps_equal_eager_steps(dev, monkeypatch, model_name):
+    """Two chains of CAPTURE_WARMUP_STEPS + 3 steps (the first: eager
+    warm-ups, the capture, replays; the second: replays only, which launch
+    nothing through the wrappers) against as many eager steps from the
+    same state: each step's blocks equal (the sampler's uniforms injected,
+    dropout drawn from the registered generator), losses within rtol 1e-5,
+    the parameters, Adam's moments and the rate as ``_assert_same_training``
+    holds them, the arm weights within one bf16 ulp (rtol 2^-8). The
+    replays were exact in every run; the bounds leave room for a last-bit
+    reorder of the atomic sums."""
+    from bliss_gnn_tpu_torch.train import steps
+
+    dg, cfg, plan, fresh = _small_training(dev, model_name)
+    k = steps.CAPTURE_WARMUP_STEPS + 3
+    cpu_gen = torch.Generator().manual_seed(4)
+    draws = [[torch.rand(c, generator=cpu_gen).to(dev) for c in plan.cand_caps]
+             for _ in range(2 * k)]
+    seeds = torch.arange(32, dtype=torch.int32, device=dev)
+    smask = torch.ones(32, dtype=torch.bool, device=dev)
+    # every step's src tables into rows of a ring: a device-side copy, so a
+    # replay records its blocks too
+    ring = [torch.zeros((2 * k, plan.src_cap(l)), dtype=torch.int32,
+                        device=dev) for l in range(2)]
+    row = torch.zeros(1, dtype=torch.long, device=dev)
+    sample = steps.sample_blocks
+
+    def recorded(*args, **kw):
+        blocks, stats = sample(*args, **kw)
+        for r, b in zip(ring, blocks):
+            r.index_copy_(0, row, b.src_gids[None])
+        row.add_(1)
+        return blocks, stats
+
+    monkeypatch.setattr(steps, "sample_blocks", recorded)
+    step = steps.make_train_step(dg, cfg, plan, False, device=dev)
+    st = fresh()
+    eager_loss = []
+    for i in range(2 * k):
+        st, m = step(st, seeds, smask, draws=draws[i])
+        eager_loss.append(float(m["train_loss"]))
+    eager_src, eager_exp3 = [r.clone() for r in ring], st.exp3_weights.clone()
+    eager_train, eager_lr = _train_tensors(st), float(
+        st.optimizer.param_groups[0]["lr"])
+
+    row.zero_()
+    multi = steps.make_multi_train_step(dg, cfg, plan, False, k, device=dev)
+    st = fresh()
+    ks, km = seeds.expand(k, -1), smask.expand(k, -1)
+    st, m1 = multi(st, ks, km, draws=draws[:k])
+    before = segment_sum.launches
+    st, m2 = multi(st, ks, km, draws=draws[k:])
+    assert segment_sum.launches == before  # replays launch from the graph
+    assert st.step == 2 * k
+    losses = torch.cat([m1["train_loss"], m2["train_loss"]]).tolist()
+    for r, want in zip(ring, eager_src):
+        assert torch.equal(r, want)
+    for a, b in zip(losses, eager_loss):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    assert float(st.optimizer.param_groups[0]["lr"]) == eager_lr
+    assert st.scheduler.get_last_lr() == [1e-3 / 8]  # 10 steps, 3 halvings
+    _assert_same_training(_train_tensors(st), eager_train)
+    torch.testing.assert_close(st.exp3_weights.float(), eager_exp3.float(),
+                               rtol=2.0 ** -8, atol=0)
+
+
+def test_replayed_eval_equals_eager_eval(dev):
+    """Two chained evals of CAPTURE_WARMUP_STEPS + 2 batches (warm-ups,
+    capture, replays; then replays only) against the eager eval step's
+    sums from a generator in the same state: n and the F1 total equal, the
+    true positives within one, loss * n within rtol 1e-5 (exact in every
+    run; room for a last-bit reorder of the atomic sums); the arm weights
+    bit-equal after both."""
+    from bliss_gnn_tpu_torch.train import steps
+
+    dg, cfg, plan, fresh = _small_training(dev, "sage")
+    st = fresh()
+    seeds = torch.arange(32, dtype=torch.int32, device=dev)
+    smask = torch.ones(32, dtype=torch.bool, device=dev)
+    st, _ = steps.make_train_step(dg, cfg, plan, False, device=dev)(
+        st, seeds, smask)
+    exp3 = st.exp3_weights.clone()
+    k = steps.CAPTURE_WARMUP_STEPS + 2
+    bseeds = torch.stack([(seeds + 37 * i) % 3000 for i in range(k)])
+    bmask = torch.ones((k, 32), dtype=torch.bool, device=dev)
+    one = steps.make_eval_step(dg, cfg, plan, False, device=dev)
+    multi = steps.make_multi_eval_step(dg, cfg, plan, False, device=dev)
+    gen_e = torch.Generator(device=dev).manual_seed(11)
+    gen_r = torch.Generator(device=dev).manual_seed(11)
+    for _ in range(2):
+        f1, loss_n, n = multi(st, gen_r, bseeds, bmask)
+        tot = [torch.zeros((), device=dev) for _ in range(5)]
+        n_e = 0
+        for i in range(k):
+            df1, dln, dn = one(st, gen_e, bseeds[i], bmask[i])
+            tot = [a + b for a, b in zip(tot, (df1.tp, df1.fp, df1.fn,
+                                               df1.total, dln))]
+            n_e += int(dn)
+        assert int(n) == n_e == 32 * k
+        assert float(f1.total) == float(tot[3]) == 32 * k
+        assert abs(float(f1.tp) - float(tot[0])) <= 1
+        assert abs(float(loss_n) - float(tot[4])) <= 1e-5 * abs(float(tot[4]))
+    assert torch.equal(st.exp3_weights, exp3)

@@ -135,6 +135,54 @@ def test_edge_softmax_and_grad_match(shape):
     np.testing.assert_allclose(x.grad.numpy(), grad_j, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(), (1,), (4,)])
+def test_edge_softmax_sorted_route_matches(monkeypatch, shape):
+    """A block's softmax (ids sorted by dst on the valid prefix, a hub of
+    700 edges into one dst, the masked tail past ``n_valid``) against the
+    JAX ``edge_softmax``, forward and gradient, at one head (1-D and [E,
+    1]) and four: the denominator's gather goes through ``gather_rows``,
+    whose backward is the sorted segment sum (K1 for one head, K3 for
+    four), its promise checked by the plain versions."""
+    rng = np.random.default_rng(5)
+    s, e, nv = 90, 2000, 1700
+    counts = rng.multinomial(nv - 700, np.ones(s - 1) / (s - 1))
+    ids = np.zeros(e, np.int32)
+    ids[:nv] = np.sort(np.concatenate([np.repeat(np.arange(1, s), counts),
+                                       np.full(700, 40)]))
+    mask = np.arange(e) < nv
+    data = rng.normal(size=(e,) + shape).astype(np.float32)
+    w = rng.normal(size=data.shape).astype(np.float32)
+
+    def loss_j(x):
+        return jnp.sum(jseg.edge_softmax(x, jnp.asarray(ids), s,
+                                         jnp.asarray(mask)) * w)
+
+    want = np.asarray(jseg.edge_softmax(jnp.asarray(data), jnp.asarray(ids),
+                                        s, jnp.asarray(mask)))
+    grad_j = np.asarray(jax.grad(loss_j)(jnp.asarray(data)))
+    sums = []
+    segsum = tseg.masked_segment_sum
+
+    def spy(*args, **kw):
+        sums.append((args[0].dim(), kw.get("ids_sorted", False)))
+        return segsum(*args, **kw)
+
+    monkeypatch.setattr(tseg, "masked_segment_sum", spy)
+    x = _t(data).requires_grad_()
+    got = tseg.edge_softmax(x, _t(ids), s, _t(mask),
+                            n_valid=torch.tensor(nv, dtype=torch.int32),
+                            ids_sorted=True)
+    n_fwd = len(sums)
+    (got * _t(w)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                               atol=1e-7)
+    assert not got.detach().numpy()[~mask].any()
+    np.testing.assert_allclose(x.grad.numpy(), grad_j, rtol=1e-5, atol=1e-6)
+    # the backward's sums: the gather's, sorted, 1-D for one head
+    one_head = data.ndim == 1 or data.shape[1] == 1
+    assert sums[n_fwd:] == [(1 if one_head else 2, True)]
+
+
 # -- K5 ---------------------------------------------------------------------
 
 

@@ -188,6 +188,7 @@ def _record_draws(monkeypatch):
     (the wrapped function redraws the same values from the same key)."""
     draws = []
     bern, gumbel = jsamp._bernoulli_select, jsamp._gumbel_topk_select
+    rank = jsamp._segment_rank
 
     def bern_rec(key, p, cand_mask):
         draws.append(np.array(jax.random.uniform(key, p.shape, jnp.float32)))
@@ -198,8 +199,14 @@ def _record_draws(monkeypatch):
                                                   jnp.float32)))
         return gumbel(key, prob, cand_mask, k)
 
+    def rank_rec(dst_spos, key, e_mask):
+        draws.append(np.array(jax.random.uniform(key, (dst_spos.shape[0],),
+                                                 jnp.float32)))
+        return rank(dst_spos, key, e_mask)
+
     monkeypatch.setattr(jsamp, "_bernoulli_select", bern_rec)
     monkeypatch.setattr(jsamp, "_gumbel_topk_select", gumbel_rec)
+    monkeypatch.setattr(jsamp, "_segment_rank", rank_rec)
     return draws
 
 
@@ -234,7 +241,7 @@ def sample_both(gj, gt, kind, fanouts, batch, monkeypatch, key=0,
     per_block = [torch.from_numpy(d) for d in draws[::-1]]  # block order
     bt, st = tsamp.sample_blocks(
         dt, cfg_t, plan_t, None, torch.from_numpy(seeds),
-        torch.from_numpy(smask), exp3_t, draws=per_block)
+        torch.from_numpy(smask), exp3_t, draws=per_block or None)
     return bj, sj, bt, st, dt, exp3_t, (cfg_j, cfg_t)
 
 
@@ -321,6 +328,57 @@ def test_port_draws_its_own_coins(synth_pair):
                                 smask, exp3)[0] for _ in range(2)]
     for a, b in zip(*runs):
         np.testing.assert_array_equal(_np(a.eid), _np(b.eid))
+
+
+@pytest.mark.parametrize("kind", ["neighbor", "full"])
+def test_neighbor_samplers_match(synth_pair, monkeypatch, kind):
+    """k uniform in-edges per dst and every in-edge: indices, masks, unit
+    weights and counts are the JAX sampler's, the rank's uniforms fed from
+    its draws."""
+    gj, gt = synth_pair
+    fanouts = (4, 3) if kind == "neighbor" else (0, 0)
+    bj, sj, bt, st, *_ = sample_both(gj, gt, kind, fanouts, 6, monkeypatch)
+    assert_blocks_match(bt, bj)
+    assert set(st) == set(sj)
+    for k in sj:
+        assert int(st[k]) == int(sj[k]), k
+    kept, offered = (int(st["layer1/n_block_edges"]),
+                     int(st["layer1/frontier_edges"]))
+    assert kept < offered if kind == "neighbor" else kept == offered
+
+
+def _port_blocks(gt, kind, fanouts, batch, seed=0):
+    """The port's own blocks of seeds 0..batch-1, from its generator."""
+    dt = tstruct.DeviceGraph.from_graph(gt, device="cpu")
+    cfg = tsamp.SamplerConfig(kind=kind, fanouts=fanouts)
+    plan = tblock.CapacityPlan.build(batch, fanouts, gt.n_nodes, gt.n_edges,
+                                     kind=kind, frontier_slack=16.0)
+    seeds = torch.arange(batch, dtype=torch.int32)
+    smask = torch.ones(batch, dtype=torch.bool)
+    return tsamp.sample_blocks(dt, cfg, plan,
+                               torch.Generator().manual_seed(seed), seeds,
+                               smask)[0]
+
+
+def test_neighbor_sampler_fanout_bound(synth_pair):
+    """At most k kept in-edges per dst, and at least one wherever the graph
+    has one (the reference's ``test_neighbor_sampler_fanout_bound``)."""
+    _, gt = synth_pair
+    indeg = gt.in_degrees()
+    for l, b in enumerate(_port_blocks(gt, "neighbor", (4, 3), 6)):
+        deg = _np(b.in_degrees())
+        assert deg.max() <= (4, 3)[l]
+        dst_gids, dst_mask = _np(b.dst_gids), _np(b.dst_mask)
+        for i in np.where(dst_mask)[0]:
+            if indeg[dst_gids[i]] > 0:
+                assert deg[i] >= 1
+
+
+def test_full_sampler_keeps_everything(synth_pair):
+    _, gt = synth_pair
+    b = _port_blocks(gt, "full", (0, 0), 6)[-1]
+    np.testing.assert_array_equal(_np(b.in_degrees())[:6],
+                                  gt.in_degrees()[:6])
 
 
 @pytest.mark.parametrize("normalize,formula", [(False, False), (True, False),
@@ -462,3 +520,65 @@ def test_sampled_step_is_dst_sorted_and_matches(synth_pair, monkeypatch,
     assert np.any(want != 1.0)
     np.testing.assert_allclose(_np(state_t.exp3_weights)[:, :E], want,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["neighbor", "full"])
+def test_neighbor_step_is_dst_sorted_and_matches(synth_pair, monkeypatch,
+                                                 kind):
+    """One fused SAGE step with each per-dst kind, through the plain
+    versions, whose sorted routes check the ``ids_sorted`` promise on the
+    CPU: every block's ``e_dst`` is non-decreasing on its valid prefix,
+    and the blocks and the loss are the JAX step's (rtol 2e-2: bf16
+    compute)."""
+    gj, gt = synth_pair
+    fanouts = (4, 3) if kind == "neighbor" else (0, 0)
+    batch, hidden, n_cls, lr = 6, 16, 4, 1e-3
+    cfg_j = jsamp.SamplerConfig(kind=kind, fanouts=fanouts)
+    cfg_t = tsamp.SamplerConfig(kind=kind, fanouts=fanouts)
+    args = (batch, fanouts, gj.n_nodes, gj.n_edges)
+    plan_j = jblock.CapacityPlan.build(*args, kind=kind, frontier_slack=16.0)
+    plan_t = tblock.CapacityPlan.build(*args, kind=kind, frontier_slack=16.0)
+    dj, dt = gj.to_device(), tstruct.DeviceGraph.from_graph(gt, device="cpu")
+    seeds, smask = np.arange(batch, dtype=np.int32), np.ones(batch, bool)
+    with jax.disable_jit():
+        b0, _ = jsamp.sample_blocks(dj, cfg_j, plan_j, jax.random.PRNGKey(9),
+                                    jnp.asarray(seeds), jnp.asarray(smask))
+    model_j = jgnn.build_model("sage", hidden, n_cls, 2, dropout=0.0)
+    params = model_j.init(jax.random.PRNGKey(0), b0,
+                          jnp.take(dj.ndata["features"], b0[0].src_gids,
+                                   axis=0))
+    model_t = tgnn.build_model("sage", 16, hidden, n_cls, 2, dropout=0.0,
+                               device="cpu")
+    model_t.load_state_dict(CONVERT["sage"](jax.tree.map(np.asarray, params)))
+
+    draws = _record_draws(monkeypatch)
+    blocks_j, blocks_t = [], []
+    _spy(monkeypatch, jsteps, "sample_blocks", blocks_j)
+    _spy(monkeypatch, tsteps, "sample_blocks", blocks_t)
+    tx = jsteps.make_optimizer(lr, 10)
+    state_j = jsteps.TrainState(params=params, opt_state=tx.init(params),
+                                exp3_weights=None, key=jax.random.PRNGKey(3),
+                                step=jnp.zeros((), jnp.int32))
+    with jax.disable_jit():
+        step_j = jsteps.make_train_step(dj, model_j, tx, cfg_j, plan_j, False,
+                                        donate=False)
+        _, m_j = step_j(state_j, jnp.asarray(seeds), jnp.asarray(smask), dj)
+    opt, sched = tsteps.make_optimizer(model_t.parameters(), lr, 10)
+    state_t = tsteps.TrainState(model_t, opt, sched, None,
+                                torch.Generator().manual_seed(0))
+    step_t = tsteps.make_train_step(dt, cfg_t, plan_t, False, device="cpu")
+    _, m_t = step_t(state_t, torch.from_numpy(seeds), torch.from_numpy(smask),
+                    draws=[torch.from_numpy(d) for d in draws[::-1]] or None)
+
+    (_, (bt, _)), = blocks_t
+    for b in bt:
+        nv = int(b.n_valid_edges())
+        assert nv == int(b.num_edges()) > 0  # the prefix is all valid
+        assert (np.diff(_np(b.e_dst)[:nv]) >= 0).all()
+    (_, (bj, _)), = blocks_j
+    assert_blocks_match(bt, bj)
+    np.testing.assert_allclose(float(m_t["train_loss"]),
+                               float(m_j["train_loss"]), rtol=2e-2)
+    for k in m_j:
+        if k not in ("train_loss", "f1"):
+            assert int(m_t[k]) == int(m_j[k]), k

@@ -277,6 +277,12 @@ def test_cuda_default_raises_without_a_card():
                                      kind=cfg.kind)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsteps.make_train_step(dg, cfg, plan, False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsteps.make_eval_step(dg, cfg, plan, False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsteps.make_multi_eval_step(dg, cfg, plan, False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsteps.make_multi_train_step(dg, cfg, plan, False, 2)
 
 
 def test_port_imports_nothing_of_jax():

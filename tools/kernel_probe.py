@@ -31,13 +31,21 @@ KERNEL is one of:
         checkout's K5 has a sorted route it takes it; where it has
         ``TILE_ROWS`` the probe also times tiles of 32 to 256 rows, and the
         unsorted route at F = 8 (the counting sort with almost no payload).
+    k6-hub  K6 on the inputs of ``tests/test_torch_cuda.py``'s
+        ``test_spmm_kernel`` cases and the column-slice test (a hub row of
+        30,000 edges): over 50 calls of the plain version, how often and
+        by how much the kernel misses the test's tolerance, with the
+        payload drawn as before the test's repair (``randn``) and after it
+        (``exact``: multiples of 1/64, weights of 1/8).
     gat-step  the fused GATv2 step of ``chip_smoke.py``'s ``gat_path``
         (hidden 256, heads 4/4/1) on the Reddit-shaped graph and the caps
         below, fresh weights and arm weights from fixed seeds, so that two
         checkouts sample the same blocks: the median wall time of 10 steps
         after 3, then ``torch.profiler`` over 3 more: the device time per
         step, K5's kernels' share of it (by kernel name) and the largest
-        kernels.
+        kernels; then one step profiled with Python stacks, which names
+        the op, the autograd node and the forward frames in the package
+        that launch each ``indexing_backward`` kernel.
     k2  K2 (``lut_gather``), the keep-mask lookup of the input-most layer
         of ``chip_smoke.py``'s SAGE main path on an H100: 3,279,616 ids
         (80% valid) into a 233,088-entry bool table; beside it
@@ -603,6 +611,12 @@ def probe_gat_step(smoke, dev, fg, n=3):
         rows.append((us / n / 1e3, evt.count / n, evt.key))
     rows.sort(reverse=True)
     k5 = [r for r in rows if any(k in r[2] for k in K5_KERNELS)]
+    # one more step with Python stacks: which ops launch the index backwards
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True, record_shapes=True) as prof:
+        state, _ = step(state, seeds, smask)
+        torch.cuda.synchronize()
+    idx = [r for r in rows if "indexing_backward" in r[2]]
     return {"gat_step": {
         "gat_step_ms": statistics.median(times[3:]),
         "loss": float(m["train_loss"]),
@@ -612,7 +626,10 @@ def probe_gat_step(smoke, dev, fg, n=3):
         "k5_kernels_per_step": sum(r[1] for r in k5),
         "k5": [{"ms": a, "calls": c, "name": k[:80]} for a, c, k in k5],
         "top": [{"ms": a, "calls": c, "name": k[:80]}
-                for a, c, k in rows[:8]]}}
+                for a, c, k in rows[:8]],
+        "indexing_backward_device_ms_per_step": sum(r[0] for r in idx),
+        "indexing_backward_origins": smoke.kernel_origins(
+            prof, "indexing_backward")}}
 
 
 def launches_per_call(wrapper, fn):
@@ -647,6 +664,77 @@ def probe_k6(smoke, dev, fg):
                 k6.L2_SLICE_BYTES = keep
         rec[f"spmm[F={f}]"] = r
         del x
+    return rec
+
+
+def hub_csc(gen, dev, n, hub):
+    """``tests/test_torch_cuda.py``'s ``_csc``: in-degrees 0-39, every
+    97th row empty, row 5 a hub, srcs uniform, 128 zeros past the end."""
+    deg = torch.randint(0, 40, (n,), generator=gen, device=dev)
+    deg[::97] = 0
+    deg[5] = hub
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(deg, 0)
+    e = int(indptr[-1])
+    src = torch.randint(0, n, (e + 128,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    src[e:] = 0
+    return indptr, src, e
+
+
+K6_TEST_CASES = ((256, "bfloat16", False), (41, "bfloat16", False),
+                 (41, "float32", True), (128, "float32", False),
+                 (300, "bfloat16", True), (300, "float32", False))
+
+
+def probe_k6_hub(dev, calls=50):
+    """K6 on the inputs of ``test_spmm_kernel``'s cases and of
+    ``test_spmm_kernel_column_slices``' F = 256 (a fresh generator seeded 0
+    each, a hub row of 30,000 edges): the kernel once, its plain version
+    (``index_add_``, whose order changes between calls) ``calls`` times,
+    and for each call the entries outside the test's rtol 1e-4 + atol
+    1e-3. ``randn`` draws the payload as the test did before its repair;
+    ``exact`` as after it: integers in [-64, 64] over 64, weights integers
+    in [0, 8] over 8, so every partial sum is exact in f32."""
+    import bliss_gnn_tpu_torch.ops.spmm as k6
+
+    def payload(gen, shape, dtype, draw):
+        if draw == "randn":
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return (torch.randint(-64, 65, shape, generator=gen, device=dev)
+                / 64).to(dtype)
+
+    def weights(gen, e, draw):
+        if draw == "randn":
+            return torch.rand(e, generator=gen, device=dev)
+        return torch.randint(0, 9, (e,), generator=gen, device=dev) / 8
+
+    rec = {}
+    cases = [(f, getattr(torch, d), w, f"test_spmm_kernel[{f}-{d}-{w}]")
+             for f, d, w in K6_TEST_CASES]
+    cases.append((256, torch.bfloat16, False,
+                  "test_spmm_kernel_column_slices (F = 256)"))
+    for draw in ("randn", "exact"):
+        for f, dtype, weighted, label in cases:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            indptr, src, e = hub_csc(gen, dev, 3000, 30_000)
+            x = payload(gen, (3000, f), dtype, draw)
+            w = weights(gen, e, draw) if weighted else None
+            got = k6.spmm(x, indptr, src, w)
+            missed, worst, hub_diff = [], 0.0, 0.0
+            for _ in range(calls):
+                want = k6.spmm_plain(x, indptr, src, w)
+                diff = (got - want).abs()
+                over = diff / (1e-3 + 1e-4 * want.abs())
+                missed.append(int((over > 1).sum().item()))
+                worst = max(worst, over.max().item())
+                hub_diff = max(hub_diff, diff[5].max().item())
+            rec[f"{draw}: {label}"] = {
+                "calls": calls, "calls_missed": sum(m > 0 for m in missed),
+                "entries_missed": sum(missed),
+                "max_diff_over_tolerance": worst,
+                "max_abs_diff_hub_row": hub_diff,
+                "hub_row_max_abs": got[5].abs().max().item()}
     return rec
 
 
@@ -691,7 +779,7 @@ def probe_k7(smoke, dev, fg):
 def main():
     kernels = sys.argv[1:]
     known = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k4-repeats",
-             "gat-step")
+             "k6-hub", "gat-step")
     if not kernels or any(k not in known for k in kernels):
         sys.exit(f"usage: kernel_probe.py KERNEL [KERNEL ...], KERNEL in "
                  f"{', '.join(known)}")
@@ -723,6 +811,8 @@ def main():
             rec.update(probe_k2(smoke, dev))
         elif name == "k4":
             rec.update(probe_k4(smoke, dev))
+        elif name == "k6-hub":
+            rec["spmm_test_inputs"] = probe_k6_hub(dev)
         elif name == "k4-repeats":
             rec["exp3_apply_test_inputs"] = probe_k4_repeats(smoke, dev)
         elif name == "k6":
