@@ -66,6 +66,26 @@ class Graph:
             k: np.asarray(v)[perm] for k, v in (edata or {}).items()}
         self.input_to_canonical_eid = np.argsort(perm, kind="stable")
 
+    @staticmethod
+    def from_csc(indptr, csc_src, n_nodes: int,
+                 ndata: Optional[Dict[str, np.ndarray]] = None,
+                 edata: Optional[Dict[str, np.ndarray]] = None,
+                 csr=None) -> "Graph":
+        """A graph given in canonical CSC order, its edge data in that
+        order. ``csr``: its (indptr, dst, eid) arrays, as ``Graph`` builds
+        them (a stable sort of ``csc_src``), when the caller has them."""
+        g = Graph.__new__(Graph)
+        g.n_nodes, g.n_edges = int(n_nodes), int(len(csc_src))
+        g.csc_indptr = np.asarray(indptr, dtype=np.int64)
+        g.csc_src = np.asarray(csc_src)
+        if csr is None:
+            csr = _build_csr_from_csc(g.csc_indptr, g.csc_src, g.n_nodes)
+        g.csr_indptr, g.csr_dst, g.csr_eid = (np.asarray(a) for a in csr)
+        g.ndata = dict(ndata or {})
+        g.edata = {k: np.asarray(v) for k, v in (edata or {}).items()}
+        g.input_to_canonical_eid = np.arange(g.n_edges)
+        return g
+
     def in_degrees(self) -> np.ndarray:
         return np.diff(self.csc_indptr)
 

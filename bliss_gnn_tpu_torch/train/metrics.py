@@ -1,5 +1,6 @@
-"""Streaming micro-F1 counts (counterpart of ``F1State``, ``f1_update`` and
-``f1_compute`` in ``bliss_gnn_tpu/train/metrics.py``).
+"""Streaming micro-F1 counts and the host-side counters (counterpart of
+``F1State``, ``f1_update``, ``f1_compute``, ``EmaCounter`` and ``Welford``
+in ``bliss_gnn_tpu/train/metrics.py``).
 
 Multiclass micro-F1 equals accuracy: track (correct, total). Multilabel
 micro-F1 is 2TP / (2TP + FP + FN) with a positive logit as a positive.
@@ -44,3 +45,53 @@ def f1_compute(state: F1State, multilabel: bool) -> torch.Tensor:
         return torch.where(denom > 0, 2 * state.tp / denom.clamp(min=1), 0.0)
     return torch.where(state.total > 0, state.tp / state.total.clamp(min=1),
                        0.0)
+
+
+class EmaCounter:
+    """Bias-corrected EMA of the sampled node and edge counts: cum = cum *
+    w + x, shown as cum * (1 - w) / (1 - w^steps)."""
+
+    def __init__(self, w: float = 0.99):
+        self.w = w
+        self.cum = 0.0
+        self.steps = 0
+
+    def push(self, x: float) -> float:
+        self.cum = self.cum * self.w + x
+        self.steps += 1
+        return self.value
+
+    @property
+    def value(self) -> float:
+        if self.steps == 0:
+            return 0.0
+        if self.w >= 1:
+            return self.cum / self.steps
+        return self.cum * (1 - self.w) / (1 - self.w ** self.steps)
+
+
+class Welford:
+    """Running mean and standard deviation (the vertex-limit batch
+    controller's statistics)."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self):
+        self.n = 0
+        self.m = 0.0
+        self.s = 0.0
+
+    def push(self, x: float):
+        self.n += 1
+        m = self.m
+        self.m += (x - m) / self.n
+        self.s += (x - m) * (x - self.m)
+
+    @property
+    def var(self) -> float:
+        return self.s / (self.n - 1) if self.n > 1 else 0.0
+
+    @property
+    def std(self) -> float:
+        return self.var ** 0.5

@@ -93,17 +93,39 @@ class StaircaseLR:
     def __init__(self, optimizer: torch.optim.Optimizer, lr: float,
                  period: int, gamma: float):
         self.optimizer, self.period, self.gamma = optimizer, period, gamma
-        self.lr, self.last_epoch = lr, 0
+        self.base_lr = self.lr = lr
+        self.last_epoch = 0
+
+    def _write(self) -> None:
+        for group in self.optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(self.lr)
+            else:
+                group["lr"] = self.lr
 
     def step(self) -> None:
         self.last_epoch += 1
         if self.last_epoch % self.period == 0:
             self.lr *= self.gamma
-            for group in self.optimizer.param_groups:
-                if isinstance(group["lr"], torch.Tensor):
-                    group["lr"].fill_(self.lr)
-                else:
-                    group["lr"] = self.lr
+            self._write()
+
+    def reset(self, period: int, count: int) -> None:
+        """A new period at step ``count``: the rate becomes base_lr *
+        gamma^floor(count / period), what the schedule with this period
+        gives at this count (the reference evaluates its schedule on Adam's
+        count, so a new period takes effect at once)."""
+        self.period, self.last_epoch = period, count
+        self.lr = self.base_lr * self.gamma ** (count // period)
+        self._write()
+
+    def state_dict(self) -> Dict[str, float]:
+        return {"lr": self.lr, "last_epoch": self.last_epoch,
+                "period": self.period}
+
+    def load_state_dict(self, d: Dict[str, float]) -> None:
+        self.lr, self.last_epoch = d["lr"], d["last_epoch"]
+        self.period = d["period"]
+        self._write()
 
     def get_last_lr(self) -> List[float]:
         return [self.lr] * len(self.optimizer.param_groups)
@@ -262,7 +284,10 @@ class _Replay:
     into those copies before each replay. ``bound`` holds what the graph
     reads (the state, the generator, whether draws were injected): another
     set starts over. A replay returns the graph's own output tensors, which
-    the next replay overwrites. A failed capture raises."""
+    the next replay overwrites. A failed capture raises. ``captures``
+    counts the captures of every instance."""
+
+    captures = 0
 
     def __init__(self):
         self.bound: tuple = ()
@@ -295,6 +320,7 @@ class _Replay:
         with torch.cuda.graph(graph):
             self.outputs = fn(*self.inputs)
         self.graph = graph
+        _Replay.captures += 1
         graph.replay()
         return self.outputs
 

@@ -50,6 +50,30 @@ for the library calls of K1-K6), for K2 and K4 the wrapper's host time
 ``host_us``, and for K6 and K7 the kernel launches of one wrapper call, as
 its launch count moved (K6 launches once per column slice).
 
+Then it drives the training harness (phase 7), each run with the launch
+counts set to 0 before it and read after it:
+
+    trainer    ``Trainer`` on the main path's configuration, from a host
+               ``Graph`` of the Reddit-shaped CSC (random f32 features and
+               labels, a 65/10/25 split): 3 eager pilot steps, the refit,
+               20 chains of 10 steps replayed from one captured CUDA graph,
+               one chained validation (11 chains of 8 batches and 3 eager),
+               the best-state snapshot and checkpoint, ``restore_best`` and
+               ``final_eval`` (K6); then the captured chained eval after a
+               reseed against the eager eval step, ``load_checkpoint`` (the
+               parameters and arm weights bit-equal to the best state) and
+               3 chained steps through the trainer's captured step, each
+               held against an eager twin loaded with the same state;
+    cli_small  ``cli.main`` on synth-small, SAGE and GATv2 (2 layers,
+               fan-outs 32,16, batch 64, 12 steps): the reference's metric
+               series, final F1s in [0, 1] (K1-K4; K6 or K7);
+    ttvf1      ``bench.py``'s time-to-validation-F1 protocol through the
+               port's chained steps (synth-pubmed-hard, SAGE-256 x3,
+               fan-outs 256/128/64, batch 1024, chains of 8, target 0.90),
+               live bandit then frozen: steps to the target, whether each
+               arm reached it, the frozen/live ratio; both arms must learn
+               (validation F1 >= 0.85, finite losses).
+
 Run from the root of a checkout:  python3 chip_smoke.py
 Every phase prints one JSON line. The line before the last is the kernels'
 summary, the last line the device record. Any failed check exits non-zero.
@@ -59,6 +83,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -525,6 +550,21 @@ def main():
                          by_shape)
     rows += wide_kernel_checks(torch, dev, gfinal, graph, indptr_np,
                                gby_shape, gsites, layer_launches)
+
+    # -- phase 7: the trainer, the CLI, time to validation F1 -------------
+    workdir = os.path.join(here, "build", "chip_smoke_runs")
+    shutil.rmtree(workdir, ignore_errors=True)
+    host_graph, host_s = host_graph_from(torch, graph, N_CLASSES)
+    del graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_phase(torch, dev, host_graph, N_CLASSES, wrappers, smi_line,
+                  workdir, host_s=host_s)
+    del host_graph
+    gc.collect()
+    cli_phase(torch, dev, wrappers, smi_line, workdir)
+    ttvf1_phase(torch, dev, wrappers, smi_line)
+    shutil.rmtree(workdir, ignore_errors=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -624,14 +664,59 @@ def load_train_state(torch, dst, src):
             p.copy_(q)
             for k, v in src.optimizer.state[q].items():
                 dst.optimizer.state[p][k].copy_(v)
-        dst.optimizer.param_groups[0]["lr"].copy_(
-            src.optimizer.param_groups[0]["lr"])
         if src.exp3_weights is not None:
             dst.exp3_weights.copy_(src.exp3_weights)
-    dst.scheduler.lr = src.scheduler.lr
-    dst.scheduler.last_epoch = src.scheduler.last_epoch
+    dst.scheduler.load_state_dict(src.scheduler.state_dict())
     dst.generator.set_state(src.generator.get_state())
     dst.step = src.step
+
+
+LOCKSTEP_TOLERANCE = {"loss": 2.0 ** -7, "update": 2.0 ** -4,
+                      "exp3": 2.0 ** -6}
+
+
+def lockstep(torch, state, multi, twin, eager_step, seeds, smask, label):
+    """LOCKSTEP_STEPS chained steps of ``multi`` (one batch each) on
+    ``state``, each held against an eager step of ``twin`` (built alike,
+    its Adam state made by a step already) loaded with ``state`` just
+    before: the same weights, Adam state, arm weights and generator, so the
+    same blocks and dropout masks. The loss within 2^-7 of max(|loss|, 1),
+    the parameter update within 2^-4 of the eager update's norm, the arm
+    weights within 2^-6 (a few bf16 ulps); fails otherwise. Returns the
+    errors."""
+    s1, m1 = seeds[None], smask[None]
+    lock = []
+    for _ in range(LOCKSTEP_STEPS):
+        load_train_state(torch, twin, state)
+        pre = [p.detach().clone() for p in state.model.parameters()]
+        twin, me = eager_step(twin, seeds, smask)
+        state, mr = multi(state, s1, m1)
+        d_e = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                         zip(twin.model.parameters(), pre)])
+        d_r = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                         zip(state.model.parameters(), pre)])
+        le, lr_ = float(me["train_loss"]), float(mr["train_loss"][0])
+        rec = {"loss_eager": le, "loss_replayed": lr_,
+               "loss_err": abs(lr_ - le) / max(abs(le), 1.0),
+               "update_norm": float(d_e.norm()),
+               "update_err": float((d_r - d_e).norm()
+                                   / d_e.norm().clamp(min=1e-30))}
+        if state.exp3_weights is not None:
+            w_e, w_r = twin.exp3_weights.float(), state.exp3_weights.float()
+            rec["exp3_err"] = float(((w_r - w_e).abs()
+                                     / w_e.abs().clamp(min=1e-30)).max())
+        lock.append(rec)
+        del pre, d_e, d_r
+    tol = LOCKSTEP_TOLERANCE
+    bad = [r for r in lock
+           if not (r["loss_err"] <= tol["loss"]
+                   and r["update_err"] <= tol["update"]
+                   and r.get("exp3_err", 0.0) <= tol["exp3"]
+                   and r["update_norm"] > 0)]
+    if bad:
+        fail(f"{label}: replayed steps differ from eager steps from the "
+             f"same state: {lock}")
+    return lock
 
 
 def replayed_steps(torch, graph, cfg, plan, seeds, smask, seed):
@@ -706,28 +791,8 @@ def replayed_steps(torch, graph, cfg, plan, seeds, smask, seed):
     twin, eager_step = fresh(), make_train_step(graph, cfg, plan, False,
                                                 device=dev)
     twin, _ = eager_step(twin, seeds, smask)
-    lock = []
-    for _ in range(LOCKSTEP_STEPS):
-        load_train_state(torch, twin, state)
-        pre = [p.detach().clone() for p in state.model.parameters()]
-        twin, me = eager_step(twin, seeds, smask)
-        state, mr = multi(state, s1, m1)
-        d_e = torch.cat([(p.detach() - q).flatten().float() for p, q in
-                         zip(twin.model.parameters(), pre)])
-        d_r = torch.cat([(p.detach() - q).flatten().float() for p, q in
-                         zip(state.model.parameters(), pre)])
-        le, lr_ = float(me["train_loss"]), float(mr["train_loss"][0])
-        rec = {"loss_eager": le, "loss_replayed": lr_,
-               "loss_err": abs(lr_ - le) / max(abs(le), 1.0),
-               "update_norm": float(d_e.norm()),
-               "update_err": float((d_r - d_e).norm()
-                                   / d_e.norm().clamp(min=1e-30))}
-        if state.exp3_weights is not None:
-            w_e, w_r = twin.exp3_weights.float(), state.exp3_weights.float()
-            rec["exp3_err"] = float(((w_r - w_e).abs()
-                                     / w_e.abs().clamp(min=1e-30)).max())
-        lock.append(rec)
-        del pre, d_e, d_r
+    lock = lockstep(torch, state, multi, twin, eager_step, seeds, smask,
+                    cfg.model)
     del twin, eager_step
     torch.cuda.empty_cache()
     out = {"replayed_step_ms": statistics.median(single),
@@ -738,16 +803,7 @@ def replayed_steps(torch, graph, cfg, plan, seeds, smask, seed):
            "replay_peak_memory_bytes": peak[0],
            "replay_peak_reserved_bytes": peak[1],
            "replay_vs_eager_lockstep": lock,
-           "replay_vs_eager_tolerance": {"loss": 2.0 ** -7,
-                                         "update": 2.0 ** -4,
-                                         "exp3": 2.0 ** -6}}
-    bad = [r for r in lock
-           if not (r["loss_err"] <= 2.0 ** -7 and r["update_err"] <= 2.0 ** -4
-                   and r.get("exp3_err", 0.0) <= 2.0 ** -6
-                   and r["update_norm"] > 0)]
-    if bad:
-        fail(f"{cfg.model}: replayed steps differ from eager steps from the "
-             f"same state: {lock}")
+           "replay_vs_eager_tolerance": LOCKSTEP_TOLERANCE}
 
     def replay_one():
         multi(state, s1, m1)
@@ -1760,6 +1816,459 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape):
     del st_k, st_p
     return rows
 
+
+
+# -- the trainer, the CLI and time to validation F1 ----------------------------
+
+# the trainer phase: the main path's configuration through Trainer, 3 eager
+# pilot steps, the refit, 20 chains of 10 replayed steps, one validation
+TRAINER_CFG = dict(model="sage", sampler="poisson-bandit", fan_out=FANOUTS,
+                   batch_size=BATCH, num_hidden=HIDDEN, num_layers=3,
+                   num_steps=203, steps_per_call=10, eval_steps_per_call=8,
+                   refit_after=3)
+# the metric series of the reference's trainer (its logging interface)
+REFERENCE_SERIES = ("train_acc", "train_loss", "iter_time",
+                    "forward_backward_time", "val_acc", "val_loss",
+                    "Final Accuracy/Train", "Final Accuracy/Validation",
+                    "Final Accuracy/Test")
+TTVF1_K, TTVF1_KV = 8, 4  # bench.py's train steps a chain, val batches
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_graph_from(torch, graph, n_classes, seed=4):
+    """The main path's graph as the host ``Graph`` a user hands the
+    trainer: its CSC, the CSR (the stable sort ``Graph`` makes, taken on
+    the device), f32 features and labels drawn from ``seed``, per-dst
+    normalised weights 1 / in-degree, and a 65/10/25 split as
+    ``synthetic_graph`` makes one. Returns the graph and its seconds."""
+    from bliss_gnn_tpu_torch.graph.structure import Graph
+
+    t0 = time.perf_counter()
+    dev, n, e = graph.device, graph.n_nodes, graph.n_edges
+    src = graph.csc_src[:e].long()
+    deg = (graph.csc_indptr[1:] - graph.csc_indptr[:-1]).long()
+    order = torch.sort(src, stable=True).indices
+    dst = torch.repeat_interleave(torch.arange(n, device=dev), deg,
+                                  output_size=e)
+    out_deg = torch.bincount(src, minlength=n)
+    csr_indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    csr_indptr[1:] = torch.cumsum(out_deg, 0)
+    w = (1.0 / deg.clamp(min=1).float()).repeat_interleave(deg,
+                                                           output_size=e)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn((n, N_FEATS), generator=gen, device=dev)
+    labels = torch.randint(0, n_classes, (n,), generator=gen, device=dev)
+
+    def host(t):
+        return t.cpu().numpy()
+
+    perm = np.random.default_rng(seed).permutation(n)
+    n_train, n_val = int(0.65 * n), int(0.1 * n)
+    masks = {k: np.zeros(n, dtype=bool)
+             for k in ("train_mask", "val_mask", "test_mask")}
+    masks["train_mask"][perm[:n_train]] = True
+    masks["val_mask"][perm[n_train:n_train + n_val]] = True
+    masks["test_mask"][perm[n_train + n_val:]] = True
+    g = Graph.from_csc(
+        host(graph.csc_indptr), host(src.to(torch.int32)), n,
+        ndata={"features": host(feats), "labels": host(labels), **masks},
+        edata={"w": host(w)},
+        csr=(host(csr_indptr), host(dst[order]), host(order)))
+    return g, time.perf_counter() - t0
+
+
+def read_series(run_dir):
+    """``metrics.csv`` of a run as {name: [(step, value)]}."""
+    import csv
+
+    out = {}
+    with open(os.path.join(run_dir, "metrics.csv")) as f:
+        for row in csv.DictReader(f):
+            out.setdefault(row["name"], []).append(
+                (int(row["step"]), float(row["value"])))
+    return out
+
+
+def trainer_phase(torch, dev, host_graph, n_classes, wrappers, smi_line,
+                  workdir, host_s=None, cfg_kw=TRAINER_CFG):
+    """The training harness on the main path's configuration: ``Trainer``
+    on ``host_graph`` with checkpointing, ``fit`` (eager pilot steps, the
+    refit, chains of replayed steps, one chained validation, the
+    checkpoint), ``restore_best`` and ``final_eval`` (K6). Then on the same
+    trainer: the captured chained eval replayed after a reseed against the
+    eager eval step reseeded alike (and against another seed, to show the
+    check can tell); ``load_checkpoint`` (parameters and arm weights equal
+    to the best state bit for bit); then LOCKSTEP_STEPS chained steps
+    through the trainer's captured step, each against an eager twin loaded
+    with the same state. Prints the times, captures, refits and widens,
+    the memory of each plan's life, and the launches of the run."""
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.sampling.samplers import init_exp3_weights
+    from bliss_gnn_tpu_torch.train import steps as tsteps
+    from bliss_gnn_tpu_torch.train.steps import TrainState, make_optimizer
+    from bliss_gnn_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    plans, timing = [], {"validate": [], "snapshot": [], "save": []}
+
+    def memory(rec):
+        if cuda:
+            rec.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                       peak_reserved_bytes=torch.cuda.max_memory_reserved())
+            torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch, dev)
+        timing[name].append(time.perf_counter() - t0)
+        return out
+
+    class Observed(Trainer):
+        """The trainer with each plan's life, validation, snapshot and
+        save timed."""
+
+        def _rebuild_steps(self):
+            if plans:  # the plan being replaced: its life's peak memory
+                memory(plans[-1])
+            super()._rebuild_steps()
+            plans.append({"from_step": getattr(self, "global_step", 0),
+                          "frontier_caps": self.plan.frontier_caps,
+                          "block_e_caps": self.plan.block_e_caps})
+
+        def _validate(self, epoch):
+            return timed("validate", lambda: super(Observed, self)
+                         ._validate(epoch))
+
+        def _snapshot(self):
+            return timed("snapshot", lambda: super(Observed, self)
+                         ._snapshot())
+
+        def _save_checkpoint(self):
+            return timed("save", lambda: super(Observed, self)
+                         ._save_checkpoint())
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    captures0 = tsteps._Replay.captures
+    cfg = TrainConfig(**cfg_kw, logdir=workdir, disable_checkpoint=False)
+    t0 = time.perf_counter()
+    tr = Observed(cfg, graph=host_graph, n_classes=n_classes,
+                  multilabel=False, device=dev)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr.fit()
+    sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    memory(plans[-1])
+    tr.restore_best()
+    t0 = time.perf_counter()
+    res = tr.final_eval()
+    sync(torch, dev)
+    final_s = time.perf_counter() - t0
+    kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply",
+               "spmm")
+    launches = {k: wrappers[k].launches for k in kernels}
+    captures = tsteps._Replay.captures - captures0
+    series = read_series(tr.run_dir)
+    fb = dict(series["forward_backward_time"])
+    pilot = [fb[t] * 1e3 for t in sorted(fb) if t <= cfg.refit_after]
+    chained = [fb[t] * 1e3 for t in sorted(fb) if t > cfg.refit_after]
+    losses = [v for _, v in series["train_loss"]]
+
+    # the captured chained eval after a reseed, against the eager eval
+    K = cfg.eval_steps_per_call
+    vs, vm = tr._val_batches(0, K)
+    vs, vm = tr._to_device(vs), tr._to_device(vm)
+    gen = tr._eval_gen
+
+    def eager_eval(seed):
+        gen.manual_seed(seed)
+        acc = torch.zeros(5, dtype=torch.float64, device=dev)
+        for i in range(K):
+            f1, loss_n, _ = tr.eval_step(tr.state, gen, vs[i], vm[i])
+            acc += torch.stack([f1.tp, f1.fp, f1.fn, f1.total,
+                                loss_n]).double()
+        return acc.cpu().tolist()
+
+    gen.manual_seed(77)
+    f1, loss_n, _ = tr.multi_eval(tr.state, gen, vs, vm)
+    replayed = torch.stack([f1.tp, f1.fp, f1.fn, f1.total,
+                            loss_n]).double().cpu().tolist()
+    eager, other = eager_eval(77), eager_eval(78)
+
+    def eval_gap(a):
+        return {"tp": abs(a[0] - replayed[0]), "total": abs(a[3] - replayed[3]),
+                "loss_rel": abs(a[4] - replayed[4]) / max(abs(a[4]), 1.0)}
+
+    reseed = {"replayed": replayed, "eager_same_seed": eager,
+              "eager_other_seed": other, "gap_same_seed": eval_gap(eager),
+              "gap_other_seed": eval_gap(other)}
+
+    # load_checkpoint into the live tensors, then the captured step again
+    best = tr.best_state
+    ckpt = tr.checkpoint_path()
+    ckpt_bytes = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
+    t0 = time.perf_counter()
+    tr.load_checkpoint()
+    sync(torch, dev)
+    load_s = time.perf_counter() - t0
+    params_equal = all(torch.equal(p.detach().cpu(), best["params"][n])
+                       for n, p in tr.state.model.named_parameters())
+    exp3_equal = torch.equal(tr.state.exp3_weights.cpu(),
+                             best["exp3_weights"])
+    del best
+    twin_model = build_model(cfg.model,
+                             int(host_graph.ndata["features"].shape[1]),
+                             cfg.num_hidden, n_classes, cfg.num_layers,
+                             dropout=cfg.dropout, device=dev, seed=cfg.seed)
+    opt, sched = make_optimizer(twin_model.parameters(), cfg.lr, 100,
+                                capturable=cuda)
+    twin = TrainState(twin_model, opt, sched,
+                      init_exp3_weights(cfg.num_layers, tr.graph.n_edges,
+                                        device=dev),
+                      torch.Generator(device=dev).manual_seed(1))
+    seeds = tr._to_device(tr.train_nid[:tr.batch_size])
+    smask = torch.ones(tr.batch_size, dtype=torch.bool, device=dev)
+    twin, _ = tr.train_step(twin, seeds, smask)
+    lock = lockstep(torch, tr.state, tr.multi_step, twin, tr.train_step,
+                    seeds, smask, "trainer after load_checkpoint")
+    rec = {"phase": "trainer", "config": {k: list(v) if isinstance(v, tuple)
+                                          else v for k, v in cfg_kw.items()},
+           "steps": tr.global_step, "init_seconds": init_s,
+           "fit_seconds": fit_s,
+           "pilot_step_ms": statistics.median(pilot), "pilot_step_ms_all":
+           pilot, "chained_step_ms": statistics.median(chained),
+           "chained_steps": len(chained),
+           "chained_step_ms_by_chain": chained[::cfg.steps_per_call],
+           "captures": captures, "refits": tr.n_refits,
+           "widens": tr.n_widens, "plans": plans,
+           "validation_seconds": timing["validate"],
+           "validation_batches": -(-len(tr.val_nid) // tr.batch_size),
+           "snapshot_seconds": timing["snapshot"],
+           "checkpoint_save_seconds": timing["save"],
+           "checkpoint_bytes": ckpt_bytes,
+           "load_checkpoint_seconds": load_s,
+           "final_eval_seconds": final_s,
+           "val_acc": [v for _, v in series.get("val_acc", [])],
+           "final_accuracy": res, "loss_first_last": [losses[0], losses[-1]],
+           "launches": launches, "eval_reseed": reseed,
+           "load_checkpoint_params_equal": params_equal,
+           "load_checkpoint_exp3_equal": exp3_equal,
+           "lockstep_after_load": lock,
+           "host_preparation_seconds": host_s,
+           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line}
+    emit(rec)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"trainer: non-finite loss {losses}")
+    if not (ckpt_bytes > 0 and params_equal and exp3_equal):
+        fail(f"trainer: checkpoint {ckpt} ({ckpt_bytes} bytes) did not "
+             f"restore the best state: params {params_equal}, arm weights "
+             f"{exp3_equal}")
+    if not all(0.0 <= v <= 1.0 for v in res.values()):
+        fail(f"trainer: F1 outside [0, 1]: {res}")
+    # on an H100 another seed moved the loss sum by 7e-5 of itself (the
+    # labels are random); a few flipped Bernoulli draws move it ~1e-7
+    gap = reseed["gap_same_seed"]
+    if (gap["total"] != 0 or gap["tp"] > 0.005 * replayed[3]
+            or gap["loss_rel"] > 1e-6):
+        fail(f"trainer: the replayed eval after a reseed differs from the "
+             f"eager eval: {reseed}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"trainer: kernels not launched: {missing}")
+    del tr, twin, twin_model, opt, sched
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def cli_phase(torch, dev, wrappers, smi_line, workdir):
+    """``cli.main`` as a user runs it (on the card: no ``--platform``) on
+    synth-small, SAGE and GATv2, 2 layers, fan-outs 32,16, batch 64, 12
+    steps: the reference's series in ``metrics.csv``, the final F1s in [0,
+    1], the launches of each run (K1-K4 in the steps; K6 or K7 in the
+    final eval)."""
+    from bliss_gnn_tpu_torch.train import cli
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for model, final_kernel in (("sage", "spmm"), ("gat", "gat_attention")):
+        logdir = os.path.join(workdir, f"cli_{model}")
+        argv = ["--dataset", "synth-small", "--model", model,
+                "--num-layers", "2", "--fan-out", "32,16", "--batch-size",
+                "64", "--num-steps", "12", "--logdir", logdir]
+        if dev.type == "cpu":
+            argv += ["--platform", "cpu"]
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in wrappers.items()}
+        run_dir = os.path.join(logdir, os.listdir(logdir)[0], "version_0")
+        names = set(read_series(run_dir))
+        want = set(REFERENCE_SERIES) | {f"num_nodes/{i}" for i in range(3)} \
+            | {f"num_edges/{i}" for i in range(2)}
+        runs[model] = {"seconds": secs, "final_accuracy": res[0],
+                       "launches": launches,
+                       "missing_series": sorted(want - names)}
+        missing = [k for k in ("scatter_add", "lut_gather", "segment_sum",
+                               "exp3_apply", final_kernel)
+                   if launches[k] <= 0]
+        if missing or want - names or not 0.0 <= res[0]["Test"] <= 1.0:
+            fail(f"cli_small {model}: kernels not launched {missing}, "
+                 f"series missing {sorted(want - names)}, result {res}")
+    emit({"phase": "cli_small", **runs,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line})
+
+
+def time_to_val_f1(torch, dev, target=0.90, max_chains=25, freeze=False,
+                   seed_offset=0):
+    """``bench.py``'s time-to-validation-F1 protocol through the port:
+    synth-pubmed-hard, SAGE-256 x3, poisson-bandit, fan-outs 256/128/64,
+    batch 1024, Adam 2e-3; chains of TTVF1_K train steps (on the card one
+    captured step replayed) and, after each, validation micro-F1 on a fixed
+    set of TTVF1_KV batches with a fixed eval seed, until it reaches
+    ``target`` or ``max_chains`` chains ran. The train seconds exclude the
+    first chain (the capture) and the evaluations; the first chain is
+    counted at the mean of the others. ``freeze``: the bandit ablation,
+    sampling from the arm weights but never updating them.
+    ``seed_offset``: moves the weights' seed (1) and the draws' (2) by
+    1000 times it."""
+    from bliss_gnn_tpu_torch.graph.datasets import load_dataset
+    from bliss_gnn_tpu_torch.graph.structure import (
+        DeviceGraph,
+        Graph,
+        normalized_edata,
+    )
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig,
+        init_exp3_weights,
+    )
+    from bliss_gnn_tpu_torch.train.metrics import f1_compute
+    from bliss_gnn_tpu_torch.train.steps import (
+        TrainState,
+        make_multi_eval_step,
+        make_multi_train_step,
+        make_optimizer,
+    )
+
+    g, n_classes, ml = load_dataset("synth-pubmed-hard")
+    g = Graph.canonicalize(g)
+    g.edata["w"] = normalized_edata(g)
+    dg = DeviceGraph.from_graph(g, device=dev)
+    K, Kv, bs = TTVF1_K, TTVF1_KV, 1024
+    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128, 64),
+                        exp3_freeze=freeze)
+    plan = CapacityPlan.build(bs, cfg.fanouts, g.n_nodes, g.n_edges,
+                              kind=cfg.kind)
+    model = build_model("sage", int(g.ndata["features"].shape[1]), 256,
+                        n_classes, 3, device=dev, seed=1 + 1000 * seed_offset)
+    rng = np.random.default_rng(0)
+    train_ids = np.where(g.ndata["train_mask"])[0]
+    val_ids = np.where(g.ndata["val_mask"])[0]
+    rng.choice(train_ids, bs)  # the reference's initialisation batch
+    opt, sched = make_optimizer(model.parameters(), 2e-3,
+                                max(1, len(train_ids) // bs),
+                                capturable=dev.type == "cuda")
+    state = TrainState(model, opt, sched,
+                       init_exp3_weights(3, g.n_edges, device=dev),
+                       torch.Generator(device=dev).manual_seed(
+                           2 + 1000 * seed_offset))
+    multi = make_multi_train_step(dg, cfg, plan, ml, K, device=dev)
+    eval_multi = make_multi_eval_step(dg, cfg, plan, ml, device=dev)
+    val_seeds = torch.from_numpy(
+        rng.choice(val_ids, (Kv, bs)).astype(np.int32)).to(dev)
+    val_mask = torch.ones((Kv, bs), dtype=torch.bool, device=dev)
+    eval_gen = torch.Generator(device=dev)
+
+    def val_f1():
+        f1, _, _ = eval_multi(state, eval_gen.manual_seed(7), val_seeds,
+                              val_mask)
+        return float(f1_compute(f1, ml))
+
+    def chain():
+        s = torch.from_numpy(rng.choice(train_ids, (K, bs)).astype(
+            np.int32)).to(dev)
+        t0 = time.perf_counter()
+        _, m = multi(state, s, torch.ones((K, bs), dtype=torch.bool,
+                                          device=dev))
+        sync(torch, dev)
+        return time.perf_counter() - t0, m
+
+    _, m = chain()  # warm-ups and the capture
+    curve = [val_f1()]
+    losses = m["train_loss"].tolist()
+    steps, train_s = K, 0.0
+    reached = curve[-1] >= target
+    for _ in range(max_chains - 1):
+        if reached:
+            break
+        dt, m = chain()
+        train_s += dt
+        steps += K
+        losses += m["train_loss"].tolist()
+        curve.append(val_f1())
+        reached = curve[-1] >= target
+    if steps > K:
+        train_s += train_s / (steps / K - 1)
+    elif reached:
+        train_s, _ = chain()
+    return {"steps": steps, "reached": reached, "train_seconds": train_s,
+            "val_f1_curve": curve, "final_val_f1": curve[-1],
+            "loss_first_last": [losses[0], losses[-1]],
+            "finite": all(math.isfinite(x) for x in losses)}
+
+
+def ttvf1_phase(torch, dev, wrappers, smi_line):
+    """Time to validation F1 0.90, live bandit then frozen. The frozen arm
+    is capped at 1.3x the live steps plus a chain, as
+    ``tests/test_bandit_ablation.py`` caps it, or at the live arm's 25
+    chains when the live arm did not reach the target. Whether an arm
+    reaches 0.90, its steps and the frozen/live step ratio are
+    measurements: the target lies on the plateau of the validation curve
+    (0.892-0.900 at other seeds in the reference package too), so a run
+    from the same seeds reaches it or not as the atomic sums' order falls
+    (``tools/ttvf1_repeat.py``). The gate is that both arms learn: finite
+    losses, and validation F1 at least 0.85 (chance is 1/3) and 0.05 over
+    its first reading."""
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    live = time_to_val_f1(torch, dev)
+    live_s = time.perf_counter() - t0
+    launches = {k: wrappers[k].launches for k in
+                ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")}
+    cap = (math.ceil(1.3 * live["steps"] / TTVF1_K) + 1 if live["reached"]
+           else 25)
+    t0 = time.perf_counter()
+    frozen = time_to_val_f1(torch, dev, max_chains=cap, freeze=True)
+    frozen_s = time.perf_counter() - t0
+    ratio = frozen["steps"] / live["steps"] if live["reached"] else None
+    emit({"phase": "ttvf1", "target": 0.90, "chain_steps": TTVF1_K,
+          "val_batches": TTVF1_KV, "live": live, "frozen": frozen,
+          "frozen_cap_chains": cap, "frozen_over_live_steps": ratio,
+          "ratio_is_a_lower_bound": ratio is not None
+          and not frozen["reached"],
+          "live_phase_seconds": live_s, "frozen_phase_seconds": frozen_s,
+          "seconds": live_s + frozen_s,
+          "launches_live": launches, "nvidia_smi": smi_line})
+    missing = [k for k, v in launches.items() if v <= 0]
+    learned = {arm: r["finite"] and max(r["val_f1_curve"]) >= 0.85
+               and max(r["val_f1_curve"]) >= r["val_f1_curve"][0] + 0.05
+               for arm, r in (("live", live), ("frozen", frozen))}
+    if missing or not all(learned.values()):
+        fail(f"ttvf1: kernels not launched {missing}, or an arm did not "
+             f"learn: {learned}")
 
 if __name__ == "__main__":
     main()

@@ -283,6 +283,15 @@ def test_cuda_default_raises_without_a_card():
         tsteps.make_multi_eval_step(dg, cfg, plan, False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsteps.make_multi_train_step(dg, cfg, plan, False, 2)
+    from bliss_gnn_tpu_torch.train import cli, trainer
+
+    tcfg = trainer.TrainConfig(dataset="toy", fan_out=(2, 2), batch_size=2,
+                               num_layers=2, logdir=os.devnull)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.Trainer(tcfg, graph=g, n_classes=2, multilabel=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--dataset", "toy", "--num-layers", "2", "--fan-out",
+                  "2,2", "--num-steps", "1", "--logdir", os.devnull])
 
 
 def test_port_imports_nothing_of_jax():
