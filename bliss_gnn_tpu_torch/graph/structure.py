@@ -7,18 +7,22 @@
 - CSR (out-edges): ``csr_indptr[N+1]``, ``csr_dst[E]``, ``csr_eid[E]``, the
   same edges grouped by src, with ``csr_eid`` mapping back to canonical ids.
 
-Both are built with numpy's stable argsort, which gives the same arrays as
-the reference package's CSC/CSR construction.
+Both are built by the native graph core (``graph/native.py``: counting
+sorts in C++), which gives the same arrays as numpy's stable argsort
+(``_build_csc``, ``_build_csr_from_csc``, the plain versions) and as the
+reference package's CSC/CSR construction. Node data is kept as given: a
+memory-mapped feature matrix stays a memmap.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from bliss_gnn_tpu_torch._device import resolve_device
+from bliss_gnn_tpu_torch.graph import native
 
 # trailing zeros carried by edge-indexed device arrays, so the sampler's
 # chunk-granular gathers (sampling/frontier.py) never read past the end
@@ -58,9 +62,11 @@ class Graph:
             raise ValueError("src and dst must have one shape")
         self.n_nodes = int(n_nodes)
         self.n_edges = int(src.shape[0])
-        self.csc_indptr, self.csc_src, perm = _build_csc(src, dst, self.n_nodes)
-        self.csr_indptr, self.csr_dst, self.csr_eid = _build_csr_from_csc(
-            self.csc_indptr, self.csc_src, self.n_nodes)
+        self.csc_indptr, self.csc_src, perm = native.build_csc(
+            src, dst, self.n_nodes)
+        self.csr_indptr, self.csr_dst, self.csr_eid = (
+            native.build_csr_from_csc(self.csc_indptr, self.csc_src,
+                                      self.n_nodes))
         self.ndata: Dict[str, np.ndarray] = dict(ndata or {})
         self.edata: Dict[str, np.ndarray] = {
             k: np.asarray(v)[perm] for k, v in (edata or {}).items()}
@@ -79,7 +85,8 @@ class Graph:
         g.csc_indptr = np.asarray(indptr, dtype=np.int64)
         g.csc_src = np.asarray(csc_src)
         if csr is None:
-            csr = _build_csr_from_csc(g.csc_indptr, g.csc_src, g.n_nodes)
+            csr = native.build_csr_from_csc(g.csc_indptr, g.csc_src,
+                                            g.n_nodes)
         g.csr_indptr, g.csr_dst, g.csr_eid = (np.asarray(a) for a in csr)
         g.ndata = dict(ndata or {})
         g.edata = {k: np.asarray(v) for k, v in (edata or {}).items()}
@@ -155,9 +162,11 @@ class DeviceGraph:
     n_edges: int = 0
 
     @staticmethod
-    def from_graph(g: Graph, device="cuda",
-                   feature_dtype=torch.bfloat16) -> "DeviceGraph":
-        """Upload ``g``; raises when ``device`` is CUDA and no card exists."""
+    def from_graph(g: Graph, device="cuda", feature_dtype=torch.bfloat16,
+                   exclude: Sequence[str] = ()) -> "DeviceGraph":
+        """Upload ``g`` but its ndata keys in ``exclude`` (host-resident
+        features: ``exclude=("features",)``); raises when ``device`` is
+        CUDA and no card exists."""
         dev = resolve_device(device)
         if max(g.n_nodes, g.n_edges) >= 2 ** 31:
             raise ValueError("graphs past int32 indices are not supported")
@@ -167,6 +176,8 @@ class DeviceGraph:
 
         nd = {}
         for k, v in g.ndata.items():
+            if k in exclude:
+                continue
             t = torch.from_numpy(np.ascontiguousarray(v))
             nd[k] = t.to(dev, feature_dtype if k == "features" else None)
         ed = {k: torch.from_numpy(_pad_edges(np.asarray(v))).to(dev)
@@ -195,7 +206,13 @@ def normalized_edata(g: Graph, weight: Optional[str] = None,
                      multiply_weight: bool = True) -> np.ndarray:
     """Per-dst-normalised edge weights in canonical eid order, f32:
     w_e = W_e / sum_{e' into dst(e)} W_e' (``multiply_weight``) or
-    1 / sum_{e' into dst(e)} W_e'. With W = 1 both are 1 / in_deg(dst)."""
+    1 / sum_{e' into dst(e)} W_e'. With W = 1 both are 1 / in_deg(dst).
+    The first is one pass of the native core over the CSC ranges (sums in
+    double), as in the reference."""
+    if multiply_weight:
+        return native.normalized_edata(
+            g.csc_indptr, None if weight is None else g.edata[weight],
+            g.n_edges)
     if weight is None:
         W = np.ones(g.n_edges, dtype=np.float32)
     else:

@@ -7,10 +7,12 @@ its flags and defaults:
 
 Runs on the CUDA card (which must exist), or with ``--platform cpu`` on
 the plain PyTorch path. ``--gpu``, ``--num-workers``, ``--data-cpu`` and
-``--download`` are accepted and ignored. ``--inference-backend`` named the
-reference's TPU layouts; every value runs the CSC kernels here. Not ported,
-and raising: ``--dp`` other than 1, ``--shard-graph``, ``--use-uva`` and
-``--precision highest``; the on-disk datasets.
+``--download`` are accepted and ignored (nothing is downloaded: the on-disk
+datasets are read from ``BLISS_DATA_ROOT``). ``--use-uva`` keeps the
+features in host memory behind a device cache of ``--cache-size`` rows.
+``--inference-backend`` named the reference's TPU layouts; every value runs
+the CSC kernels here. Not ported, and raising: ``--dp`` other than 1,
+``--shard-graph`` and ``--precision highest``.
 """
 from __future__ import annotations
 
@@ -71,7 +73,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--download", action="store_true",
                    help="accepted and ignored")
     p.add_argument("--use-uva", action="store_true",
-                   help="host-resident features (not ported: raises)")
+                   help="host-resident features behind a device cache")
     p.add_argument("--cache-size", type=int, default=0,
                    help="device feature-cache rows under --use-uva")
     # surfaced constants

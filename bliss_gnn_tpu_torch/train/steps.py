@@ -8,7 +8,9 @@ The sampler reads the current arm weights; the update runs after the
 backward, in place. One step runs eagerly. The chained steps run K batches:
 a plain loop on the CPU; on the card the step is captured once as a
 ``torch.cuda.CUDAGraph`` after eager warm-up steps and replayed once per
-batch, the counterpart of the reference's one ``lax.scan`` dispatch.
+batch, the counterpart of the reference's one ``lax.scan`` dispatch. For
+features left in host memory, :func:`make_uva_steps` splits the step
+around the host's feature fetch.
 
 What capture asks of the step, and where it is met:
 - no host sync and no host-to-device copy inside it: every ``n_valid``
@@ -67,7 +69,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         per = F.binary_cross_entropy_with_logits(
             logits, labels.to(torch.float32), reduction="none").mean(dim=-1)
     else:
-        per = F.cross_entropy(logits, labels.long(), reduction="none")
+        # a masked slot's label may be -1 (an unlabelled node, as in
+        # papers100M): it must not reach the class gather
+        per = F.cross_entropy(logits, torch.where(mask, labels.long(), 0),
+                              reduction="none")
     denom = mask.sum().clamp(min=1)
     return torch.where(mask, per, 0.0).sum() / denom
 
@@ -154,27 +159,20 @@ def _resolve(graph: DeviceGraph, device) -> torch.device:
     return dev
 
 
-def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
-                    plan: CapacityPlan, multilabel: bool) -> Callable:
-    """The device work of one train step, ``body(state, seeds, seeds_mask,
-    draws) -> metrics``: everything but the host's schedule and step count,
-    so that a CUDA graph can hold it."""
+def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                   multilabel: bool) -> Callable:
+    """The step's work after sampling, ``train_fn(state, blocks, x) ->
+    metrics``: labels, model forward and backward with dropout drawn from
+    the state's generator, CE loss, Adam, the EXP3 update; ``x`` the input
+    block's src rows."""
 
-    def body(state: TrainState, seeds: torch.Tensor,
-             seeds_mask: torch.Tensor,
-             draws: Optional[Sequence[torch.Tensor]] = None,
-             ) -> Dict[str, object]:
-        gen = state.generator
-        blocks, samp_stats = sample_blocks(
-            graph, sampler_cfg, plan, gen, seeds, seeds_mask,
-            state.exp3_weights, draws=draws)
-        x = graph.ndata["features"][blocks[0].src_gids.long()]
+    def train_fn(state: TrainState, blocks, x: torch.Tensor
+                 ) -> Dict[str, object]:
         labels = graph.ndata["labels"][blocks[-1].dst_gids.long()]
         dst_mask = blocks[-1].dst_mask
-
         model = state.model
         model.train()
-        logits, aux = model(blocks, x, generator=gen)
+        logits, aux = model(blocks, x, generator=state.generator)
         loss = cross_entropy_loss(logits, labels, dst_mask, multilabel)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -185,7 +183,7 @@ def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
             deltas = exp3_edge_deltas(graph, sampler_cfg, blocks,
                                       aux["embed_norms"], aux["a_ijs"])
             apply_exp3_deltas(state.exp3_weights, deltas, normalize=False)
-        f1 = f1_update(F1State.zero(seeds.device), logits.detach(), labels,
+        f1 = f1_update(F1State.zero(x.device), logits.detach(), labels,
                        dst_mask, multilabel)
         return {
             "train_loss": loss.detach(),
@@ -193,10 +191,36 @@ def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
             # the JAX step's key; K4 skips no update, so it is always 0
             "exp3_apply_overflow": 0,
             **_block_count_metrics(blocks),
-            **{k: v for k, v in samp_stats.items()
-               if "overflow" in k or "frontier_edges" in k
-               or "n_block_edges_true" in k},
         }
+
+    return train_fn
+
+
+def _sampler_stats(samp_stats: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The sampler's overflow counters and the sizes the refit reads."""
+    return {k: v for k, v in samp_stats.items()
+            if "overflow" in k or "frontier_edges" in k
+            or "n_block_edges_true" in k}
+
+
+def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                    plan: CapacityPlan, multilabel: bool) -> Callable:
+    """The device work of one train step, ``body(state, seeds, seeds_mask,
+    draws) -> metrics``: everything but the host's schedule and step count,
+    so that a CUDA graph can hold it. The sampler draws from the state's
+    generator before dropout does."""
+    train_fn = _make_train_fn(graph, sampler_cfg, multilabel)
+
+    def body(state: TrainState, seeds: torch.Tensor,
+             seeds_mask: torch.Tensor,
+             draws: Optional[Sequence[torch.Tensor]] = None,
+             ) -> Dict[str, object]:
+        blocks, samp_stats = sample_blocks(
+            graph, sampler_cfg, plan, state.generator, seeds, seeds_mask,
+            state.exp3_weights, draws=draws)
+        x = graph.ndata["features"][blocks[0].src_gids.long()]
+        return {**train_fn(state, blocks, x), **_sampler_stats(samp_stats)}
 
     return body
 
@@ -223,36 +247,47 @@ def make_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     return step
 
 
-def _make_eval_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
-                    plan: CapacityPlan, multilabel: bool) -> Callable:
-    """One sampled validation batch (the JAX ``_make_eval_fn`` body):
-    ``body(state, generator, seeds, seeds_mask, draws) -> (f1, loss * n,
-    n)``, the model in eval mode (no dropout), no gradient, no EXP3
-    update."""
+def _make_eval_fn(graph: DeviceGraph, multilabel: bool) -> Callable:
+    """One validation batch on sampled blocks, ``eval_fn(state, blocks, x)
+    -> (f1, loss * n, n)``: the model in eval mode (no dropout), no
+    gradient, no EXP3 update."""
 
-    def body(state: TrainState, generator: Optional[torch.Generator],
-             seeds: torch.Tensor, seeds_mask: torch.Tensor,
-             draws: Optional[Sequence[torch.Tensor]] = None):
+    @torch.no_grad()
+    def eval_fn(state: TrainState, blocks, x: torch.Tensor):
         model = state.model
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad():
-                blocks, _ = sample_blocks(
-                    graph, sampler_cfg, plan, generator, seeds, seeds_mask,
-                    state.exp3_weights, draws=draws)
-                x = graph.ndata["features"][blocks[0].src_gids.long()]
-                labels = graph.ndata["labels"][blocks[-1].dst_gids.long()]
-                dst_mask = blocks[-1].dst_mask
-                logits, _ = model(blocks, x)
-                loss = cross_entropy_loss(logits, labels, dst_mask,
-                                          multilabel)
-                f1 = f1_update(F1State.zero(seeds.device), logits, labels,
-                               dst_mask, multilabel)
-                n = dst_mask.sum(dtype=torch.int32)
+            labels = graph.ndata["labels"][blocks[-1].dst_gids.long()]
+            dst_mask = blocks[-1].dst_mask
+            logits, _ = model(blocks, x)
+            loss = cross_entropy_loss(logits, labels, dst_mask, multilabel)
+            f1 = f1_update(F1State.zero(x.device), logits, labels, dst_mask,
+                           multilabel)
+            n = dst_mask.sum(dtype=torch.int32)
         finally:
             model.train(was_training)
         return f1, loss * n, n
+
+    return eval_fn
+
+
+def _make_eval_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                    plan: CapacityPlan, multilabel: bool) -> Callable:
+    """One sampled validation batch (the JAX ``_make_eval_fn`` body):
+    ``body(state, generator, seeds, seeds_mask, draws) -> (f1, loss * n,
+    n)``."""
+    eval_fn = _make_eval_fn(graph, multilabel)
+
+    def body(state: TrainState, generator: Optional[torch.Generator],
+             seeds: torch.Tensor, seeds_mask: torch.Tensor,
+             draws: Optional[Sequence[torch.Tensor]] = None):
+        with torch.no_grad():
+            blocks, _ = sample_blocks(
+                graph, sampler_cfg, plan, generator, seeds, seeds_mask,
+                state.exp3_weights, draws=draws)
+            x = graph.ndata["features"][blocks[0].src_gids.long()]
+        return eval_fn(state, blocks, x)
 
     return body
 
@@ -267,6 +302,50 @@ def make_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     was."""
     _resolve(graph, device)
     return _make_eval_body(graph, sampler_cfg, plan, multilabel)
+
+
+def make_uva_steps(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                   plan: CapacityPlan, multilabel: bool, device="cuda",
+                   mesh=None, storage=None) -> Tuple[Callable, Callable,
+                                                     Callable]:
+    """The step split at the host boundary for host-resident features
+    (the counterpart of the JAX ``make_uva_steps``; ``graph/featurecache.py``
+    fetches the rows between the parts). ``graph`` holds no features:
+
+        sample_fn(state, seeds, seeds_mask, draws=None, generator=None)
+            -> (blocks, sampler stats)
+        train_fn(state, blocks, x) -> (state, metrics)
+        eval_fn(state, blocks, x) -> (f1, loss * n, n)
+
+    ``x`` is the input block's src rows. ``sample_fn`` draws from
+    ``generator``, or from the state's generator for a train step; then
+    ``train_fn``'s dropout draws from the state's generator, in the fused
+    step's order, so sample, fetch and train from a state give the fused
+    step's blocks, loss and update. ``train_fn`` steps the schedule and the
+    count. Data parallelism and sharded storage (``mesh``, ``storage``) are
+    not ported yet (ROADMAP Queue 1 item 6)."""
+    if mesh is not None or storage is not None:
+        raise NotImplementedError(
+            "UVA steps over a mesh or sharded storage are not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+    _resolve(graph, device)
+    train_body = _make_train_fn(graph, sampler_cfg, multilabel)
+
+    def sample_fn(state: TrainState, seeds: torch.Tensor,
+                  seeds_mask: torch.Tensor,
+                  draws: Optional[Sequence[torch.Tensor]] = None,
+                  generator: Optional[torch.Generator] = None):
+        gen = state.generator if generator is None else generator
+        return sample_blocks(graph, sampler_cfg, plan, gen, seeds,
+                             seeds_mask, state.exp3_weights, draws=draws)
+
+    def train_fn(state: TrainState, blocks, x: torch.Tensor):
+        metrics = train_body(state, blocks, x)
+        state.scheduler.step()
+        state.step += 1
+        return state, metrics
+
+    return sample_fn, train_fn, _make_eval_fn(graph, multilabel)
 
 
 # eager steps before capture: after them the lazy state (Adam's moments,
@@ -339,8 +418,9 @@ def _pack(metrics: Dict[str, object], device: torch.device):
         elif isinstance(v, torch.Tensor):
             layout.append((name, v.dtype))
             vals.append(v)
-        else:
-            layout.append((name, torch.int32))
+        else:  # a host scalar: an int count, or a float (cache_miss)
+            layout.append((name, torch.float64 if isinstance(v, float)
+                           else torch.int32))
             vals.append(torch.full((), v, dtype=torch.float64, device=device))
     return torch.stack([v.to(torch.float64) for v in vals]), layout
 

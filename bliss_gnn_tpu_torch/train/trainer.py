@@ -14,7 +14,12 @@
 - checkpoint of the best state, restore and resume, early stopping, the
   vertex-limit batch controller;
 - full-graph layerwise inference and micro-F1 per split (K6 for SAGE and
-  GCN, K7 for GATv2 on the card).
+  GCN, K7 for GATv2 on the card);
+- with ``use_uva``, features left in host memory behind a device
+  ``FeatureCache`` of ``cache_size`` rows: split steps around the host
+  fetch, run eagerly (no chained or captured steps), ``cache_miss`` logged
+  each step, and the final eval chunked from host memory
+  (``layerwise_inference_uva``).
 
 Checkpoints are ``torch.save`` files at ``<run_dir>/checkpoints/best``. A
 state is restored by copying into the live tensors (parameters, Adam's
@@ -23,8 +28,8 @@ replacing them: a step captured in a CUDA graph keeps reading the tensors
 it was captured with.
 
 Not ported (each raises ``NotImplementedError``): data parallelism and the
-sharded graph (ROADMAP Queue 1 item 6), the host-resident feature cache
-(item 5), f32 compute and bf16 parameters.
+sharded graph (ROADMAP Queue 1 item 6), f32 compute and bf16 parameters
+(item 7).
 """
 from __future__ import annotations
 
@@ -41,13 +46,17 @@ import torch
 
 from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.graph.datasets import load_dataset
+from bliss_gnn_tpu_torch.graph.featurecache import FeatureCache
 from bliss_gnn_tpu_torch.graph.structure import (
     DeviceGraph,
     Graph,
     normalized_edata,
 )
 from bliss_gnn_tpu_torch.models.gnn import build_model
-from bliss_gnn_tpu_torch.models.inference import layerwise_inference
+from bliss_gnn_tpu_torch.models.inference import (
+    layerwise_inference,
+    layerwise_inference_uva,
+)
 from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
 from bliss_gnn_tpu_torch.sampling.samplers import (
     SamplerConfig,
@@ -64,12 +73,14 @@ from bliss_gnn_tpu_torch.train.metrics import (
 from bliss_gnn_tpu_torch.train.steps import (
     TrainState,
     _pack,
+    _sampler_stats,
     _unpack,
     make_eval_step,
     make_multi_eval_step,
     make_multi_train_step,
     make_optimizer,
     make_train_step,
+    make_uva_steps,
 )
 from bliss_gnn_tpu_torch.utils.logging import MetricLogger, next_version_dir
 
@@ -159,10 +170,6 @@ def _check_supported(cfg: TrainConfig, device: torch.device) -> None:
         raise NotImplementedError(
             "data parallelism and the sharded graph (--dp, --shard-graph) "
             "are not ported yet (ROADMAP Queue 1 item 6)")
-    if cfg.use_uva:
-        raise NotImplementedError(
-            "the host-resident feature cache (--use-uva) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
     if cfg.compute_dtype != "bfloat16" or cfg.param_dtype != "float32":
         raise NotImplementedError(
             "the port's models compute in bf16 with f32 parameters; f32 "
@@ -206,8 +213,17 @@ class Trainer:
         self.host_graph = graph
         self.n_classes = n_classes
         self.multilabel = multilabel
-        self.graph = DeviceGraph.from_graph(graph, device=self.device,
-                                            feature_dtype=torch.bfloat16)
+        self.feature_cache = None
+        if cfg.use_uva:
+            # the features stay in host memory (a memmap stays unread);
+            # the device graph holds everything else
+            self.feature_cache = FeatureCache(
+                graph.ndata["features"],
+                cfg.cache_size or min(graph.n_nodes, 1 << 21),
+                dtype=torch.bfloat16, device=self.device)
+        self.graph = DeviceGraph.from_graph(
+            graph, device=self.device, feature_dtype=torch.bfloat16,
+            exclude=("features",) if cfg.use_uva else ())
         self.train_nid = np.where(graph.ndata["train_mask"])[0].astype(
             np.int32)
         self.val_nid = np.where(graph.ndata["val_mask"])[0].astype(np.int32)
@@ -344,6 +360,12 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         args = (self.graph, self.sampler_cfg, self.plan, self.multilabel)
+        if self.feature_cache is not None:
+            # the host fetch sits inside the step: no chains, no capture
+            self._uva_fns = make_uva_steps(*args, device=self.device)
+            self.train_step = self._uva_train_step
+            self.eval_step = self._uva_eval_step
+            return
         self.train_step = make_train_step(*args, device=self.device)
         self.eval_step = make_eval_step(*args, device=self.device)
         if cfg.steps_per_call > 1:
@@ -352,6 +374,26 @@ class Trainer:
                                                     device=self.device)
         if cfg.eval_steps_per_call > 1:
             self.multi_eval = make_multi_eval_step(*args, device=self.device)
+
+    # -- host-resident features -----------------------------------------
+    def _uva_train_step(self, state: TrainState, seeds: torch.Tensor,
+                        smask: torch.Tensor):
+        """Sample, fetch the input rows through the cache, train; the
+        batch's miss rate is the ``cache_miss`` metric."""
+        sample_fn, train_fn, _ = self._uva_fns
+        blocks, samp_stats = sample_fn(state, seeds, smask)
+        x, miss = self.feature_cache.gather(blocks[0].src_gids,
+                                            blocks[0].src_mask)
+        state, metrics = train_fn(state, blocks, x)
+        return state, {**metrics, "cache_miss": miss,
+                       **_sampler_stats(samp_stats)}
+
+    def _uva_eval_step(self, state: TrainState, generator, seeds, smask):
+        sample_fn, _, eval_fn = self._uva_fns
+        blocks, _ = sample_fn(state, seeds, smask, generator=generator)
+        x, _ = self.feature_cache.gather(blocks[0].src_gids,
+                                         blocks[0].src_mask)
+        return eval_fn(state, blocks, x)
 
     # -- epoch loops -----------------------------------------------------
     def _epoch_batches(self, rng: np.random.Generator) -> np.ndarray:
@@ -465,6 +507,8 @@ class Trainer:
         scalars["train_loss"] = float(metrics["train_loss"])
         scalars["iter_time"] = time.time() - prev_t
         scalars["forward_backward_time"] = fb_time
+        if "cache_miss" in metrics:
+            scalars["cache_miss"] = float(metrics["cache_miss"])
         for k, v in metrics.items():
             if "overflow" in k and float(v) > 0:
                 scalars[k] = float(v)
@@ -693,10 +737,18 @@ class Trainer:
     def final_logits(self) -> torch.Tensor:
         """Full-graph layerwise inference of the current model: [N,
         n_classes] f32 logits (K6 for SAGE and GCN, K7 for GATv2 on the
-        card, whatever ``inference_backend`` says)."""
+        card, whatever ``inference_backend`` says). Under ``use_uva`` the
+        pass runs chunk by chunk from the host features and the logits stay
+        in host memory (a CPU tensor)."""
         cfg = self.cfg
         heads = tuple([cfg.num_in_heads] * (cfg.num_layers - 1)
                       + [cfg.num_out_heads])
+        if self.feature_cache is not None:
+            return torch.from_numpy(layerwise_inference_uva(
+                cfg.model, self.state.model, self.host_graph, cfg.num_layers,
+                heads=heads, negative_slope=cfg.negative_slope,
+                residual=cfg.residual, dtype=torch.bfloat16,
+                features=self.feature_cache.host, device=self.device))
         return layerwise_inference(
             cfg.model, self.state.model, self.graph, cfg.num_layers,
             heads=heads, negative_slope=cfg.negative_slope,
@@ -719,7 +771,8 @@ class Trainer:
     def _split_f1(self, logits: torch.Tensor,
                   labels: torch.Tensor) -> Dict[str, float]:
         """Micro-F1 of the full-graph logits on each split, logged as
-        ``Final Accuracy/<split>``; one copy to the host."""
+        ``Final Accuracy/<split>``; one copy to the host. Logits in host
+        memory go to the device a split's rows at a time."""
         splits = [(self.train_nid, "Train"), (self.val_nid, "Validation"),
                   (self.test_nid, "Test")]
         accs = []
@@ -727,8 +780,9 @@ class Trainer:
             if len(nid) == 0:
                 continue
             idx = self._to_device(nid).long()
-            f1 = f1_update(F1State.zero(self.device), logits[idx],
-                           labels[idx],
+            rows = (logits[idx] if logits.device.type == self.device.type
+                    else logits[torch.from_numpy(nid).long()].to(self.device))
+            f1 = f1_update(F1State.zero(self.device), rows, labels[idx],
                            torch.ones(len(nid), dtype=torch.bool,
                                       device=self.device), self.multilabel)
             accs.append(f1_compute(f1, self.multilabel))

@@ -442,6 +442,9 @@ def main():
     emit({"phase": "call_sites", "plan_block_e_caps": final.block_e_caps,
           **{k: v for k, v in sites.items()
              if not isinstance(v, torch.Tensor)}})
+    # -- phase 3c: the main path with the features in host memory -------
+    uva_path(torch, graph, cfg, final, N_FEATS, N_CLASSES, wrappers,
+             smi_line, step_med)
     sage_model = state.model
     del state, step, metrics_log
     torch.cuda.empty_cache()
@@ -564,6 +567,12 @@ def main():
     gc.collect()
     cli_phase(torch, dev, wrappers, smi_line, workdir)
     ttvf1_phase(torch, dev, wrappers, smi_line)
+
+    # -- phase 8: host-resident features, node orders, on-disk readers ---
+    uva_trainer_phase(torch, dev, wrappers, smi_line, workdir)
+    uva_inference_phase(torch, dev, wrappers, smi_line)
+    reorder_phase(torch, dev, wrappers, smi_line)
+    ondisk_phase(torch, dev, wrappers, smi_line, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2269,6 +2278,614 @@ def ttvf1_phase(torch, dev, wrappers, smi_line):
     if missing or not all(learned.values()):
         fail(f"ttvf1: kernels not launched {missing}, or an arm did not "
              f"learn: {learned}")
+
+
+# -- host-resident features (UVA), node orders, on-disk readers ------------
+
+UVA_CACHE_ROWS = 65_536  # uva_path: 28% of the Reddit-shaped graph's nodes
+UVA_STEPS, UVA_TIMED = 20, 10
+
+
+def _seconds(torch, dev, fn):
+    """(fn's result, its seconds to a sync)."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
+             smi_line, eager_step_ms, steps=UVA_STEPS, timed=UVA_TIMED,
+             cache_rows=UVA_CACHE_ROWS, hidden=HIDDEN, batch=BATCH,
+             seed=12):
+    """The main path's configuration with the features in host memory: the
+    device graph without them, a cold ``FeatureCache`` of ``cache_rows``
+    rows over their f32 host copy, and ``steps`` split steps (sample, host
+    fetch through the cache, train: ``make_uva_steps``) on ``plan`` from
+    fresh weights, each on a batch of random seeds. Prints the medians over
+    the last ``timed`` steps of the step's ms and its sample, fetch and
+    train parts (each ended by a sync), of the miss rate and of the
+    host-to-device bytes, beside the main path's eager ``step_ms``. Then
+    the gate: LOCKSTEP_STEPS more split steps, each against an eager fused
+    step of a twin loaded with the same state, on the same batch: the
+    blocks (the fused twin's drawn again from the same generator state),
+    the loss, update and arm weights at ``lockstep``'s tolerances. A
+    block's src slots may differ only where the unsorted importance sums'
+    atomic order flips a draw: at most 1e-3 of them."""
+    from bliss_gnn_tpu_torch.graph.featurecache import FeatureCache
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        init_exp3_weights,
+        sample_blocks,
+    )
+    from bliss_gnn_tpu_torch.train.steps import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        make_uva_steps,
+    )
+
+    dev = graph.device
+    t0 = time.perf_counter()
+    host = graph.ndata["features"].float().cpu().numpy()
+    host_copy_s = time.perf_counter() - t0
+    bare = dataclasses.replace(graph, ndata={
+        k: v for k, v in graph.ndata.items() if k != "features"})
+    n_layers = len(cfg.fanouts)
+
+    def fresh():
+        model = build_model(cfg.model, n_feats, hidden, n_classes, n_layers,
+                            device=dev, seed=seed)
+        opt, sched = make_optimizer(model.parameters(), 2e-3, 100)
+        return TrainState(model, opt, sched,
+                          init_exp3_weights(n_layers, graph.n_edges,
+                                            device=dev),
+                          torch.Generator(device=dev).manual_seed(seed))
+
+    sample_fn, train_fn, _ = make_uva_steps(bare, cfg, plan, False,
+                                            device=dev)
+    cache = FeatureCache(host, cache_rows, device=dev)
+    rng = np.random.default_rng(seed)
+    smask = torch.ones(batch, dtype=torch.bool, device=dev)
+
+    def draw():
+        return torch.from_numpy(rng.integers(
+            0, graph.n_nodes, batch).astype(np.int32)).to(dev)
+
+    def uva_step(state, seeds, smask):
+        (blocks, _), t_s = _seconds(torch, dev,
+                                    lambda: sample_fn(state, seeds, smask))
+        b0 = cache.bytes_fetched
+        (x, miss), t_f = _seconds(torch, dev, lambda: cache.gather(
+            blocks[0].src_gids, blocks[0].src_mask))
+        (out, m), t_t = _seconds(torch, dev,
+                                 lambda: train_fn(state, blocks, x))
+        rec = {"sample_ms": t_s * 1e3, "fetch_ms": t_f * 1e3,
+               "train_ms": t_t * 1e3, "step_ms": (t_s + t_f + t_t) * 1e3,
+               "miss_rate": miss, "h2d_bytes": cache.bytes_fetched - b0,
+               "loss": float(m["train_loss"])}
+        return out, m, blocks, rec
+
+    reset_counts(wrappers)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state, log = fresh(), []
+    for _ in range(steps):
+        state, _, _, rec = uva_step(state, draw(), smask)
+        log.append(rec)
+    launches = {k: wrappers[k].launches for k in
+                ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")}
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None)
+    tail = log[-timed:]
+    med = {k: statistics.median(r[k] for r in tail)
+           for k in ("step_ms", "sample_ms", "fetch_ms", "train_ms",
+                     "miss_rate", "h2d_bytes")}
+
+    # the gate: split steps against fused twins from one state
+    eager_step = make_train_step(graph, cfg, plan, False, device=dev)
+    twin = fresh()
+    twin, _ = eager_step(twin, draw(), smask)  # makes its Adam state
+    tol, lock = LOCKSTEP_TOLERANCE, []
+    for _ in range(LOCKSTEP_STEPS):
+        seeds = draw()
+        load_train_state(torch, twin, state)
+        g_twin = torch.Generator(device=dev)
+        g_twin.set_state(twin.generator.get_state())
+        with torch.no_grad():
+            want_blocks, _ = sample_blocks(graph, cfg, plan, g_twin, seeds,
+                                           smask, twin.exp3_weights)
+        pre = [p.detach().clone() for p in state.model.parameters()]
+        twin, me = eager_step(twin, seeds, smask)
+        state, mu, blocks, _ = uva_step(state, seeds, smask)
+        d_e = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                         zip(twin.model.parameters(), pre)])
+        d_u = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                         zip(state.model.parameters(), pre)])
+        le, lu = float(me["train_loss"]), float(mu["train_loss"])
+        w_e, w_u = twin.exp3_weights.float(), state.exp3_weights.float()
+        diff = [int((a.src_gids != b.src_gids).sum())
+                for a, b in zip(blocks, want_blocks)]
+        valid = [int(b.src_mask.sum()) for b in want_blocks]
+        lock.append({
+            "loss_fused": le, "loss_uva": lu,
+            "loss_err": abs(lu - le) / max(abs(le), 1.0),
+            "update_norm": float(d_e.norm()),
+            "update_err": float((d_u - d_e).norm()
+                                / d_e.norm().clamp(min=1e-30)),
+            "exp3_err": float(((w_u - w_e).abs()
+                               / w_e.abs().clamp(min=1e-30)).max()),
+            "blocks_equal": all(torch.equal(a.src_gids, b.src_gids)
+                                and torch.equal(a.e_src, b.e_src)
+                                and torch.equal(a.e_mask, b.e_mask)
+                                for a, b in zip(blocks, want_blocks)),
+            "src_slots_differing": diff, "src_slots_valid": valid})
+        del pre, d_e, d_u, w_e, w_u, want_blocks
+    rec = {"phase": "uva_path", "steps": steps, "timed_steps": timed,
+           "cache_rows": cache.capacity,
+           "cache_share_of_nodes": cache.capacity / graph.n_nodes,
+           "host_feature_bytes": int(host.nbytes),
+           "host_copy_seconds": host_copy_s,
+           **{f"{k}_median": v for k, v in med.items()},
+           "main_path_eager_step_ms": eager_step_ms,
+           "steps_all": log, "miss_rate_cumulative": cache.miss_rate,
+           "launches": launches, "peak_memory_bytes": peak,
+           "lockstep_vs_fused": lock, "lockstep_tolerance": tol,
+           "nvidia_smi": smi_line}
+    emit(rec)
+    bad = [r for r in lock
+           if not (r["loss_err"] <= tol["loss"]
+                   and r["update_err"] <= tol["update"]
+                   and r["exp3_err"] <= tol["exp3"] and r["update_norm"] > 0
+                   and all(d <= 1e-3 * v for d, v in
+                           zip(r["src_slots_differing"],
+                               r["src_slots_valid"])))]
+    missing = [k for k, v in launches.items() if v <= 0]
+    if bad or missing or not all(math.isfinite(r["loss"]) for r in log):
+        fail(f"uva_path: kernels not launched {missing}, or split steps "
+             f"differ from fused steps: {lock}")
+    del state, twin, cache, host
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+UVA_TRAINER_CFG = dict(dataset="synth-papers100m-small", model="sage",
+                       sampler="poisson-bandit", fan_out=FANOUTS,
+                       batch_size=BATCH, num_hidden=HIDDEN, num_layers=3,
+                       num_steps=60, use_uva=True, cache_size=131_072)
+
+
+def uva_trainer_phase(torch, dev, wrappers, smi_line, workdir,
+                      cfg_kw=UVA_TRAINER_CFG):
+    """``Trainer`` with ``use_uva`` on synth-papers100m-small (500,000
+    nodes, 8M edges, 128 features, 172 classes, 1.4% labelled) loaded by
+    name, checkpointing on: ``fit`` (eager split steps; a validation at
+    each epoch's end), ``restore_best``, ``final_eval`` (chunked from host
+    memory: K6 over each chunk's CSC slice). Prints the ``cache_miss``
+    series, the step ms, the validation seconds, ``final_eval``'s seconds
+    and its host and device parts, the peak device memory. Gates: no
+    features in the device graph; K1-K4 and K6 launched; the UVA logits
+    within 1e-2 x max|logit| of ``layerwise_inference`` (K6) on the same
+    parameters, the features uploaded for this check only."""
+    from bliss_gnn_tpu_torch.graph.structure import DeviceGraph
+    from bliss_gnn_tpu_torch.models.inference import layerwise_inference
+    from bliss_gnn_tpu_torch.train import trainer as ttrainer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    timing = {"validate": []}
+
+    class Observed(ttrainer.Trainer):
+        def _validate(self, epoch):
+            out, s = _seconds(torch, dev, lambda: super(Observed, self)
+                              ._validate(epoch))
+            timing["validate"].append(s)
+            return out
+
+    parts = {}
+    plain = ttrainer.layerwise_inference_uva
+
+    def timed_uva(*a, **k):
+        parts["logits"] = plain(*a, timings=parts, **k)
+        return parts["logits"]
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    cfg = ttrainer.TrainConfig(**cfg_kw, logdir=workdir,
+                               disable_checkpoint=False)
+    tr, init_s = _seconds(torch, dev, lambda: Observed(cfg, device=dev))
+    features_on_device = "features" in tr.graph.ndata
+    _, fit_s = _seconds(torch, dev, tr.fit)
+    peak_fit = torch.cuda.max_memory_allocated() if cuda else None
+    tr.restore_best()
+    ttrainer.layerwise_inference_uva = timed_uva
+    try:
+        res, final_s = _seconds(torch, dev, tr.final_eval)
+    finally:
+        ttrainer.layerwise_inference_uva = plain
+    launches = {k: wrappers[k].launches for k in
+                ("scatter_add", "lut_gather", "segment_sum", "exp3_apply",
+                 "spmm")}
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    series = read_series(tr.run_dir)
+    fb = [v * 1e3 for _, v in series["forward_backward_time"]]
+    miss = [v for _, v in series.get("cache_miss", [])]
+    losses = [v for _, v in series["train_loss"]]
+    ckpt = tr.checkpoint_path()
+    # the check: the full-graph pass with the features uploaded
+    heads = (cfg.num_in_heads,) * (cfg.num_layers - 1) + (cfg.num_out_heads,)
+    dg = DeviceGraph.from_graph(tr.host_graph, device=dev)
+    want = layerwise_inference(cfg.model, tr.state.model, dg, cfg.num_layers,
+                               heads=heads).cpu()
+    del dg
+    logits = torch.from_numpy(parts.pop("logits"))
+    err = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    rec = {"phase": "uva_trainer",
+           "config": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in cfg_kw.items()},
+           "n_nodes": tr.host_graph.n_nodes, "n_edges": tr.host_graph.n_edges,
+           "train_nodes": len(tr.train_nid), "steps": tr.global_step,
+           "init_seconds": init_s, "fit_seconds": fit_s,
+           "step_ms": statistics.median(fb), "step_ms_all": fb,
+           "cache_miss": miss, "cache_rows": tr.feature_cache.capacity,
+           "h2d_bytes_per_step": tr.feature_cache.bytes_fetched
+           / max(tr.global_step, 1),
+           "validations": len(timing["validate"]),
+           "validation_seconds": timing["validate"],
+           "final_eval_seconds": final_s,
+           "final_eval_host_seconds": parts.get("host_s"),
+           "final_eval_device_seconds": parts.get("device_s"),
+           "final_eval_chunks": parts.get("chunks"),
+           "final_accuracy": res, "features_on_device": features_on_device,
+           "checkpoint_bytes": (os.path.getsize(ckpt)
+                                if os.path.exists(ckpt) else 0),
+           "peak_memory_fit_bytes": peak_fit, "peak_memory_bytes": peak,
+           "uva_vs_full_max_abs_err": err, "full_max_abs_logit": scale,
+           "tolerance": "1e-2 x max|full logit|", "launches": launches,
+           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line}
+    emit(rec)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if (missing or features_on_device or err > 1e-2 * scale
+            or len(miss) != tr.global_step
+            or not all(math.isfinite(x) for x in losses)):
+        fail(f"uva_trainer: kernels not launched {missing}, features on "
+             f"the device {features_on_device}, logits {err} > 1e-2 x "
+             f"{scale}, cache_miss logged {len(miss)} of {tr.global_step} "
+             f"steps, or a non-finite loss")
+    del tr, logits, want
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def uva_inference_phase(torch, dev, wrappers, smi_line, node_batch=512):
+    """``layerwise_inference_uva`` of GATv2 and GCN (random weights, 2
+    layers, hidden 256, the CLI's defaults) on synth-small, chunks of
+    ``node_batch`` dsts, against the full-graph pass (K7, K6) with the
+    features on the device: within 1e-2 x max|logit|; K6 and K7 launches
+    per chunk and layer."""
+    from bliss_gnn_tpu_torch.graph.datasets import load_dataset
+    from bliss_gnn_tpu_torch.graph.structure import DeviceGraph, Graph
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.models.inference import (
+        layerwise_inference,
+        layerwise_inference_uva,
+    )
+
+    g, n_cls, _ = load_dataset("synth-small")
+    g = Graph.canonicalize(g)
+    dg = DeviceGraph.from_graph(g, device=dev)
+    out = {}
+    for name, kname in (("gat", "gat_attention"), ("gcn", "spmm")):
+        model = build_model(name, g.ndata["features"].shape[1], HIDDEN,
+                            n_cls, 2, device=dev, seed=5).eval()
+        reset_counts(wrappers)
+        parts = {}
+        got, secs = _seconds(torch, dev, lambda: layerwise_inference_uva(
+            name, model, g, 2, node_batch=node_batch, device=dev,
+            timings=parts))
+        launches = wrappers[kname].launches
+        want = layerwise_inference(name, model, dg, 2).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        out[name] = {"kernel": kname, "seconds": secs, **parts,
+                     "launches": launches,
+                     "launches_per_chunk_and_layer":
+                     launches / (2 * parts["chunks"]),
+                     "max_abs_err": err, "max_abs_logit": scale}
+        if launches <= 0 or err > 1e-2 * scale or not np.isfinite(got).all():
+            fail(f"uva_inference {name}: {out[name]}")
+    emit({"phase": "uva_inference", "n_nodes": g.n_nodes,
+          "n_edges": g.n_edges, "node_batch": node_batch, **out,
+          "tolerance": "1e-2 x max|full logit|", "nvidia_smi": smi_line})
+
+
+SBM_NODES, SBM_EDGES = 232_965, 20_000_000  # Reddit's nodes; edges cut
+
+
+def reorder_phase(torch, dev, wrappers, smi_line, n_nodes=SBM_NODES,
+                  n_edges=SBM_EDGES, f=256, heads=4, reps=(5, 3)):
+    """K6 at F = ``f`` and K7 at (``heads``, ``f``) on ``sbm_graph``
+    (Reddit's node count, its edge count cut to ``n_edges``; 50 latent
+    communities) in its natural order and under ``locality_perm``'s
+    ``degree``, ``cluster`` and ``hub-cluster`` orders: ``ms`` and
+    ``device_ms`` of each kernel per order, the order's
+    ``dense_coverage``, and each order's outputs un-permuted against the
+    natural order's (K6 within 1e-3 x max, K7 within 1e-3 x max: the same
+    sums in another order)."""
+    from bliss_gnn_tpu_torch.graph import native
+    from bliss_gnn_tpu_torch.graph.datasets import sbm_graph
+    from bliss_gnn_tpu_torch.graph.reorder import (
+        dense_coverage,
+        locality_perm,
+        propagate_labels,
+    )
+    from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
+    from bliss_gnn_tpu_torch.ops.spmm import spmm
+
+    t0 = time.perf_counter()
+    g, _, _ = sbm_graph(n_nodes, n_edges, 1, 41, seed=0)
+    gen_s = time.perf_counter() - t0
+    indptr, csc_src = g.csc_indptr, g.csc_src
+    dst = np.repeat(np.arange(n_nodes, dtype=np.int64), np.diff(indptr))
+    t0 = time.perf_counter()
+    labels = propagate_labels(indptr, csc_src)
+    lpa_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((n_nodes, f), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    feat = torch.randn((n_nodes, heads, f), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    attn = torch.randn((heads, f), generator=gen, device=dev) * 0.05
+    orders, ref, cuda = {}, {}, dev.type == "cuda"
+    for order in ("natural", "degree", "cluster", "hub-cluster"):
+        t0 = time.perf_counter()
+        if order == "natural":
+            perm = np.arange(n_nodes)
+            ip, src = indptr, csc_src
+        else:
+            perm = locality_perm(indptr, csc_src, order=order, labels=labels)
+            inv = np.empty(n_nodes, np.int64)
+            inv[perm] = np.arange(n_nodes)
+            ip, src, _ = native.build_csc(inv[csc_src], inv[dst], n_nodes)
+        cov, _ = dense_coverage(indptr, csc_src, perm)
+        host_s = time.perf_counter() - t0
+        ip_d = torch.from_numpy(ip.astype(np.int32)).to(dev)
+        src_d = torch.from_numpy(src.astype(np.int32)).to(dev)
+        p_d = torch.from_numpy(perm).to(dev)
+        xp, fp = x[p_d], feat[p_d]
+        rec = {"dense_coverage": cov, "host_seconds": host_s}
+        for kname, fn, n_rep in (
+                ("spmm", lambda: spmm(xp, ip_d, src_d), reps[0]),
+                ("gat_attention", lambda: gat_attention(
+                    fp, attn, 0.2, ip_d, src_d), reps[1])):
+            reset_counts(wrappers)
+            y = fn()
+            launches = wrappers[kname].launches
+            if cuda:
+                ms = time_ms(fn, n_rep, torch)
+                dms = device_time_ms(fn, torch, reps=n_rep, replays=2)
+            else:
+                ms = dms = None
+            inv_d = torch.empty_like(p_d)
+            inv_d[p_d] = torch.arange(n_nodes, device=dev)
+            y = y[inv_d]  # back to the natural ids
+            if order == "natural":
+                ref[kname] = y
+                err = 0.0
+            else:
+                err = float((y - ref[kname]).abs().max())
+            rec[kname] = {"ms": ms, "device_ms": dms,
+                          "launches_per_call": launches,
+                          "max_abs_err_vs_natural": err,
+                          "max_abs_natural": float(ref[kname].abs().max())}
+            del y
+        orders[order] = rec
+        del xp, fp, ip_d, src_d
+    emit({"phase": "reorder", "n_nodes": n_nodes, "n_edges": g.n_edges,
+          "f": f, "heads": heads, "graph_seconds": gen_s,
+          "label_propagation_seconds": lpa_s,
+          "communities_found": int(len(np.unique(labels))),
+          "orders": orders, "nvidia_smi": smi_line})
+    bad = [(o, k) for o, r in orders.items()
+           for k in ("spmm", "gat_attention")
+           if r[k]["max_abs_err_vs_natural"] > 1e-3 * r[k]["max_abs_natural"]
+           or r[k]["launches_per_call"] <= 0]
+    if bad:
+        fail(f"reorder: outputs under another order differ, or a kernel "
+             f"did not launch: {bad} {orders}")
+
+
+def ondisk_phase(torch, dev, wrappers, smi_line, workdir):
+    """The on-disk readers on the card's machine: every format's
+    fixture written under ``workdir`` and read by name, the papers100M
+    features memory-mapped; then one ``cli.main`` step on the flickr
+    fixture, with the HBM features and with ``--use-uva`` (``--download``
+    accepted and ignored)."""
+    from bliss_gnn_tpu_torch.graph import datasets as tdata
+    from bliss_gnn_tpu_torch.train import cli
+
+    root = os.path.join(workdir, "datasets")
+    want = write_ondisk_fixtures(root)
+    old, tdata.DATA_ROOT = tdata.DATA_ROOT, root
+    try:
+        got, bad = {}, []
+        for name, (n, e, c, ml) in want.items():
+            g, nc, gml = tdata.load_dataset(name)
+            got[name] = [g.n_nodes, g.n_edges, nc, gml]
+            if (g.n_nodes != n or gml != ml or (e is not None
+                                                and g.n_edges != e)
+                    or (c is not None and nc != c)):
+                bad.append(name)
+        g, _, _ = tdata.load_dataset("ogbn-papers100m")
+        memmap = isinstance(g.ndata["features"], np.memmap)
+        runs = {}
+        for tag, extra in (("hbm", []), ("uva", ["--use-uva",
+                                                 "--cache-size", "8"])):
+            argv = ["--dataset", "flickr", "--num-layers", "2", "--fan-out",
+                    "4,3", "--batch-size", "4", "--num-steps", "1",
+                    "--num-hidden", "8", "--download", "--logdir",
+                    os.path.join(workdir, f"ondisk_{tag}"), *extra]
+            if dev.type == "cpu":
+                argv += ["--platform", "cpu"]
+            reset_counts(wrappers)
+            res = cli.main(argv)
+            runs[tag] = {"final_accuracy": res[0], "launches": {
+                k: v.launches for k, v in wrappers.items()}}
+    finally:
+        tdata.DATA_ROOT = old
+    emit({"phase": "ondisk", "datasets": got, "papers100m_memmap": memmap,
+          "cli": runs, "nvidia_smi": smi_line})
+    if bad or not memmap or not all(
+            0.0 <= r["final_accuracy"]["Train"] <= 1.0 for r in runs.values()):
+        fail(f"ondisk: readers gave {got} for {bad}, memmap {memmap}, "
+             f"cli {runs}")
+
+
+# -- on-disk fixtures: tiny datasets in the public formats the readers take
+# (numpy, scipy, pickle, json and gzip only, as the readers);
+# tests/test_torch_datasets_ondisk.py reads them with both packages
+
+
+def write_csv_gz(path, a, fmt):
+    """A headerless comma-separated ``.csv.gz`` of the rows of ``a``."""
+    import gzip
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        np.savetxt(f, np.asarray(a).reshape(len(a), -1), fmt=fmt,
+                   delimiter=",")
+
+
+def write_planetoid(d, name, n_known=8, n_test=3, f=6, c=3, gap=False):
+    """The ``ind.<name>.*`` family with a SHUFFLED test.index (tx row i
+    belongs to node test_idx[i]); ``gap`` leaves a hole in the index, as
+    citeseer's isolated nodes do. Returns (n, c, test_idx, tx, ty)."""
+    import pickle
+
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(0)
+    os.makedirs(d, exist_ok=True)
+    test_idx = (np.array([n_known + 3, n_known, n_known + 1]) if gap
+                else np.array([n_known + 2, n_known, n_known + 1]))
+    n = n_known + (test_idx.max() - test_idx.min() + 1 if gap else n_test)
+    allx = sp.csr_matrix(rng.random((n_known, f)).astype(np.float32))
+    tx = sp.csr_matrix(rng.random((n_test, f)).astype(np.float32))
+    ally = np.eye(c)[rng.integers(0, c, n_known)]
+    ty = np.eye(c)[rng.integers(0, c, n_test)]
+    graph = {i: [int(j) for j in rng.integers(0, n, 2)] for i in range(n)}
+    for suffix, obj in (("x", allx[:4]), ("y", ally[:4]), ("tx", tx),
+                        ("ty", ty), ("allx", allx), ("ally", ally),
+                        ("graph", graph)):
+        with open(os.path.join(d, f"ind.{name}.{suffix}"), "wb") as fh:
+            pickle.dump(obj, fh)
+    np.savetxt(os.path.join(d, f"ind.{name}.test.index"), test_idx, fmt="%d")
+    return n, c, test_idx, np.asarray(tx.todense()), ty
+
+
+def write_saint(d, n=12, f=5, c=4, multilabel=False):
+    """GraphSAINT's layout; 6/3/3 train/val/test nodes, node 0 in the last
+    class (so n_classes is c). Returns the adjacency."""
+    import scipy.sparse as sp
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(1)
+    adj = sp.random(n, n, density=0.3, random_state=2, format="csr")
+    sp.save_npz(os.path.join(d, "adj_full.npz"), adj)
+    np.save(os.path.join(d, "feats.npy"),
+            rng.random((n, f)).astype(np.float32))
+    if multilabel:
+        cm = {str(i): [int(b) for b in rng.integers(0, 2, c)]
+              for i in range(n)}
+    else:
+        cm = {str(i): int(rng.integers(0, c)) for i in range(n)}
+        cm["0"] = c - 1
+    with open(os.path.join(d, "class_map.json"), "w") as fh:
+        json.dump(cm, fh)
+    with open(os.path.join(d, "role.json"), "w") as fh:
+        json.dump({"tr": list(range(6)), "va": [6, 7, 8],
+                   "te": [9, 10, 11]}, fh)
+    return adj
+
+
+def write_reddit_dgl(d, n=10, f=4):
+    """DGL's Reddit layout, node types 1/2/3 for 4/2/4 nodes. Returns the
+    adjacency."""
+    import scipy.sparse as sp
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(3)
+    adj = sp.random(n, n, density=0.4, random_state=4, format="csr")
+    sp.save_npz(os.path.join(d, "reddit_graph.npz"), adj)
+    np.savez(os.path.join(d, "reddit_data.npz"),
+             feature=rng.random((n, f)).astype(np.float32),
+             label=rng.integers(0, 5, n),
+             node_types=np.array([1, 1, 1, 1, 2, 2, 3, 3, 3, 3]))
+    return adj
+
+
+def write_ogb_csv(root, n=9, f=3):
+    """ogbn-arxiv's csv.gz layout: 20 random edges, 6 distinct labels,
+    4/2/3 split nodes under split/time."""
+    d = os.path.join(root, "ogbn_arxiv")
+    rng = np.random.default_rng(5)
+    write_csv_gz(os.path.join(d, "raw", "edge.csv.gz"),
+                 rng.integers(0, n, (20, 2)), "%d")
+    write_csv_gz(os.path.join(d, "raw", "node-feat.csv.gz"),
+                 rng.random((n, f)), "%.17g")
+    labels = rng.integers(0, 6, n)
+    labels[:6] = np.arange(6)
+    write_csv_gz(os.path.join(d, "raw", "node-label.csv.gz"), labels, "%d")
+    for fname, idx in (("train.csv.gz", [0, 1, 2, 3]),
+                       ("valid.csv.gz", [4, 5]), ("test.csv.gz", [6, 7, 8])):
+        write_csv_gz(os.path.join(d, "split", "time", fname), idx, "%d")
+
+
+def write_ogb_papers(root, n=11, f=4):
+    """papers100M's binary layout (``raw/data.npz``, ``raw/node-label.npz``
+    with NaN on the unlabelled nodes 5..10) in OGB's capitalised
+    directory, 2/1/2 split nodes under split/time."""
+    d = os.path.join(root, "ogbn_papers100M")
+    os.makedirs(os.path.join(d, "raw"), exist_ok=True)
+    rng = np.random.default_rng(7)
+    np.savez(os.path.join(d, "raw", "data.npz"),
+             edge_index=rng.integers(0, n, (2, 25)),
+             node_feat=rng.random((n, f)).astype(np.float32))
+    labels = rng.integers(0, 4, n).astype(np.float64)
+    labels[5:] = np.nan
+    labels[:4] = [0, 1, 2, 3]
+    np.savez(os.path.join(d, "raw", "node-label.npz"),
+             node_label=labels.reshape(-1, 1))
+    for fname, idx in (("train.csv.gz", [0, 1]), ("valid.csv.gz", [2]),
+                       ("test.csv.gz", [3, 4])):
+        write_csv_gz(os.path.join(d, "split", "time", fname), idx, "%d")
+
+
+def write_ondisk_fixtures(root):
+    """Every format's fixture under ``root``: {dataset name: (n_nodes,
+    n_edges or None, n_classes, multilabel)} as the readers must give
+    them (planetoid's edge count is the symmetrised dict's)."""
+    out = {}
+    n, c, *_ = write_planetoid(os.path.join(root, "pubmed"), "pubmed")
+    out["pubmed"] = (n, None, c, False)
+    n, c, *_ = write_planetoid(os.path.join(root, "citeseer"), "citeseer",
+                               gap=True)
+    out["citeseer"] = (n, None, c, False)
+    for name, ml in (("flickr", False), ("yelp", True)):
+        adj = write_saint(os.path.join(root, name), multilabel=ml)
+        out[name] = (12, adj.nnz, 4, ml)
+    adj = write_reddit_dgl(os.path.join(root, "reddit"))
+    out["reddit"] = (10, adj.nnz, None, False)
+    write_ogb_csv(root)
+    out["ogbn-arxiv"] = (9, 20, 6, False)
+    write_ogb_papers(root)
+    out["ogbn-papers100m"] = (11, 25, 4, False)
+    return out
 
 if __name__ == "__main__":
     main()

@@ -734,3 +734,120 @@ def test_replayed_eval_equals_eager_eval(dev):
         assert abs(float(f1.tp) - float(tot[0])) <= 1
         assert abs(float(loss_n) - float(tot[4])) <= 1e-5 * abs(float(tot[4]))
     assert torch.equal(st.exp3_weights, exp3)
+
+
+# -- host-resident features ---------------------------------------------------
+
+
+def test_feature_cache_on_the_card_equals_the_cpu_cache(dev):
+    """A sequence of batches with repeats, masked slots and colliding slots
+    through a 64-row cache on the card (pinned staging, one copy a batch)
+    and on the CPU: equal outputs, tags, data, miss rates and bytes."""
+    import numpy as np
+
+    from bliss_gnn_tpu_torch.graph.featurecache import FeatureCache
+
+    rng = np.random.default_rng(0)
+    host = rng.normal(size=(5000, 40)).astype(np.float32)
+    caches = {d: FeatureCache(host, 64, device=d) for d in (dev, "cpu")}
+    for _ in range(8):
+        gids = rng.integers(0, 5000, 300).astype(np.int32)
+        gids[:50] = gids[50:100]
+        mask = rng.random(300) < 0.9
+        got = {}
+        for d, c in caches.items():
+            out, miss = c.gather(torch.from_numpy(gids).to(d),
+                                 torch.from_numpy(mask).to(d))
+            got[d] = (out.cpu(), miss)
+        assert torch.equal(got[dev][0], got["cpu"][0])
+        assert got[dev][1] == got["cpu"][1]
+        assert torch.equal(caches[dev].tags.cpu(), caches["cpu"].tags)
+        assert torch.equal(caches[dev].data.cpu(), caches["cpu"].data)
+    assert caches[dev].miss_rate == caches["cpu"].miss_rate
+    assert caches[dev].bytes_fetched == caches["cpu"].bytes_fetched > 0
+
+
+@pytest.mark.parametrize("name", ["sage", "gcn", "gat"])
+def test_chunked_inference_equals_its_plain_version(dev, name):
+    """``layerwise_inference_uva`` on the card (K6 or K7 over each chunk's
+    CSC slice, the src ids into the fetched rows) against the same pass on
+    the CPU (their plain versions), 5 chunks of a 2,000-node graph:
+    within 1e-2 of the largest logit, the inference checks' bound."""
+    from bliss_gnn_tpu_torch.graph.datasets import synthetic_graph
+    from bliss_gnn_tpu_torch.graph.structure import Graph
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.models.inference import layerwise_inference_uva
+
+    g = Graph.canonicalize(synthetic_graph(2000, 30000, 64, 7, seed=1)[0])
+    model = build_model(name, 64, 64, 7, 2, residual=name == "gat",
+                        device="cpu", seed=2).eval()
+    launches = {"sage": spmm, "gcn": spmm, "gat": gat_attention}[name]
+    before = launches.launches
+    want = layerwise_inference_uva(name, model, g, 2, node_batch=400,
+                                   residual=name == "gat", device="cpu")
+    assert launches.launches == before  # the plain versions count nothing
+    got = layerwise_inference_uva(name, model.to(dev), g, 2, node_batch=400,
+                                  residual=name == "gat", device=dev)
+    assert launches.launches - before >= 2 * 5  # a launch a chunk a layer
+    scale = float(abs(want).max())
+    assert abs(got - want).max() <= 1e-2 * scale
+
+
+def test_uva_step_equals_the_fused_step(dev, monkeypatch):
+    """Three steps of sample, fetch through a cold 500-row cache, train,
+    against three fused steps from the same state at chip_smoke.py's small
+    size: each step's src tables equal, losses within rtol 1e-5, the
+    parameters and Adam's state as ``_assert_same_training`` holds them,
+    the arm weights within one bf16 ulp (the bounds of the replay test:
+    room for a last-bit reorder of the atomic sums)."""
+    import dataclasses
+
+    import numpy as np
+
+    from bliss_gnn_tpu_torch.graph.featurecache import FeatureCache
+    from bliss_gnn_tpu_torch.train import steps
+
+    dg, cfg, plan, fresh = _small_training(dev, "sage")
+    bare = dataclasses.replace(dg, ndata={
+        k: v for k, v in dg.ndata.items() if k != "features"})
+    host = dg.ndata["features"].float().cpu().numpy()
+    recorded = []
+    sample = steps.sample_blocks
+
+    def recording(*args, **kw):
+        blocks, stats = sample(*args, **kw)
+        recorded.append([b.src_gids.clone() for b in blocks])
+        return blocks, stats
+
+    monkeypatch.setattr(steps, "sample_blocks", recording)
+    batches = [torch.arange(32, dtype=torch.int32, device=dev) + 97 * i
+               for i in range(3)]
+    smask = torch.ones(32, dtype=torch.bool, device=dev)
+    fused = steps.make_train_step(dg, cfg, plan, False, device=dev)
+    st = fresh()
+    want = []
+    for seeds in batches:
+        st, m = fused(st, seeds, smask)
+        want.append(float(m["train_loss"]))
+    want_src, recorded[:] = list(recorded), []
+    want_train, want_exp3 = _train_tensors(st), st.exp3_weights.clone()
+
+    sample_fn, train_fn, _ = steps.make_uva_steps(bare, cfg, plan, False,
+                                                  device=dev)
+    cache = FeatureCache(host, 500, device=dev)
+    st = fresh()
+    got = []
+    for seeds in batches:
+        blocks, _ = sample_fn(st, seeds, smask)
+        x, miss = cache.gather(blocks[0].src_gids, blocks[0].src_mask)
+        st, m = train_fn(st, blocks, x)
+        got.append(float(m["train_loss"]))
+    assert 0.0 < cache.miss_rate <= 1.0
+    for a, b in zip(recorded, want_src):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in zip(got, want):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    _assert_same_training(_train_tensors(st), want_train)
+    torch.testing.assert_close(st.exp3_weights.float(), want_exp3.float(),
+                               rtol=2.0 ** -8, atol=0)
+    assert np.isfinite(got).all()

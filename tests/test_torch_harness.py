@@ -167,10 +167,17 @@ def test_bandit_bench_graph_and_stats_match_reference():
     assert jdata.DATASET_STATS == tdata.DATASET_STATS
 
 
-def test_on_disk_and_unknown_datasets_raise():
+def test_on_disk_and_unknown_datasets_raise(tmp_path, monkeypatch):
+    # on-disk names with no files under the data root raise as the JAX
+    # loader does, naming the path looked for
+    monkeypatch.setattr(tdata, "DATA_ROOT", str(tmp_path))
+    monkeypatch.setattr(jdata, "DATA_ROOT", str(tmp_path))
+    monkeypatch.delenv("BLISS_ALLOW_DOWNLOAD", raising=False)
     for name in ("cora", "reddit", "ogbn-arxiv", "ogbn-papers100m"):
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(FileNotFoundError, match=str(tmp_path)):
             tdata.load_dataset(name)
+        with pytest.raises(FileNotFoundError):
+            jdata.load_dataset(name)
     for name in ("no-such-set", "synth-no-such-set", "synth-sbm-nope"):
         with pytest.raises(ValueError):
             tdata.load_dataset(name)
@@ -388,7 +395,6 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, gt, nc, ml = _graphs()
     for kw, item in ((dict(dp=2), "item 6"), (dict(shard_graph=True),
                                               "item 6"),
-                     (dict(use_uva=True), "item 5"),
                      (dict(compute_dtype="float32"), "item 7"),
                      (dict(param_dtype="bfloat16"), "item 7")):
         cfg = _cfgs(tmp_path, **kw)[1]
