@@ -46,6 +46,15 @@
 // groups' states merge by shuffles and the splits' through shared memory,
 // always in the same order: M = max m_i, den = sum den_i 2^(m_i - M), acc
 // likewise. No atomics: the same bits on every call.
+//
+// Partial outputs (optional, for combining the softmax over several CSC
+// slices of one dst's edges, as the ring inference of
+// parallel/edgeshard.py does): per (dst, head) the max M of the natural
+// logits and the denominator sum exp(e - M) (-inf and 0 for a dst with no
+// edges). The kernel's M is in base 2 and leaves out the dst's own term
+// c1 sum(attn f[d]); the written max adds it back and converts, and the
+// denominator is the same in either frame. Slices combine exactly as the
+// splits' states do above.
 #include <cfloat>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,7 +137,8 @@ gat_attention_kernel(const T* __restrict__ feat,
                      const float* __restrict__ attn, int32_t h, int32_t op,
                      int32_t o, float slope, int32_t hb, int32_t splits,
                      const int32_t* __restrict__ indptr,
-                     const int32_t* __restrict__ src, float* __restrict__ out) {
+                     const int32_t* __restrict__ src, float* __restrict__ out,
+                     float* __restrict__ m_out, float* __restrict__ den_out) {
   constexpr int V = Vec<T>::kN;
   constexpr int K = V * NV;               // columns per lane
   constexpr int P = 32 / G;               // edges per step
@@ -305,6 +315,22 @@ gat_attention_kernel(const T* __restrict__ feat,
       merge<K>(m, den, acc, other[K * 32], other[K * 32 + 1], acc2);
     }
   }
+  if (m_out != nullptr) {
+    // the dst's own logit term, sum over the head's columns of ca * fd,
+    // reduced over the G lanes of a group (all groups hold the same)
+    float own = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) own = fmaf(ca[k], fd[k], own);
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      own += __shfl_xor_sync(kFull, own, off);
+    if (live && lane == 0) {
+      // own is cw sum(attn fd); the base-2 logit adds c1 log2e sum(attn fd)
+      const float m2 = m + own * (c1 * kLog2e / cw);
+      m_out[d * h + head] = m == -INFINITY ? -INFINITY : m2 / kLog2e;
+      den_out[d * h + head] = den;
+    }
+  }
   if (!live || grp != 0) return;
   const float inv = 1.0f / fmaxf(den, FLT_MIN);
   float* dst = out + (d * h + head) * (int64_t)o;
@@ -330,7 +356,8 @@ gat_attention_kernel(const T* __restrict__ feat,
 template <typename T, int G, int NV>
 int launch(const void* feat, const void* attn, int h, int op, int o,
            float slope, int splits, const void* indptr, const void* src,
-           long long n, void* out, cudaStream_t st) {
+           long long n, void* out, void* m_out, void* den_out,
+           cudaStream_t st) {
   const int hb = h < kMaxWarps ? h : kMaxWarps;
   if (splits < 1 || hb * splits > kMaxWarps) return (int)cudaErrorInvalidValue;
   const int warps = hb * splits;
@@ -354,7 +381,8 @@ int launch(const void* feat, const void* attn, int h, int op, int o,
       static_cast<const T*>(feat), static_cast<const float*>(attn),
       (int32_t)h, (int32_t)op, (int32_t)o, slope, (int32_t)hb,
       (int32_t)splits, static_cast<const int32_t*>(indptr),
-      static_cast<const int32_t*>(src), static_cast<float*>(out));
+      static_cast<const int32_t*>(src), static_cast<float*>(out),
+      static_cast<float*>(m_out), static_cast<float*>(den_out));
   return (int)cudaGetLastError();
 }
 
@@ -363,12 +391,13 @@ int launch(const void* feat, const void* attn, int h, int op, int o,
 template <typename T>
 int launch_width(const void* feat, const void* attn, int h, int op, int o,
                  float slope, int splits, const void* indptr,
-                 const void* src, long long n, void* out, cudaStream_t st) {
+                 const void* src, long long n, void* out, void* m_out,
+                 void* den_out, cudaStream_t st) {
   constexpr int V = Vec<T>::kN;
   const int vecs = op / V;
 #define BLISS_GAT(G, NV)                                                    \
   return launch<T, G, NV>(feat, attn, h, op, o, slope, splits, indptr, src, \
-                          n, out, st)
+                          n, out, m_out, den_out, st)
   if (vecs <= 1) BLISS_GAT(1, 1);
   if (vecs <= 2) BLISS_GAT(1, 2);
   if (vecs <= 4) BLISS_GAT(2, 2);
@@ -387,22 +416,26 @@ int launch_width(const void* feat, const void* attn, int h, int op, int o,
 // bf16) and at most 128 vectors, columns o..op-1 zero; attn f32 [h, op],
 // zero past o; indptr int32 [n + 1]; src int32. out is f32 [n, h, o].
 // splits: warps per head that share a dst's edges (heads per block times
-// splits at most 8). Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for arguments outside those limits.
+// splits at most 8). m_out and den_out, f32 [n, h], are both null or both
+// set (the partial outputs, see the note at the top). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments outside those
+// limits.
 extern "C" int bliss_gat_attention(const void* feat, int dtype, int h, int op,
                                    int o, const void* attn, float slope,
                                    int splits, const void* indptr,
                                    const void* src, long long n, void* out,
+                                   void* m_out, void* den_out,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int vec = dtype == 1 ? 8 : 4;
   if ((dtype != 0 && dtype != 1) || h <= 0 || o <= 0 || o > op ||
-      op % vec != 0 || op > 128 * vec)
+      op % vec != 0 || op > 128 * vec || (m_out == nullptr) != (den_out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   if (dtype == 1)
     return launch_width<__nv_bfloat16>(feat, attn, h, op, o, slope, splits,
-                                       indptr, src, n, out, st);
+                                       indptr, src, n, out, m_out, den_out,
+                                       st);
   return launch_width<float>(feat, attn, h, op, o, slope, splits, indptr,
-                             src, n, out, st);
+                             src, n, out, m_out, den_out, st);
 }

@@ -10,7 +10,8 @@ their plain versions on a CPU graph; the dense products stay
 ``torch.matmul``. The kernels read the CSC arrays directly, so there is no
 layout to build beforehand. ``layerwise_inference_uva`` runs the same
 layers chunk by chunk from host-resident features, for graphs whose
-features do not fit on the card.
+features do not fit on the card; ``layerwise_inference_sharded`` runs
+them over a mesh of ranks with the activations node-sharded.
 """
 from __future__ import annotations
 
@@ -236,3 +237,74 @@ def layerwise_inference_uva(model_name: str, model: nn.Module, host_graph,
     if timings is not None:
         timings.update(host_s=host_s, device_s=dev_s, chunks=len(chunks))
     return h
+
+
+@torch.no_grad()
+def layerwise_inference_sharded(model_name: str, model: nn.Module,
+                                host_graph, mesh, n_layers: int,
+                                heads: Optional[Sequence[int]] = None,
+                                negative_slope: float = 0.2,
+                                residual: bool = False,
+                                dtype=torch.bfloat16,
+                                features=None,
+                                timings: Optional[dict] = None
+                                ) -> torch.Tensor:
+    """Full-graph layerwise inference with the activations node-sharded
+    over ``mesh`` (the counterpart of the JAX
+    ``layerwise_inference_sharded``): a rank holds O(N/S * F + E/S), its
+    dst range's rows, and the aggregation is the ring of
+    ``parallel/edgeshard.py`` (S - 1 rotations of a feature block, K6 per
+    bucket for SAGE and GCN, K7 with its partial outputs for GATv2, whose
+    edge softmax is per dst and so shard-local). The dense products run
+    on the rank's rows. Layer 0 reads ``features`` (a host array or
+    memmap, else the graph's), this rank's rows only; GATv2's residual
+    projection runs in ``dtype``, as in the JAX function. Returns the [N,
+    n_classes] f32 logits on every rank (one all-gather at the end).
+    ``timings``, when given, receives the seconds of the shard build and
+    uploads (``build_s``) and of the layers and the gather (``layers_s``),
+    each to a sync of the rank's device."""
+    from bliss_gnn_tpu_torch.parallel.edgeshard import (
+        RingEdgeShards,
+        make_ring_gat,
+        make_ring_spmm,
+    )
+
+    name = model_name.lower()
+    if name not in ("sage", "gcn", "gat"):
+        raise ValueError(f"unknown model {model_name!r}")
+    heads = heads or getattr(model, "heads", None)
+    dev = mesh.device
+    t0 = time.perf_counter()
+    shards = RingEdgeShards.build(host_graph, mesh)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    feats = features if features is not None else host_graph.ndata["features"]
+    h = up(shards.shard_rows(feats).astype(np.float32))
+    in_deg = up(shards.shard_rows(
+        np.asarray(host_graph.in_degrees(), np.float32)))
+    out_deg = up(shards.shard_rows(
+        np.asarray(host_graph.out_degrees(), np.float32)))
+    ring_spmm = make_ring_spmm(mesh, shards)
+    ring_gat = make_ring_gat(mesh, shards, negative_slope)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    for layer in range(n_layers):
+        conv = model.layers[layer]
+        if name == "sage":
+            h_out = _sage_layer(conv, h, h, in_deg, dtype, ring_spmm)
+        elif name == "gcn":
+            h_out = _gcn_layer(conv, h, out_deg, in_deg, dtype, ring_spmm)
+        else:
+            h_out = _gat_layer(conv, h, heads[layer], negative_slope,
+                               residual and layer > 0, dtype,
+                               lambda feat, attn, slope: ring_gat(feat, attn))
+        h = _activate(name, h_out, layer == n_layers - 1)
+    out = shards.unshard_rows(mesh, h)[:host_graph.n_nodes]
+    if timings is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        timings.update(build_s=t1 - t0, layers_s=time.perf_counter() - t1)
+    return out

@@ -63,7 +63,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "gat_attention": {
         "bliss_gat_attention": [_P, _I, _I, _I, _I, _P, _F, _I, _P, _P, _LL,
-                                _P, _P]
+                                _P, _P, _P, _P]
     },
 }
 

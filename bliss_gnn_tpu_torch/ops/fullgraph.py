@@ -58,14 +58,17 @@ def full_spmm_mean(x: torch.Tensor, csc_indptr: torch.Tensor,
 def full_gat_attention(feat: torch.Tensor, attn: torch.Tensor,
                        negative_slope: float, csc_indptr: torch.Tensor,
                        csc_src: torch.Tensor, n_nodes: int, n_edges: int,
-                       chunk: int = DEFAULT_CHUNK // 4) -> torch.Tensor:
+                       chunk: int = DEFAULT_CHUNK // 4,
+                       partials: bool = False):
     """Full-graph GATv2 attention: per dst and head, the softmax over its
     in-edges of e = sum_O(leakyrelu(f_src + f_dst) * attn), times f_src.
 
     feat: [N, H, O] (shared src/dst projection); attn: [1, H, O] or
     [H, O]; returns [N, H, O] f32, zero for a dst with no in-edges. Three
     passes (max, exp-sum, weighted sum) recompute the logits instead of
-    storing E x H of them."""
+    storing E x H of them. With ``partials`` also the per-(dst, head) max
+    logit and softmax denominator, f32 [N, H] (-inf and 0 for a dst with no
+    in-edges)."""
     H, O = feat.shape[1], feat.shape[2]
     attn_f = attn.reshape(1, H, O).to(torch.float32)
     dev = feat.device
@@ -85,12 +88,14 @@ def full_gat_attention(feat: torch.Tensor, attn: torch.Tensor,
     for start, stop in chunks():
         e, _, dst = logits(start, stop)
         seg_max.scatter_reduce_(0, dst[:, None].expand(-1, H), e, "amax")
+    raw_max = seg_max
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
 
     denom = torch.zeros((n_nodes, H), dtype=torch.float32, device=dev)
     for start, stop in chunks():
         e, _, dst = logits(start, stop)
         denom.index_add_(0, dst, torch.exp(e - seg_max[dst]))
+    raw_denom = denom
     denom = torch.clamp(denom, min=torch.finfo(torch.float32).tiny)
 
     out = torch.zeros((n_nodes, H, O), dtype=torch.float32, device=dev)
@@ -98,4 +103,6 @@ def full_gat_attention(feat: torch.Tensor, attn: torch.Tensor,
         e, el, dst = logits(start, stop)
         a = torch.exp(e - seg_max[dst]) / denom[dst]
         out.index_add_(0, dst, el * a[..., None])
+    if partials:
+        return out, raw_max, raw_denom
     return out

@@ -11,7 +11,10 @@ the source); a CPU tensor goes to :func:`gat_attention_plain`, the
 three-pass ``fullgraph.full_gat_attention``.
 
 The caller is ``models.inference``: the GATv2 layers of full-graph
-layerwise inference.
+layerwise inference; with ``partials`` (the per-(dst, head) max logit and
+softmax denominator) ``parallel/edgeshard.py``'s ring inference, which
+combines the softmax of a dst over several CSC slices of its edges
+(:func:`combine_partials`).
 """
 from __future__ import annotations
 
@@ -30,11 +33,30 @@ MAX_VECTORS = 128  # 16-byte vectors per head row the kernel takes
 
 def gat_attention_plain(feat: torch.Tensor, attn: torch.Tensor,
                         negative_slope: float, csc_indptr: torch.Tensor,
-                        csc_src: torch.Tensor) -> torch.Tensor:
+                        csc_src: torch.Tensor, partials: bool = False):
     """Plain PyTorch version of the kernel (chunked, three passes, f32)."""
     n = csc_indptr.shape[0] - 1
     return full_gat_attention(feat, attn, negative_slope, csc_indptr,
-                              csc_src, n, int(csc_indptr[-1].item()))
+                              csc_src, n, int(csc_indptr[-1].item()),
+                              partials=partials)
+
+
+def combine_partials(a, b):
+    """The softmax over the union of two disjoint edge sets of each dst,
+    from each set's (out, max, denominator) as ``gat_attention(partials=
+    True)`` gives them: the merge of the kernel's splits (``merge`` in
+    ``csrc/gat_attention.cu``), in the natural frame. Returns the same
+    triple."""
+    out_a, m_a, d_a = a
+    out_b, m_b, d_b = b
+    m = torch.maximum(m_a, m_b)
+    safe = torch.where(torch.isfinite(m), m, 0.0)
+    w_a = torch.where(torch.isfinite(m_a), d_a * torch.exp(m_a - safe), 0.0)
+    w_b = torch.where(torch.isfinite(m_b), d_b * torch.exp(m_b - safe), 0.0)
+    den = w_a + w_b
+    inv = 1.0 / torch.clamp(den, min=torch.finfo(torch.float32).tiny)
+    out = (out_a * (w_a * inv)[..., None] + out_b * (w_b * inv)[..., None])
+    return out, m, den
 
 
 def gat_plan(h: int, o: int, dtype: torch.dtype) -> Tuple[int, int]:
@@ -53,13 +75,16 @@ def gat_plan(h: int, o: int, dtype: torch.dtype) -> Tuple[int, int]:
 
 def gat_attention(feat: torch.Tensor, attn: torch.Tensor,
                   negative_slope: float, csc_indptr: torch.Tensor,
-                  csc_src: torch.Tensor) -> torch.Tensor:
-    """feat [N, H, O] (the shared projection of every node), attn [1, H, O]
-    or [H, O]; returns f32 [len(csc_indptr) - 1, H, O]. ``csc_src`` may
-    carry padding past the last edge."""
+                  csc_src: torch.Tensor, partials: bool = False):
+    """feat [N, H, O] (the shared projection of every node; a dst reads its
+    own row at its id), attn [1, H, O] or [H, O]; returns f32
+    [len(csc_indptr) - 1, H, O]. ``csc_src`` may carry padding past the
+    last edge. With ``partials``, returns (out, max, denominator), the last
+    two f32 [n, H]: per dst and head the max logit and sum exp(e - max)
+    (-inf and 0 for a dst with no in-edges)."""
     if feat.device.type == "cpu":
         return gat_attention_plain(feat, attn, negative_slope, csc_indptr,
-                                   csc_src)
+                                   csc_src, partials)
     if (feat.device.type != "cuda" or csc_indptr.device != feat.device
             or csc_src.device != feat.device or attn.device != feat.device):
         raise ValueError(
@@ -84,16 +109,27 @@ def gat_attention(feat: torch.Tensor, attn: torch.Tensor,
     src = index_i32(csc_src, "gat_attention csc_src")
     n = indptr.shape[0] - 1
     out = torch.empty((n, h, o), dtype=torch.float32, device=feat.device)
+    m = den = None
+    if partials:
+        m = torch.empty((n, h), dtype=torch.float32, device=feat.device)
+        den = torch.empty((n, h), dtype=torch.float32, device=feat.device)
     if n == 0:
-        return out
+        return (out, m, den) if partials else out
     lib = _build.load("gat_attention")
     err = lib.bliss_gat_attention(
         feat.data_ptr(), _DTYPE_CODE[feat.dtype], h, op, o, attn.data_ptr(),
         ctypes.c_float(negative_slope), splits, indptr.data_ptr(),
-        src.data_ptr(), n, out.data_ptr(), _build.stream_of(feat))
+        src.data_ptr(), n, out.data_ptr(), _build.ptr(m), _build.ptr(den),
+        _build.stream_of(feat))
     gat_attention.launches += 1
+    if partials:
+        by = gat_attention.launches_by_shape
+        key = f"partials H={h} O={o}"
+        by[key] = by.get(key, 0) + 1
     _build.check(err, "gat_attention")
-    return out
+    return (out, m, den) if partials else out
 
 
 gat_attention.launches = 0
+# the launches with partial outputs by shape, e.g. "partials H=4 O=256"
+gat_attention.launches_by_shape = {}

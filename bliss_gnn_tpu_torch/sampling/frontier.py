@@ -26,6 +26,7 @@ import torch
 from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
 from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_multi
 from bliss_gnn_tpu_torch.ops.segment import masked_segment_sum
+from bliss_gnn_tpu_torch.parallel.shards import EShard, NShard
 
 SENTINEL = torch.iinfo(torch.int32).max
 
@@ -71,14 +72,20 @@ def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=like.device)
 
 
-def ptr_take(ptr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``ptr[idx]`` (every sampler read of csc_indptr goes through here)."""
+def ptr_take(ptr, idx: torch.Tensor) -> torch.Tensor:
+    """``ptr[idx]`` (every sampler read of csc_indptr goes through here);
+    a node-sharded ``NShard`` serves it over the mesh."""
+    if isinstance(ptr, NShard):
+        return ptr.take1d(idx)
     return ptr[idx.long()]
 
 
-def frontier_gather(frontier: Frontier, data: torch.Tensor) -> torch.Tensor:
+def frontier_gather(frontier: Frontier, data) -> torch.Tensor:
     """``data[eid]`` for every frontier slot, read as whole ck-wide rows of
-    ``data`` (edge-indexed, with EDGE_PAD >= ck trailing zeros)."""
+    ``data`` (edge-indexed, with EDGE_PAD >= ck trailing zeros); an
+    edge-sharded ``EShard`` serves the rows over the mesh."""
+    if isinstance(data, EShard):
+        return data.frontier_rows(frontier)
     ck = frontier.ck
     j = torch.arange(ck, dtype=torch.int64, device=data.device)
     pos = frontier.chunk_gidx.long()[:, None] * ck + j[None, :]

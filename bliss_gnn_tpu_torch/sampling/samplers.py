@@ -26,6 +26,7 @@ from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
 from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
 from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_multi
 from bliss_gnn_tpu_torch.ops.segment import masked_segment_sum, segment_count
+from bliss_gnn_tpu_torch.parallel.shards import ShardedExp3
 from bliss_gnn_tpu_torch.sampling.block import Block, CapacityPlan
 from bliss_gnn_tpu_torch.sampling.frontier import (
     Candidates,
@@ -96,8 +97,11 @@ def init_exp3_weights(n_layers: int, n_edges: int, device="cuda",
     return state
 
 
-def exp3_row(exp3_weights: torch.Tensor, layer: int) -> torch.Tensor:
-    """One layer's arm-weight row (a view)."""
+def exp3_row(exp3_weights, layer: int):
+    """One layer's arm-weight row (a view); of a ``ShardedExp3``, the
+    rank's slice of it as an ``EShard``."""
+    if isinstance(exp3_weights, ShardedExp3):
+        return exp3_weights.layer_row(layer)
     return exp3_weights[layer]
 
 
@@ -250,8 +254,12 @@ def _build_block(frontier: Frontier, cand: Candidates, sel: torch.Tensor,
 
     # candidate position -> block src slot
     pos_c = torch.full((c_cap + 1,), -1, dtype=torch.int32, device=dev)
-    pos_c[torch.where(seeds_mask, cand.seed_cpos, c_cap).long()] = torch.arange(
-        n_seed_cap, dtype=torch.int32, device=dev)
+    # a seed repeated in the batch is one candidate with several slots: the
+    # last slot takes it, as a sequential scatter gives, on the card too
+    # (an index write there leaves the winner to the run)
+    pos_c.scatter_reduce_(
+        0, torch.where(seeds_mask, cand.seed_cpos, c_cap).long(),
+        torch.arange(n_seed_cap, dtype=torch.int32, device=dev), "amax")
     pos_c[torch.where(extra_slot_mask, extra_idx, c_cap).long()] = (
         n_seed_cap + torch.arange(extra_cap, dtype=torch.int32, device=dev))
     pos_c = pos_c[:c_cap]

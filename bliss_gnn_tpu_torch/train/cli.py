@@ -11,8 +11,15 @@ the plain PyTorch path. ``--gpu``, ``--num-workers``, ``--data-cpu`` and
 datasets are read from ``BLISS_DATA_ROOT``). ``--use-uva`` keeps the
 features in host memory behind a device cache of ``--cache-size`` rows.
 ``--inference-backend`` named the reference's TPU layouts; every value runs
-the CSC kernels here. Not ported, and raising: ``--dp`` other than 1,
-``--shard-graph`` and ``--precision highest``.
+the CSC kernels here. Not ported, and raising: ``--precision highest``.
+
+``--dp N`` trains over N ranks (``parallel/dp.py``; ``--shard-graph``
+range-shards the graph over them). With no process group running the CLI
+starts the N ranks itself, processes of this host joined through a
+``FileStore``; under torchrun (``torchrun --nproc-per-node N -m
+bliss_gnn_tpu_torch.train.cli --dp N ...``) each rank joins the launcher's
+group. Both run the same code, one rank per process; rank 0 logs and
+returns the results.
 """
 from __future__ import annotations
 
@@ -20,9 +27,12 @@ import argparse
 import csv
 import glob
 import os
+import sys
 from collections import defaultdict
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from bliss_gnn_tpu_torch._device import resolve_device
 
@@ -120,12 +130,17 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="empty (or cuda) = the CUDA card, which must "
                         "exist; cpu = the plain PyTorch path")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel devices (only 1 is ported)")
+                   help="data-parallel ranks: the global batch split over "
+                        "N ranks, gradients averaged, the EXP3 deltas "
+                        "all-gathered; with no process group running the "
+                        "CLI starts the N ranks itself; 0 = every rank the "
+                        "launcher placed; 1 = one device")
     p.add_argument("--shard-graph", action="store_true", default=False,
-                   help="partition the graph over the dp devices (not "
-                        "ported: raises)")
+                   help="range-shard the graph, features and EXP3 state "
+                        "over the dp ranks (requires --dp N, N > 1)")
     p.add_argument("--shard-indptr", type=int, choices=(0, 1), default=None,
-                   help="also shard the csc_indptr under --shard-graph")
+                   help="also shard the csc_indptr under --shard-graph "
+                        "(default: on past 32M nodes)")
     return p
 
 
@@ -235,25 +250,42 @@ def reduce_runs(logdir: str, run_name: str, k: int):
         print(f"Wrote {op} TB events to {d}")
 
 
+def _rank_main(argv):
+    """One rank of the CLI's own launch: the group is joined, so ``main``
+    trains."""
+    return main(argv)
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_argparser().parse_args(argv)
     platform = args.platform.lower()
     if platform not in ("", "cuda", "gpu", "cpu"):
         raise ValueError(f"--platform {args.platform!r}: use cpu, or leave "
                          f"it empty for the CUDA card")
     device = resolve_device("cpu" if platform == "cpu" else "cuda")
+    if (args.dp > 1 and not dist.is_initialized()
+            and int(os.environ.get("WORLD_SIZE", "1")) <= 1):
+        from bliss_gnn_tpu_torch.parallel.multihost import run_ranks
+
+        threads = (max(1, torch.get_num_threads() // args.dp)
+                   if device.type == "cpu" else None)
+        return run_ranks(_rank_main, args.dp, (argv,), device=device,
+                         threads=threads)[0]
     from bliss_gnn_tpu_torch.train.trainer import Trainer
 
     cfg = config_from_args(args)
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
     results = []
     for run in range(args.k_runs):
-        print("=" * 20 + f"run_{run + 1} for eta_{args.eta}" + "=" * 20)
+        if main_rank:
+            print("=" * 20 + f"run_{run + 1} for eta_{args.eta}" + "=" * 20)
         run_cfg = dataclasses_replace_seed(cfg, cfg.seed + run)
         trainer = Trainer(run_cfg, device=device)
         trainer.fit()
         trainer.restore_best()
         results.append(trainer.final_eval())
-    if args.k_runs > 1:
+    if args.k_runs > 1 and main_rank:
         reduce_runs(args.logdir, cfg.run_name, args.k_runs)
         for split in ["Train", "Validation", "Test"]:
             vals = [r[split] for r in results]

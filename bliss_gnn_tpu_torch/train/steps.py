@@ -12,6 +12,15 @@ batch, the counterpart of the reference's one ``lax.scan`` dispatch. For
 features left in host memory, :func:`make_uva_steps` splits the step
 around the host's feature fetch.
 
+The bodies take a ``mesh`` (``parallel/mesh.py``) for seed-batch data
+parallelism, the per-rank half of ``parallel/dp.py``: each rank samples
+its slice of the batch with its own generator, the gradients are averaged
+over the ranks before Adam (which then runs replicated), the EXP3 deltas
+are all-gathered and every rank applies all of them (K4), and the metrics
+are summed, the refit's maxima maxed. A :class:`StepStorage` says where
+node rows and the arm weights live: the default reads the device graph;
+``parallel/shardedstep.py`` serves them from range shards.
+
 What capture asks of the step, and where it is met:
 - no host sync and no host-to-device copy inside it: every ``n_valid``
   bound reaches the kernels as a tensor on the card (``ops/_args.py``
@@ -45,6 +54,102 @@ from bliss_gnn_tpu_torch.sampling.samplers import (
     sample_blocks,
 )
 from bliss_gnn_tpu_torch.train.metrics import F1State, f1_update
+
+
+class StepStorage:
+    """How the step body reads node rows and owns the EXP3 state. The
+    default reads the replicated device graph and updates the replicated
+    ``[L, E + EDGE_PAD]`` arm weights in place."""
+
+    def node_rows(self, graph, name: str, gids: torch.Tensor
+                  ) -> torch.Tensor:
+        return graph.ndata[name][gids.long()]
+
+    def exp3_view(self, exp3):
+        """What ``sample_blocks`` and ``exp3_row`` read as the arm weights."""
+        return exp3
+
+    def sync_deltas(self, deltas, mesh):
+        """Under a mesh, every rank's sparse (eid, exponent) lists, so that
+        every holder of the state applies every rank's update."""
+        if mesh is None:
+            return deltas
+        return all_gather_deltas(deltas, mesh)
+
+    def apply_deltas(self, exp3, deltas, normalize: bool) -> None:
+        apply_exp3_deltas(exp3, deltas, normalize=normalize)
+
+
+_DEFAULT_STORAGE = StepStorage()
+
+
+def all_gather_deltas(deltas, mesh):
+    """Every rank's per-layer (eid int32, exponent f32) lists in one int32
+    all-gather (the exponents travel as their bits): per layer
+    ([S * e_cap] eids, [S * e_cap] exponents), rank by rank."""
+    packed = torch.cat([t for eid, dr in deltas for t in (
+        eid.reshape(-1).to(torch.int32),
+        dr.reshape(-1).to(torch.float32).contiguous().view(torch.int32))])
+    rows = mesh.all_gather(packed)  # [S, sum of 2 * e_cap]
+    out, o = [], 0
+    for eid, _ in deltas:
+        n = eid.numel()
+        out.append((rows[:, o:o + n].reshape(-1),
+                    rows[:, o + n:o + 2 * n].contiguous().view(
+                        torch.float32).reshape(-1)))
+        o += 2 * n
+    return out
+
+
+def pmean_grads(params, mesh) -> None:
+    """The gradients averaged over the ranks in place: one all-reduce of
+    the flattened gradients (exact at one rank)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = mesh.pmean(torch.cat([g.reshape(-1) for g in grads]))
+    o = 0
+    for g in grads:
+        g.copy_(flat[o:o + g.numel()].view_as(g))
+        o += g.numel()
+
+
+def _is_refit_max(name: str) -> bool:
+    return "frontier_edges" in name or "n_block_edges_true" in name
+
+
+def reduce_metrics(metrics: Dict[str, object], mesh,
+                   mean_keys=("train_loss",)) -> Dict[str, object]:
+    """The JAX step's metric reductions in two all-reduces of f64 vectors
+    (exact for int32 counts and f32 values): the refit's maxima (frontier
+    edges, true block edges) maxed, ``mean_keys`` averaged, every other
+    tensor (counts, overflow counters, the F1 state) summed. Host scalars
+    stay as they are."""
+    if mesh is None:
+        return metrics
+    sums, maxs = [], []  # (name, field or None, dtype, value)
+    for name, v in metrics.items():
+        if isinstance(v, F1State):
+            sums += [(name, f, torch.float32, getattr(v, f))
+                     for f in _F1_FIELDS]
+        elif isinstance(v, torch.Tensor):
+            (maxs if _is_refit_max(name) else sums).append(
+                (name, None, v.dtype, v))
+    out = dict(metrics)
+    f1_parts: Dict[str, Dict[str, torch.Tensor]] = {}
+    for entries, reduce in ((sums, mesh.psum), (maxs, mesh.pmax)):
+        if not entries:
+            continue
+        vec = reduce(torch.stack([v.reshape(()).to(torch.float64)
+                                  for *_, v in entries]))
+        for (name, field, dtype, _), r in zip(entries, vec.unbind()):
+            if name in mean_keys:
+                r = r / mesh.size
+            if field is None:
+                out[name] = r.to(dtype)
+            else:
+                f1_parts.setdefault(name, {})[field] = r.to(dtype)
+    for name, fields in f1_parts.items():
+        out[name] = F1State(*(fields[f] for f in _F1_FIELDS))
+    return out
 
 
 @dataclasses.dataclass
@@ -160,15 +265,20 @@ def _resolve(graph: DeviceGraph, device) -> torch.device:
 
 
 def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
-                   multilabel: bool) -> Callable:
+                   multilabel: bool, mesh=None,
+                   storage: Optional[StepStorage] = None,
+                   exp3_normalize: bool = False) -> Callable:
     """The step's work after sampling, ``train_fn(state, blocks, x) ->
     metrics``: labels, model forward and backward with dropout drawn from
     the state's generator, CE loss, Adam, the EXP3 update; ``x`` the input
-    block's src rows."""
+    block's src rows. Under ``mesh`` the gradients are averaged and the
+    deltas all-gathered before they are applied; the metrics come back
+    unreduced."""
+    storage = storage or _DEFAULT_STORAGE
 
     def train_fn(state: TrainState, blocks, x: torch.Tensor
                  ) -> Dict[str, object]:
-        labels = graph.ndata["labels"][blocks[-1].dst_gids.long()]
+        labels = storage.node_rows(graph, "labels", blocks[-1].dst_gids)
         dst_mask = blocks[-1].dst_mask
         model = state.model
         model.train()
@@ -176,13 +286,16 @@ def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         loss = cross_entropy_loss(logits, labels, dst_mask, multilabel)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            pmean_grads(model.parameters(), mesh)
         state.optimizer.step()
 
         if sampler_cfg.is_bandit and not sampler_cfg.exp3_freeze:
-            # unnormalised: every consumer renormalises per dst
+            # unnormalised by default: every consumer renormalises per dst
             deltas = exp3_edge_deltas(graph, sampler_cfg, blocks,
                                       aux["embed_norms"], aux["a_ijs"])
-            apply_exp3_deltas(state.exp3_weights, deltas, normalize=False)
+            deltas = storage.sync_deltas(deltas, mesh)
+            storage.apply_deltas(state.exp3_weights, deltas, exp3_normalize)
         f1 = f1_update(F1State.zero(x.device), logits.detach(), labels,
                        dst_mask, multilabel)
         return {
@@ -205,12 +318,17 @@ def _sampler_stats(samp_stats: Dict[str, torch.Tensor]
 
 
 def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
-                    plan: CapacityPlan, multilabel: bool) -> Callable:
+                    plan: CapacityPlan, multilabel: bool, mesh=None,
+                    storage: Optional[StepStorage] = None,
+                    exp3_normalize: bool = False) -> Callable:
     """The device work of one train step, ``body(state, seeds, seeds_mask,
     draws) -> metrics``: everything but the host's schedule and step count,
     so that a CUDA graph can hold it. The sampler draws from the state's
-    generator before dropout does."""
-    train_fn = _make_train_fn(graph, sampler_cfg, multilabel)
+    generator before dropout does. Under ``mesh`` (the JAX ``dp_axis``)
+    ``seeds`` is this rank's slice and the metrics come back reduced."""
+    storage = storage or _DEFAULT_STORAGE
+    train_fn = _make_train_fn(graph, sampler_cfg, multilabel, mesh, storage,
+                              exp3_normalize)
 
     def body(state: TrainState, seeds: torch.Tensor,
              seeds_mask: torch.Tensor,
@@ -218,9 +336,10 @@ def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
              ) -> Dict[str, object]:
         blocks, samp_stats = sample_blocks(
             graph, sampler_cfg, plan, state.generator, seeds, seeds_mask,
-            state.exp3_weights, draws=draws)
-        x = graph.ndata["features"][blocks[0].src_gids.long()]
-        return {**train_fn(state, blocks, x), **_sampler_stats(samp_stats)}
+            storage.exp3_view(state.exp3_weights), draws=draws)
+        x = storage.node_rows(graph, "features", blocks[0].src_gids)
+        return reduce_metrics({**train_fn(state, blocks, x),
+                               **_sampler_stats(samp_stats)}, mesh)
 
     return body
 
@@ -247,10 +366,25 @@ def make_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     return step
 
 
-def _make_eval_fn(graph: DeviceGraph, multilabel: bool) -> Callable:
+def _psum_eval(out, mesh):
+    """(f1, loss * n, n) summed over the ranks in one all-reduce."""
+    if mesh is None:
+        return out
+    f1, loss_n, n = out
+    vec = mesh.psum(torch.stack([t.to(torch.float64) for t in (
+        f1.tp, f1.fp, f1.fn, f1.total, loss_n, n)]))
+    tp, fp, fn, total, ln, nn = vec.unbind()
+    f32 = torch.float32
+    return (F1State(tp.to(f32), fp.to(f32), fn.to(f32), total.to(f32)),
+            ln.to(loss_n.dtype), nn.to(n.dtype))
+
+
+def _make_eval_fn(graph: DeviceGraph, multilabel: bool, mesh=None,
+                  storage: Optional[StepStorage] = None) -> Callable:
     """One validation batch on sampled blocks, ``eval_fn(state, blocks, x)
     -> (f1, loss * n, n)``: the model in eval mode (no dropout), no
-    gradient, no EXP3 update."""
+    gradient, no EXP3 update; under ``mesh`` summed over the ranks."""
+    storage = storage or _DEFAULT_STORAGE
 
     @torch.no_grad()
     def eval_fn(state: TrainState, blocks, x: torch.Tensor):
@@ -258,7 +392,7 @@ def _make_eval_fn(graph: DeviceGraph, multilabel: bool) -> Callable:
         was_training = model.training
         model.eval()
         try:
-            labels = graph.ndata["labels"][blocks[-1].dst_gids.long()]
+            labels = storage.node_rows(graph, "labels", blocks[-1].dst_gids)
             dst_mask = blocks[-1].dst_mask
             logits, _ = model(blocks, x)
             loss = cross_entropy_loss(logits, labels, dst_mask, multilabel)
@@ -267,17 +401,20 @@ def _make_eval_fn(graph: DeviceGraph, multilabel: bool) -> Callable:
             n = dst_mask.sum(dtype=torch.int32)
         finally:
             model.train(was_training)
-        return f1, loss * n, n
+        return _psum_eval((f1, loss * n, n), mesh)
 
     return eval_fn
 
 
 def _make_eval_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
-                    plan: CapacityPlan, multilabel: bool) -> Callable:
+                    plan: CapacityPlan, multilabel: bool, mesh=None,
+                    storage: Optional[StepStorage] = None) -> Callable:
     """One sampled validation batch (the JAX ``_make_eval_fn`` body):
     ``body(state, generator, seeds, seeds_mask, draws) -> (f1, loss * n,
-    n)``."""
-    eval_fn = _make_eval_fn(graph, multilabel)
+    n)``; under ``mesh`` ``seeds`` is this rank's slice, ``generator``
+    this rank's, and the sums are over the ranks."""
+    storage = storage or _DEFAULT_STORAGE
+    eval_fn = _make_eval_fn(graph, multilabel, mesh, storage)
 
     def body(state: TrainState, generator: Optional[torch.Generator],
              seeds: torch.Tensor, seeds_mask: torch.Tensor,
@@ -285,8 +422,8 @@ def _make_eval_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         with torch.no_grad():
             blocks, _ = sample_blocks(
                 graph, sampler_cfg, plan, generator, seeds, seeds_mask,
-                state.exp3_weights, draws=draws)
-            x = graph.ndata["features"][blocks[0].src_gids.long()]
+                storage.exp3_view(state.exp3_weights), draws=draws)
+            x = storage.node_rows(graph, "features", blocks[0].src_gids)
         return eval_fn(state, blocks, x)
 
     return body
@@ -306,8 +443,8 @@ def make_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
 
 def make_uva_steps(graph: DeviceGraph, sampler_cfg: SamplerConfig,
                    plan: CapacityPlan, multilabel: bool, device="cuda",
-                   mesh=None, storage=None) -> Tuple[Callable, Callable,
-                                                     Callable]:
+                   mesh=None, storage: Optional[StepStorage] = None
+                   ) -> Tuple[Callable, Callable, Callable]:
     """The step split at the host boundary for host-resident features
     (the counterpart of the JAX ``make_uva_steps``; ``graph/featurecache.py``
     fetches the rows between the parts). ``graph`` holds no features:
@@ -322,30 +459,33 @@ def make_uva_steps(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     ``train_fn``'s dropout draws from the state's generator, in the fused
     step's order, so sample, fetch and train from a state give the fused
     step's blocks, loss and update. ``train_fn`` steps the schedule and the
-    count. Data parallelism and sharded storage (``mesh``, ``storage``) are
-    not ported yet (ROADMAP Queue 1 item 6)."""
-    if mesh is not None or storage is not None:
-        raise NotImplementedError(
-            "UVA steps over a mesh or sharded storage are not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+    count. Under ``mesh`` each rank samples its slice of the batch (the
+    caller passes the slice) and fetches its own rows; the sampler stats,
+    the metrics and the eval sums come back reduced, as in the fused DP
+    step. ``storage`` serves labels and arm weights from range shards
+    (``parallel/shardedstep.py``: graph sharding with UVA)."""
     _resolve(graph, device)
-    train_body = _make_train_fn(graph, sampler_cfg, multilabel)
+    storage = storage or _DEFAULT_STORAGE
+    train_body = _make_train_fn(graph, sampler_cfg, multilabel, mesh, storage)
 
     def sample_fn(state: TrainState, seeds: torch.Tensor,
                   seeds_mask: torch.Tensor,
                   draws: Optional[Sequence[torch.Tensor]] = None,
                   generator: Optional[torch.Generator] = None):
         gen = state.generator if generator is None else generator
-        return sample_blocks(graph, sampler_cfg, plan, gen, seeds,
-                             seeds_mask, state.exp3_weights, draws=draws)
+        blocks, stats = sample_blocks(
+            graph, sampler_cfg, plan, gen, seeds, seeds_mask,
+            storage.exp3_view(state.exp3_weights), draws=draws)
+        return blocks, reduce_metrics(stats, mesh, mean_keys=())
 
     def train_fn(state: TrainState, blocks, x: torch.Tensor):
-        metrics = train_body(state, blocks, x)
+        metrics = reduce_metrics(train_body(state, blocks, x), mesh)
         state.scheduler.step()
         state.step += 1
         return state, metrics
 
-    return sample_fn, train_fn, _make_eval_fn(graph, multilabel)
+    return sample_fn, train_fn, _make_eval_fn(graph, multilabel, mesh,
+                                              storage)
 
 
 # eager steps before capture: after them the lazy state (Adam's moments,
@@ -452,6 +592,47 @@ def _check_chain(seeds: torch.Tensor, seeds_mask: torch.Tensor,
     return k
 
 
+def chain_train(body: Callable, dev: torch.device,
+                n_steps: Optional[int], capture: bool) -> Callable:
+    """K steps of ``body`` per call, ``multi(state, seeds[K, B],
+    seeds_mask[K, B], draws=None) -> (state, metrics stacked over K)``:
+    with ``capture`` one step captured in a CUDA graph and replayed per
+    batch (:class:`_Replay`), else a plain loop."""
+    replay, layout = _Replay(), {}
+
+    def multi(state: TrainState, seeds: torch.Tensor,
+              seeds_mask: torch.Tensor, draws=None):
+        k = _check_chain(seeds, seeds_mask, draws, n_steps)
+        if (capture
+                and not state.optimizer.param_groups[0].get("capturable")):
+            raise ValueError("the chained step on the card replays Adam in a "
+                             "CUDA graph: make_optimizer(capturable=True)")
+
+        def packed(seeds, seeds_mask, *draws):
+            vec, layout["train"] = _pack(
+                body(state, seeds, seeds_mask, list(draws) or None), dev)
+            return vec
+
+        rows = None
+        for i in range(k):
+            inputs = (seeds[i], seeds_mask[i],
+                      *(() if draws is None else draws[i]))
+            if capture:
+                vec = replay.run((state, state.generator, draws is not None),
+                                 state.generator, packed, inputs)
+            else:
+                vec = packed(*inputs)
+            state.scheduler.step()
+            state.step += 1
+            if rows is None:
+                rows = torch.empty((k, vec.shape[0]), dtype=torch.float64,
+                                   device=dev)
+            rows[i].copy_(vec)
+        return state, _unpack(rows, layout["train"])
+
+    return multi
+
+
 def make_multi_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
                           plan: CapacityPlan, multilabel: bool,
                           n_steps: Optional[int] = None,
@@ -470,54 +651,15 @@ def make_multi_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     (``make_optimizer(capturable=True)``). After the capture a chain issues
     no host sync; the metrics stay on the card."""
     dev = _resolve(graph, device)
-    body = _make_step_body(graph, sampler_cfg, plan, multilabel)
-    replay, layout = _Replay(), {}
-
-    def multi(state: TrainState, seeds: torch.Tensor,
-              seeds_mask: torch.Tensor, draws=None):
-        k = _check_chain(seeds, seeds_mask, draws, n_steps)
-        if (dev.type == "cuda"
-                and not state.optimizer.param_groups[0].get("capturable")):
-            raise ValueError("the chained step on the card replays Adam in a "
-                             "CUDA graph: make_optimizer(capturable=True)")
-
-        def packed(seeds, seeds_mask, *draws):
-            vec, layout["train"] = _pack(
-                body(state, seeds, seeds_mask, list(draws) or None), dev)
-            return vec
-
-        rows = None
-        for i in range(k):
-            inputs = (seeds[i], seeds_mask[i],
-                      *(() if draws is None else draws[i]))
-            if dev.type == "cuda":
-                vec = replay.run((state, state.generator, draws is not None),
-                                 state.generator, packed, inputs)
-            else:
-                vec = packed(*inputs)
-            state.scheduler.step()
-            state.step += 1
-            if rows is None:
-                rows = torch.empty((k, vec.shape[0]), dtype=torch.float64,
-                                   device=dev)
-            rows[i].copy_(vec)
-        return state, _unpack(rows, layout["train"])
-
-    return multi
+    return chain_train(_make_step_body(graph, sampler_cfg, plan, multilabel),
+                       dev, n_steps, capture=dev.type == "cuda")
 
 
-def make_multi_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
-                         plan: CapacityPlan, multilabel: bool,
-                         device="cuda") -> Callable:
-    """Chained validation: ``multi(state, generator, seeds[K, B],
-    seeds_mask[K, B], draws=None) -> (f1, loss * n, n)``, each the sum over
-    the K batches of :func:`make_eval_step`'s outputs, added in batch order
-    in their own dtypes, the generator advancing as K single calls would
-    advance it: the sums of the unchained loop, bit for bit. On the card
-    the eval step is captured once as a CUDA graph and replayed per batch,
-    as in :func:`make_multi_train_step`."""
-    dev = _resolve(graph, device)
-    body = _make_eval_body(graph, sampler_cfg, plan, multilabel)
+def chain_eval(body: Callable, dev: torch.device, capture: bool
+               ) -> Callable:
+    """K sampled validation batches of ``body`` per call, summed in batch
+    order (see :func:`make_multi_eval_step`); with ``capture`` one batch
+    captured in a CUDA graph and replayed, else a plain loop."""
     replay = _Replay()
 
     def multi(state: TrainState, generator: Optional[torch.Generator],
@@ -534,7 +676,7 @@ def make_multi_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         for i in range(k):
             inputs = (seeds[i], seeds_mask[i],
                       *(() if draws is None else draws[i]))
-            if dev.type == "cuda":
+            if capture:
                 vec, n = replay.run((state, generator, draws is not None),
                                     generator, packed, inputs)
             else:
@@ -544,3 +686,18 @@ def make_multi_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         return F1State(*acc[:4].unbind()), acc[4], n_sum
 
     return multi
+
+
+def make_multi_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
+                         plan: CapacityPlan, multilabel: bool,
+                         device="cuda") -> Callable:
+    """Chained validation: ``multi(state, generator, seeds[K, B],
+    seeds_mask[K, B], draws=None) -> (f1, loss * n, n)``, each the sum over
+    the K batches of :func:`make_eval_step`'s outputs, added in batch order
+    in their own dtypes, the generator advancing as K single calls would
+    advance it: the sums of the unchained loop, bit for bit. On the card
+    the eval step is captured once as a CUDA graph and replayed per batch,
+    as in :func:`make_multi_train_step`."""
+    dev = _resolve(graph, device)
+    return chain_eval(_make_eval_body(graph, sampler_cfg, plan, multilabel),
+                      dev, capture=dev.type == "cuda")

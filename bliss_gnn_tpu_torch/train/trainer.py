@@ -19,17 +19,26 @@
   ``FeatureCache`` of ``cache_size`` rows: split steps around the host
   fetch, run eagerly (no chained or captured steps), ``cache_miss`` logged
   each step, and the final eval chunked from host memory
-  (``layerwise_inference_uva``).
+  (``layerwise_inference_uva``);
+- with ``dp`` (0: every rank the launcher placed) seed-batch data
+  parallelism over a mesh of ranks (``parallel/dp.py``): the batch is
+  global, rounded to a multiple of dp, and the plan holds the local batch;
+  every rank runs this trainer on the same config and the same batches,
+  and rank 0 alone logs and writes the checkpoint. With ``shard_graph``
+  (dp > 1) the graph, features and arm weights are range-sharded over the
+  ranks (``parallel/shardedstep.py``), ``shard_indptr`` shards the indptr
+  too (by default past 32M nodes), and the final eval runs node-sharded
+  (``layerwise_inference_sharded``), as it does under dp > 1 with UVA.
 
 Checkpoints are ``torch.save`` files at ``<run_dir>/checkpoints/best``. A
 state is restored by copying into the live tensors (parameters, Adam's
 moments and counts, the arm weights) and the generator's state, never by
 replacing them: a step captured in a CUDA graph keeps reading the tensors
-it was captured with.
+it was captured with. A checkpoint holds the canonical (unsharded) arm
+weights and every rank's generator state; loading it re-shards them.
 
-Not ported (each raises ``NotImplementedError``): data parallelism and the
-sharded graph (ROADMAP Queue 1 item 6), f32 compute and bf16 parameters
-(item 7).
+Not ported (each raises ``NotImplementedError``): f32 compute and bf16
+parameters (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.graph.datasets import load_dataset
@@ -55,8 +65,14 @@ from bliss_gnn_tpu_torch.graph.structure import (
 from bliss_gnn_tpu_torch.models.gnn import build_model
 from bliss_gnn_tpu_torch.models.inference import (
     layerwise_inference,
+    layerwise_inference_sharded,
     layerwise_inference_uva,
 )
+from bliss_gnn_tpu_torch.parallel import dp as pdp
+from bliss_gnn_tpu_torch.parallel import multihost
+from bliss_gnn_tpu_torch.parallel import shardedstep as pss
+from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+from bliss_gnn_tpu_torch.parallel.shards import normalize_exp3_sharded
 from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
 from bliss_gnn_tpu_torch.sampling.samplers import (
     SamplerConfig,
@@ -166,10 +182,6 @@ class TrainConfig:
 
 
 def _check_supported(cfg: TrainConfig, device: torch.device) -> None:
-    if cfg.dp != 1 or cfg.shard_graph:
-        raise NotImplementedError(
-            "data parallelism and the sharded graph (--dp, --shard-graph) "
-            "are not ported yet (ROADMAP Queue 1 item 6)")
     if cfg.compute_dtype != "bfloat16" or cfg.param_dtype != "float32":
         raise NotImplementedError(
             "the port's models compute in bf16 with f32 parameters; f32 "
@@ -193,11 +205,26 @@ def _metrics_to_host(metrics: Dict[str, object], device: torch.device,
              for name, v in cols.items()} for k in range(rows.shape[0])]
 
 
+class _NullLogger:
+    """The logger of a rank other than 0: rank 0 logs the run."""
+
+    def log(self, step, scalars):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     """Trains ``cfg`` on ``graph`` (a canonicalised host ``Graph`` with the
     normalised weights in ``edata["w"]``), or on ``cfg.dataset`` when no
     graph is given, on ``device``: the card by default (raises without
-    one), ``"cpu"`` for the plain PyTorch path."""
+    one), ``"cpu"`` for the plain PyTorch path. With ``cfg.dp`` other than
+    1 it joins the process group the launcher described (torchrun's, or
+    ``cli.main``'s own ranks) and runs on this rank's device."""
 
     def __init__(self, cfg: TrainConfig, graph: Optional[Graph] = None,
                  n_classes: Optional[int] = None,
@@ -205,7 +232,24 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         _check_supported(cfg, self.device)
+        self.mesh = None
         self.dp = 1
+        if cfg.dp != 1:
+            multihost.initialize(self.device)
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            n = cfg.dp if cfg.dp > 0 else world
+            if n > world:
+                raise ValueError(f"--dp {n} exceeds the {world} rank(s) the "
+                                 f"launcher placed")
+            if n > 1:
+                self.mesh = make_mesh(n, device=self.device)
+                self.dp = n
+                self.device = self.mesh.device
+        if cfg.shard_graph and self.dp <= 1:
+            raise ValueError(
+                "--shard-graph partitions the graph over the dp ranks; it "
+                "requires --dp N with N > 1 (or 0 = every rank)")
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         if graph is None:
             graph, n_classes, multilabel = load_dataset(cfg.dataset)
             graph = Graph.canonicalize(graph, undirected=cfg.undirected)
@@ -221,9 +265,19 @@ class Trainer:
                 graph.ndata["features"],
                 cfg.cache_size or min(graph.n_nodes, 1 << 21),
                 dtype=torch.bfloat16, device=self.device)
-        self.graph = DeviceGraph.from_graph(
-            graph, device=self.device, feature_dtype=torch.bfloat16,
-            exclude=("features",) if cfg.use_uva else ())
+        self.sharded_graph = None
+        if cfg.shard_graph:
+            # no replicated device graph: each rank holds its ranges
+            shard_indptr = (cfg.shard_indptr if cfg.shard_indptr is not None
+                            else graph.n_nodes > 32_000_000)
+            self.sharded_graph = pss.ShardedDeviceGraph.build(
+                graph, self.mesh, feature_dtype=torch.bfloat16,
+                shard_indptr=shard_indptr, include_features=not cfg.use_uva)
+            self.graph = None
+        else:
+            self.graph = DeviceGraph.from_graph(
+                graph, device=self.device, feature_dtype=torch.bfloat16,
+                exclude=("features",) if cfg.use_uva else ())
         self.train_nid = np.where(graph.ndata["train_mask"])[0].astype(
             np.int32)
         self.val_nid = np.where(graph.ndata["val_mask"])[0].astype(np.int32)
@@ -246,14 +300,21 @@ class Trainer:
             num_in_heads=cfg.num_in_heads, num_out_heads=cfg.num_out_heads,
             attn_drop=cfg.attn_dropout, negative_slope=cfg.negative_slope,
             residual=cfg.residual, device=self.device, seed=cfg.seed)
+        # the GLOBAL batch; under dp a multiple of dp, batch / dp a rank
         self.batch_size = min(cfg.batch_size, max(1, len(self.train_nid)))
+        self.batch_size = max(self.dp,
+                              (self.batch_size // self.dp) * self.dp)
         self.steps_per_epoch = max(1, len(self.train_nid) // self.batch_size)
         self.n_refits = self.n_widens = 0
         self._build_for_batch_size(self.batch_size, init_state=True)
 
         base = os.path.join(cfg.logdir, cfg.run_name)
-        self.run_dir = next_version_dir(base)
-        self.logger = MetricLogger(self.run_dir)
+        run_dir = [next_version_dir(base) if self.is_main else None]
+        if self.mesh is not None:
+            dist.broadcast_object_list(run_dir, src=0)
+        self.run_dir = run_dir[0]
+        self.logger = (MetricLogger(self.run_dir) if self.is_main
+                       else _NullLogger())
         self.ema_nodes = [EmaCounter(cfg.ema_w)
                           for _ in range(cfg.num_layers + 1)]
         self.ema_edges = [EmaCounter(cfg.ema_w)
@@ -283,7 +344,7 @@ class Trainer:
     def _save_hparams(self):
         """The resolved config and the current capacity plan as
         ``<run_dir>/hparams.json``, rewritten whenever the plan changes."""
-        if not hasattr(self, "run_dir"):
+        if not hasattr(self, "run_dir") or not self.is_main:
             return
         payload = {
             "config": dataclasses.asdict(self.cfg),
@@ -323,7 +384,7 @@ class Trainer:
         indeg = g.in_degrees()
         self._max_degree = int(indeg.max())
         self.plan = CapacityPlan.build(
-            batch_size, self.sampler_cfg.fanouts, g.n_nodes, g.n_edges,
+            batch_size // self.dp, self.sampler_cfg.fanouts, g.n_nodes, g.n_edges,
             kind=cfg.sampler, frontier_slack=cfg.frontier_slack,
             block_edge_slack=cfg.block_edge_slack,
             max_frontier_edges=cfg.max_frontier_edges,
@@ -337,11 +398,18 @@ class Trainer:
                 self.model.parameters(), cfg.lr, self.steps_per_epoch,
                 cfg.lr_gamma, cfg.lr_step_size,
                 capturable=self.device.type == "cuda")
-            exp3 = (init_exp3_weights(
-                cfg.num_layers, g.n_edges, device=self.device,
-                dtype=getattr(torch, cfg.exp3_dtype))
-                if self.sampler_cfg.is_bandit else None)
-            gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+            exp3 = None
+            if self.sampler_cfg.is_bandit and cfg.shard_graph:
+                exp3 = pss.init_exp3_shard(
+                    cfg.num_layers, g.n_edges, self.mesh,
+                    dtype=getattr(torch, cfg.exp3_dtype))
+            elif self.sampler_cfg.is_bandit:
+                exp3 = init_exp3_weights(
+                    cfg.num_layers, g.n_edges, device=self.device,
+                    dtype=getattr(torch, cfg.exp3_dtype))
+            gen = (self.mesh.generator(cfg.seed) if self.mesh is not None
+                   else torch.Generator(device=self.device).manual_seed(
+                       cfg.seed))
             self.state = TrainState(self.model, opt, sched, exp3, gen)
         else:
             # the schedule's period follows the epoch length, at Adam's count
@@ -360,11 +428,39 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         args = (self.graph, self.sampler_cfg, self.plan, self.multilabel)
+        mesh, sg = self.mesh, self.sharded_graph
         if self.feature_cache is not None:
             # the host fetch sits inside the step: no chains, no capture
-            self._uva_fns = make_uva_steps(*args, device=self.device)
+            storage = None
+            graph = self.graph
+            if sg is not None:
+                graph = pss._LocalView(sg)
+                storage = pss.sharded_storage(sg, cfg.num_layers)
+            self._uva_fns = make_uva_steps(
+                graph, self.sampler_cfg, self.plan, self.multilabel,
+                device=self.device, mesh=mesh, storage=storage)
             self.train_step = self._uva_train_step
             self.eval_step = self._uva_eval_step
+            return
+        if sg is not None:
+            sargs = (mesh, sg, self.sampler_cfg, self.plan, self.multilabel)
+            self.train_step = pss.make_sharded_train_step(*sargs)
+            self.eval_step = pss.make_sharded_eval_step(*sargs)
+            if cfg.steps_per_call > 1:
+                self.multi_step = pss.make_sharded_multi_train_step(*sargs)
+            if cfg.eval_steps_per_call > 1:
+                self.multi_eval = pss.make_sharded_multi_eval_step(*sargs)
+            return
+        if mesh is not None:
+            dargs = (mesh,) + args
+            self.train_step = pdp.make_dp_train_step(
+                *dargs, exp3_normalize=False)
+            self.eval_step = pdp.make_dp_eval_step(*dargs)
+            if cfg.steps_per_call > 1:
+                self.multi_step = pdp.make_dp_multi_train_step(
+                    *dargs, exp3_normalize=False)
+            if cfg.eval_steps_per_call > 1:
+                self.multi_eval = pdp.make_dp_multi_eval_step(*dargs)
             return
         self.train_step = make_train_step(*args, device=self.device)
         self.eval_step = make_eval_step(*args, device=self.device)
@@ -381,6 +477,7 @@ class Trainer:
         """Sample, fetch the input rows through the cache, train; the
         batch's miss rate is the ``cache_miss`` metric."""
         sample_fn, train_fn, _ = self._uva_fns
+        seeds, smask = self._local(seeds), self._local(smask)
         blocks, samp_stats = sample_fn(state, seeds, smask)
         x, miss = self.feature_cache.gather(blocks[0].src_gids,
                                             blocks[0].src_mask)
@@ -390,10 +487,15 @@ class Trainer:
 
     def _uva_eval_step(self, state: TrainState, generator, seeds, smask):
         sample_fn, _, eval_fn = self._uva_fns
+        seeds, smask = self._local(seeds), self._local(smask)
         blocks, _ = sample_fn(state, seeds, smask, generator=generator)
         x, _ = self.feature_cache.gather(blocks[0].src_gids,
                                          blocks[0].src_mask)
         return eval_fn(state, blocks, x)
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a global batch (all of it on one device)."""
+        return t if self.mesh is None else pdp.local_slice(self.mesh, t)
 
     # -- epoch loops -----------------------------------------------------
     def _epoch_batches(self, rng: np.random.Generator) -> np.ndarray:
@@ -571,7 +673,9 @@ class Trainer:
     def _validate(self, epoch: int) -> float:
         if len(self.val_nid) == 0:
             return float("nan")
-        gen = self._eval_gen.manual_seed(self.cfg.seed + 1000 + epoch)
+        seed = self.cfg.seed + 1000 + epoch
+        gen = self._eval_gen.manual_seed(
+            seed if self.mesh is None else self.mesh.fold_seed(seed))
         dev = self.device
         acc = torch.zeros(5, dtype=torch.float32, device=dev)
         n_sum = torch.zeros((), dtype=torch.int32, device=dev)
@@ -609,28 +713,46 @@ class Trainer:
             return
         since = self.global_step - self._last_renorm_step
         if force or since >= max(1, self.cfg.exp3_renorm_every):
-            normalize_exp3_weights(self.state.exp3_weights)
+            sg = self.sharded_graph
+            if sg is not None:
+                normalize_exp3_sharded(self.state.exp3_weights,
+                                       self.cfg.num_layers, sg.epr, self.mesh)
+            else:
+                normalize_exp3_weights(self.state.exp3_weights)
             self._last_renorm_step = self.global_step
 
     # -- checkpoints -----------------------------------------------------
     def _snapshot(self) -> Dict[str, object]:
         """A host copy of the whole state: parameters, Adam's per-parameter
-        state, the schedule, the arm weights, the generator and the step."""
+        state, the schedule, the arm weights, the generator and the step.
+        Under dp every rank calls it (it gathers): the arm weights in the
+        canonical ``[L, E + EDGE_PAD]`` layout, unsharded, and every rank's
+        generator state, in rank order."""
         s = self.state
 
         def host(t):
             return t.detach().to("cpu", copy=True)
 
-        return {
+        exp3 = s.exp3_weights
+        if exp3 is not None and self.sharded_graph is not None:
+            exp3 = pss.unshard_exp3(self.mesh.all_gather(exp3),
+                                    self.cfg.num_layers,
+                                    self.host_graph.n_edges)
+        snap = {
             "params": {n: host(p) for n, p in s.model.named_parameters()},
             "adam": [{k: host(v) for k, v in s.optimizer.state[p].items()}
                      for p in s.model.parameters()],
             "scheduler": s.scheduler.state_dict(),
-            "exp3_weights": (None if s.exp3_weights is None
-                             else host(s.exp3_weights)),
+            "exp3_weights": None if exp3 is None else host(exp3),
             "generator": s.generator.get_state(),
             "step": s.step,
         }
+        if self.mesh is not None:
+            states = self.mesh.all_gather(
+                snap["generator"].to(self.mesh.device)).cpu()
+            # set_state reads a tensor's storage from its start: copies
+            snap["generators"] = [t.clone() for t in states.unbind()]
+        return snap
 
     @torch.no_grad()
     def _load_state(self, snap: Dict[str, object]):
@@ -654,8 +776,17 @@ class Trainer:
                     cur[k] = v.to(where, copy=True)
         s.scheduler.load_state_dict(snap["scheduler"])
         if s.exp3_weights is not None:
-            s.exp3_weights.copy_(snap["exp3_weights"])
-        s.generator.set_state(snap["generator"])
+            exp3 = snap["exp3_weights"]
+            if self.sharded_graph is not None:
+                exp3 = pss.shard_exp3(exp3, self.cfg.num_layers,
+                                      self.host_graph.n_edges, self.dp,
+                                      rank=self.mesh.rank)
+            s.exp3_weights.copy_(exp3)
+        gens = snap.get("generators")
+        if self.mesh is not None and gens is not None and len(gens) == self.dp:
+            s.generator.set_state(gens[self.mesh.rank])
+        elif self.mesh is None or self.mesh.rank == 0:
+            s.generator.set_state(snap["generator"])
         s.step = int(snap["step"])
 
     def _maybe_checkpoint(self, val_acc: float):
@@ -679,7 +810,12 @@ class Trainer:
     def _save_checkpoint(self):
         """Writes the best state. A failure warns once, is counted into the
         ``checkpoint_failures`` series, and makes ``final_eval`` refuse if
-        no save ever landed."""
+        no save ever landed. Under dp rank 0 writes, and every rank waits
+        for it."""
+        if not self.is_main:
+            self.mesh.barrier()
+            self._checkpoint_saved = True
+            return
         try:
             path = self.checkpoint_path()
             os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -695,6 +831,8 @@ class Trainer:
             self.logger.log(
                 self.global_step,
                 {"checkpoint_failures": float(self.checkpoint_failures)})
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def restore_best(self):
         """Loads the best-val_acc state for the final eval."""
@@ -727,6 +865,7 @@ class Trainer:
         if limit > 0 and w.n >= 2 and abs(limit - w.m) * w.n >= w.std * 3:
             new_bs = max(1, int(self.batch_size * limit / max(w.m, 1)))
             if new_bs != self.batch_size:
+                new_bs = max(self.dp, (new_bs // self.dp) * self.dp)
                 self.batch_size = new_bs
                 self.steps_per_epoch = max(
                     1, len(self.train_nid) // self.batch_size)
@@ -737,12 +876,25 @@ class Trainer:
     def final_logits(self) -> torch.Tensor:
         """Full-graph layerwise inference of the current model: [N,
         n_classes] f32 logits (K6 for SAGE and GCN, K7 for GATv2 on the
-        card, whatever ``inference_backend`` says). Under ``use_uva`` the
-        pass runs chunk by chunk from the host features and the logits stay
-        in host memory (a CPU tensor)."""
+        card, whatever ``inference_backend`` says). Under ``shard_graph``,
+        and under dp > 1 with ``use_uva``, it runs node-sharded over the
+        ranks (``layerwise_inference_sharded``) and every rank gets the
+        logits. Under ``use_uva`` on one device the pass runs chunk by
+        chunk from the host features and the logits stay in host memory (a
+        CPU tensor)."""
         cfg = self.cfg
         heads = tuple([cfg.num_in_heads] * (cfg.num_layers - 1)
                       + [cfg.num_out_heads])
+        if self.sharded_graph is not None or (
+                self.feature_cache is not None and self.dp > 1):
+            # node-sharded over the ranks: no replicated upload
+            return layerwise_inference_sharded(
+                cfg.model, self.state.model, self.host_graph, self.mesh,
+                cfg.num_layers, heads=heads,
+                negative_slope=cfg.negative_slope, residual=cfg.residual,
+                dtype=torch.bfloat16,
+                features=(None if self.feature_cache is None
+                          else self.feature_cache.host))
         if self.feature_cache is not None:
             return torch.from_numpy(layerwise_inference_uva(
                 cfg.model, self.state.model, self.host_graph, cfg.num_layers,
@@ -765,8 +917,9 @@ class Trainer:
                 f"was never persisted; refusing to report a successful "
                 f"run (pass disable_checkpoint to train without "
                 f"persistence)")
-        return self._split_f1(self.final_logits(),
-                              self.graph.ndata["labels"])
+        labels = (self.graph.ndata["labels"] if self.graph is not None
+                  else self._to_device(self.host_graph.ndata["labels"]))
+        return self._split_f1(self.final_logits(), labels)
 
     def _split_f1(self, logits: torch.Tensor,
                   labels: torch.Tensor) -> Dict[str, float]:
@@ -795,6 +948,7 @@ class Trainer:
             acc = next(host)
             out[split] = acc
             self.logger.log(0, {f"Final Accuracy/{split}": acc})
-            print(f"{split} accuracy: {acc}")
+            if self.is_main:
+                print(f"{split} accuracy: {acc}")
         self.logger.flush()
         return out

@@ -74,6 +74,19 @@ counts set to 0 before it and read after it:
                arm reached it, the frozen/live ratio; both arms must learn
                (validation F1 >= 0.85, finite losses).
 
+Then the parallel layer (``bliss_gnn_tpu_torch/parallel``): after the
+main path, ``dp_path`` and ``sharded_path`` run its configuration through
+the DP step and the sharded step on a one-rank NCCL mesh, each held
+against the fused step from one state, eager and replayed (the DP step
+with the same blocks, equal up to the unsorted routes' atomic order as two
+fused twins are; the sharded step within the lockstep bounds), with its
+collectives a step; after ``inference``,
+``sharded_inference`` runs the trained SAGE and GATv2 node-sharded
+(K7 with its partial outputs, which the ``kernel`` phase holds against
+the plain version); last, ``dp2`` spawns two ranks on the one card under
+gloo (synth-pubmed: DP against sharded steps, ring inference at S = 2,
+then ``cli.main(["--dp", "2", "--shard-graph", ...])``).
+
 Run from the root of a checkout:  python3 chip_smoke.py
 Every phase prints one JSON line. The line before the last is the kernels'
 summary, the last line the device record. Any failed check exits non-zero.
@@ -449,6 +462,11 @@ def main():
     del state, step, metrics_log
     torch.cuda.empty_cache()
 
+    # -- phase 3d: the parallel layer at one rank (NCCL) ------------------
+    mesh, hv = parallel_paths(torch, graph, indptr_np, cfg, final, seeds,
+                              smask, wrappers, smi_line,
+                              replay["replayed_step_ms"])
+
     def model_path(name, seed):
         """The counted fused step of ``name`` on the main path's final
         plan, from fresh weights and arm weights: its phase line and
@@ -545,6 +563,12 @@ def main():
         torch, graph, indptr_np,
         {"sage": sage_model, "gcn": gcn_model, "gat": gat_model}, wrappers,
         smi_line)
+    # -- phase 5b: node-sharded inference at one rank (sharded_path) ------
+    layer_launches.update(sharded_inference_phase(
+        torch, mesh, hv, graph, {"sage": sage_model, "gat": gat_model},
+        wrappers, smi_line))
+    mesh.close()
+    del hv
 
     # -- phase 6: each kernel against its plain version -------------------
     del sage_model, gcn_model, gat_model
@@ -573,6 +597,9 @@ def main():
     uva_inference_phase(torch, dev, wrappers, smi_line)
     reorder_phase(torch, dev, wrappers, smi_line)
     ondisk_phase(torch, dev, wrappers, smi_line, workdir)
+
+    # -- phase 9: two ranks on the one card (gloo) ------------------------
+    dp2_phase(torch, smi_line, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -581,8 +608,8 @@ def main():
 
 
 def reset_counts(wrappers):
-    """Sets every wrapper's launch count, and K1's and K3's counts by
-    shape, to 0."""
+    """Sets every wrapper's launch count, and its counts by shape where it
+    keeps them (K1, K3, K5, K7's partial outputs), to 0."""
     for fn in wrappers.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_shape"):
@@ -682,6 +709,11 @@ def load_train_state(torch, dst, src):
 
 LOCKSTEP_TOLERANCE = {"loss": 2.0 ** -7, "update": 2.0 ** -4,
                       "exp3": 2.0 ** -6}
+# the one-rank DP step against the fused step from one state: the same
+# blocks; loss and update equal up to the unsorted K1/K3 routes' atomic
+# order, as two fused twins are (at most 1.95e-5 seen on the H100); arm
+# weights within one bf16 ulp (tests/test_torch_cuda.py's bounds)
+DP_TOLERANCE = {"loss": 1e-4, "update": 1e-4, "exp3": 2.0 ** -8}
 
 
 def lockstep(torch, state, multi, twin, eager_step, seeds, smask, label):
@@ -1443,8 +1475,73 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, by_shape, sites,
             kernel_launches_per_call=per_call, padded_cols=op,
             splits_per_head=splits,
             shape=f"{n} x {h} x {o} bf16, {n_edges} edges", **where))
+        rows.append(k7_partials_row(torch, feat, attn, ip, src, pip, k,
+                                    shape_launches, where))
         del feat
     return rows
+
+
+def k7_partials_row(torch, feat, attn, ip, src, pip, k, shape_launches,
+                    where):
+    """K7 with its partial outputs (the per-(dst, head) max logit and
+    softmax denominator the ring inference combines buckets with): on the
+    CSC prefix the attention bit-equal to the call without them, the max
+    and denominator against the plain version's; timed on the full graph
+    beside the call without them."""
+    from bliss_gnn_tpu_torch.ops.gat_attention import (
+        gat_attention,
+        gat_attention_plain,
+    )
+
+    n, h, o = feat.shape
+    n_edges = int(ip[-1].item())
+    got = gat_attention(feat, attn, 0.2, pip, src, partials=True)
+    alone = gat_attention(feat, attn, 0.2, pip, src)
+    want = gat_attention_plain(feat, attn, 0.2, pip, src, partials=True)
+    same = torch.equal(got[0], alone)
+    got_o, got_m, got_d = (t[:k] for t in got)
+    want_o, want_m, want_d = (t[:k] for t in want)
+    del got, alone, want
+    fin = torch.isfinite(want_m)
+    same_empty = torch.equal(fin, torch.isfinite(got_m))
+    m_err = (got_m[fin] - want_m[fin]).abs().max().item()
+    d_err = ((got_d[fin] - want_d[fin]).abs()
+             / want_d[fin]).max().item()
+    o_err = (got_o - want_o).abs().max().item()
+    o_tol = 2e-4 * want_o.abs().max().item()
+    m_tol = 1e-4 * max(1.0, want_m[fin].abs().max().item())
+    del got_o, got_m, got_d, want_o, want_m, want_d
+    if not (same and same_empty and o_err <= o_tol and m_err <= m_tol
+            and d_err <= 1e-4):
+        fail(f"gat_attention ({h}, {o}) partials differ from the plain "
+             f"version: same {same}, empty rows {same_empty}, out {o_err} "
+             f"> {o_tol}, max {m_err} > {m_tol}, denominator {d_err}")
+    name = f"gat_attention[H={h},O={o},partials]"
+    return kernel_row(
+        name, shape_launches.get(name, 0), "gat_attention.cu",
+        "bliss_gnn_tpu/ops/gat_pallas.py:70", max(m_err, o_err),
+        "out 2e-4 x max|plain|, max 1e-4 x max(1, max|plain|), "
+        "denominator rtol 1e-4, on the prefix",
+        time_ms(lambda: gat_attention(feat, attn, 0.2, ip, src,
+                                      partials=True), 3, torch, warmup=1),
+        time_ms(lambda: gat_attention_plain(feat, attn, 0.2, ip, src,
+                                            partials=True), 1, torch,
+                warmup=0),
+        None,
+        n * h * o * 2 + (n + 1) * 4 + n_edges * 4 + n * h * o * 4
+        + h * o * 4 + 2 * n * h * 4, n_edges * h * (7 * o + 2),
+        device_ms=device_time_ms(
+            lambda: gat_attention(feat, attn, 0.2, ip, src, partials=True),
+            torch, reps=2, replays=2),
+        without_partials_ms=time_ms(
+            lambda: gat_attention(feat, attn, 0.2, ip, src), 3, torch,
+            warmup=1),
+        without_partials_device_ms=device_time_ms(
+            lambda: gat_attention(feat, attn, 0.2, ip, src), torch, reps=2,
+            replays=2),
+        max_err_of_max=m_err, max_rel_err_of_denominator=d_err,
+        max_abs_err_of_out=o_err, out_bit_equal_without_partials=same,
+        shape=f"{n} x {h} x {o} bf16, {n_edges} edges", **where)
 
 
 def k5_row(torch, dev, label, data, ids, s, nv, ordered, launches):
@@ -2886,6 +2983,590 @@ def write_ondisk_fixtures(root):
     write_ogb_papers(root)
     out["ogbn-papers100m"] = (11, 25, 4, False)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer: dp_path, sharded_path (phase 3d), sharded_inference
+# (phase 5b), dp2 (phase 9)
+# ---------------------------------------------------------------------------
+
+def step_errors(torch, twin, state, pre, loss_twin, loss_state, exp3_of):
+    """The errors of ``state``'s step against ``twin``'s from the same
+    state (``pre`` the parameters before): the loss relative to max(|loss|,
+    1), the parameter update's error relative to the twin's update norm,
+    the largest relative arm-weight error (``exp3_of`` maps a state to its
+    canonical arm weights)."""
+    d_t = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                     zip(twin.model.parameters(), pre)])
+    d_s = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                     zip(state.model.parameters(), pre)])
+    rec = {"loss_twin": loss_twin, "loss": loss_state,
+           "loss_err": abs(loss_state - loss_twin) / max(abs(loss_twin), 1.0),
+           "update_norm": float(d_t.norm()),
+           "update_err": float((d_s - d_t).norm()
+                               / d_t.norm().clamp(min=1e-30))}
+    if state.exp3_weights is not None:
+        w_t, w_s = exp3_of(twin).float(), exp3_of(state).float()
+        rec["exp3_err"] = float(((w_s - w_t).abs()
+                                 / w_t.abs().clamp(min=1e-30)).max())
+    return rec
+
+
+def within(recs, tol):
+    return all(r["loss_err"] <= tol["loss"]
+               and r["update_err"] <= tol["update"]
+               and r.get("exp3_err", 0.0) <= tol["exp3"]
+               and r["update_norm"] > 0 for r in recs)
+
+
+def load_state_into(torch, dst, src, exp3_of_src):
+    """``load_train_state`` with the arm weights mapped by ``exp3_of_src``
+    (a sharded state's shard to the canonical layout, or back)."""
+    exp3 = src.exp3_weights
+    src.exp3_weights = exp3_of_src(src)
+    try:
+        load_train_state(torch, dst, src)
+    finally:
+        src.exp3_weights = exp3
+
+
+class BlockRecorder:
+    """Records the blocks of every ``sample_blocks`` call of the step bodies
+    (``train/steps.py``) while it is open."""
+
+    def __init__(self, steps_mod):
+        self.steps, self.calls = steps_mod, []
+
+    def __enter__(self):
+        self.orig = self.steps.sample_blocks
+
+        def rec(*args, **kw):
+            blocks, stats = self.orig(*args, **kw)
+            self.calls.append([(b.src_gids.clone(), b.e_dst.clone(),
+                                b.e_mask.clone(), b.eid.clone())
+                               for b in blocks])
+            return blocks, stats
+
+        self.steps.sample_blocks = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.sample_blocks = self.orig
+
+
+def same_blocks(torch, a, b):
+    return all(torch.equal(x, y) for ba, bb in zip(a, b)
+               for x, y in zip(ba, bb))
+
+
+def fresh_state(torch, dev, graph, cfg, exp3, generator, seed=0):
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.train.steps import TrainState, make_optimizer
+
+    model = build_model(cfg.model, N_FEATS, HIDDEN, N_CLASSES,
+                        len(cfg.fanouts), num_in_heads=GAT_HEADS[0],
+                        num_out_heads=GAT_HEADS[1], device=dev, seed=seed)
+    opt, sched = make_optimizer(model.parameters(), 2e-3, 100,
+                                capturable=dev.type == "cuda")
+    return TrainState(model, opt, sched, exp3, generator)
+
+
+def parallel_step_run(torch, label, state, step, multi, fused, twin, twin2,
+                      seeds, smask, wrappers, mesh, exp3_of, tol):
+    """The counted eager steps of a parallel step (``step``), one recorded
+    step's collectives, eager steps against the fused step from one state
+    (blocks recorded and compared; and, as the floor, a second fused twin
+    against the first: the unsorted K1 and K3 routes add with atomics in
+    the order of the run, so one step from one state can part in the last
+    bits), then the chained step (``multi``, captured under NCCL): single
+    replays and a chain, and replays against the fused step from one
+    state. Gated at ``tol`` with blocks (eager) and counts (replayed)
+    equal; ``bitwise`` marks the steps that agree to the bit. Returns the
+    phase's numbers."""
+    from bliss_gnn_tpu_torch.parallel import commstats
+    from bliss_gnn_tpu_torch.train import steps as steps_mod
+    from bliss_gnn_tpu_torch.train.steps import CAPTURE_WARMUP_STEPS
+
+    dev = seeds.device
+    kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    reset_counts(wrappers)
+    times, losses = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, m = step(state, seeds, smask)
+        sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["train_loss"]))
+    launches = {k: wrappers[k].launches for k in kernels}
+    with commstats.recording() as rec:
+        state, m = step(state, seeds, smask)
+        sync(torch, dev)
+    comm = commstats.comm_summary(rec.entries, mesh.size)
+    # the fused eager step in the same phase (the mesh's process group
+    # alive), for a like-for-like eager comparison
+    fused_times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        twin, _ = fused(twin, seeds, smask)
+        sync(torch, dev)
+        fused_times.append((time.perf_counter() - t0) * 1e3)
+
+    eager, floor = [], []
+    for _ in range(LOCKSTEP_STEPS):
+        load_state_into(torch, twin, state, exp3_of)
+        load_state_into(torch, twin2, state, exp3_of)
+        pre = [p.detach().clone() for p in state.model.parameters()]
+        with BlockRecorder(steps_mod) as br:
+            twin, mt = fused(twin, seeds, smask)
+            state, ms = step(state, seeds, smask)
+        twin2, m2 = fused(twin2, seeds, smask)
+        f = step_errors(torch, twin, twin2, pre, float(mt["train_loss"]),
+                        float(m2["train_loss"]), exp3_of)
+        f["bitwise"] = (f["loss_err"] == 0 and f["update_err"] == 0
+                        and f.get("exp3_err", 0.0) == 0)
+        floor.append(f)
+        r = step_errors(torch, twin, state, pre, float(mt["train_loss"]),
+                        float(ms["train_loss"]), exp3_of)
+        r["blocks_equal"] = same_blocks(torch, br.calls[0], br.calls[1])
+        r["bitwise"] = (r["loss_err"] == 0 and r["update_err"] == 0
+                        and r.get("exp3_err", 0.0) == 0)
+        eager.append(r)
+        del pre
+
+    s1, m1 = seeds[None], smask[None]
+    for _ in range(CAPTURE_WARMUP_STEPS + 1):  # warm-ups, then the capture
+        state, m = multi(state, s1, m1)
+    sync(torch, dev)
+    single = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = multi(state, s1, m1)
+        sync(torch, dev)
+        single.append((time.perf_counter() - t0) * 1e3)
+    sk, mk = seeds.expand(TIMED_STEPS, -1), smask.expand(TIMED_STEPS, -1)
+    t0 = time.perf_counter()
+    state, m = multi(state, sk, mk)
+    sync(torch, dev)
+    chained = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    replayed = []
+    for _ in range(LOCKSTEP_STEPS):
+        load_state_into(torch, twin, state, exp3_of)
+        pre = [p.detach().clone() for p in state.model.parameters()]
+        twin, mt = fused(twin, seeds, smask)
+        state, mr = multi(state, s1, m1)
+        r = step_errors(torch, twin, state, pre, float(mt["train_loss"]),
+                        float(mr["train_loss"][0]), exp3_of)
+        r["counts_equal"] = all(int(mt[k]) == int(mr[k][0]) for k in mt
+                                if k.startswith(("num_nodes", "num_edges")))
+        r["bitwise"] = (r["loss_err"] == 0 and r["update_err"] == 0
+                        and r.get("exp3_err", 0.0) == 0)
+        replayed.append(r)
+        del pre
+    out = {f"{label}_step_ms": statistics.median(times[WARMUP_STEPS:]),
+           f"{label}_step_ms_all": times[WARMUP_STEPS:],
+           f"{label}_replayed_step_ms": statistics.median(single),
+           f"{label}_replayed_step_ms_all": single,
+           f"{label}_chained_step_ms": chained,
+           "fused_step_ms_same_phase": statistics.median(fused_times),
+           "fused_step_ms_same_phase_all": fused_times,
+           "loss": losses, "launches": launches,
+           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+           "collectives_per_step": comm["per_kind"],
+           "collective_bytes_per_step": comm["total_out_bytes"],
+           "collectives_count_per_step": comm["n_collectives"],
+           "backend": mesh.backend, "ranks": mesh.size,
+           "captured": mesh.capturable,
+           "eager_vs_fused": eager, "replayed_vs_fused": replayed,
+           "fused_vs_fused": floor,
+           "bitwise_vs_fused": sum(r["bitwise"] for r in eager + replayed),
+           "compared_vs_fused": len(eager + replayed),
+           "tolerance": tol}
+    bad = [r for r in eager if not r["blocks_equal"]]
+    bad += [r for r in replayed if not r["counts_equal"]]
+    if bad or not within(eager + replayed, tol):
+        fail(f"{label}: differs from the fused step from one state: {out}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"{label}: kernels not launched: {missing}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    return out, state
+
+
+def host_view(torch, graph, indptr_np):
+    """The device graph as the host graph ``ShardedDeviceGraph.build``
+    reads (its CSC, weights, features in f32, labels)."""
+    import types
+
+    n, e = graph.n_nodes, graph.n_edges
+    csc_src = graph.csc_src[:e].cpu().numpy()
+    return types.SimpleNamespace(
+        csc_indptr=np.asarray(indptr_np), csc_src=csc_src,
+        edata={"w": graph.edata["w"][:e].float().cpu().numpy()},
+        ndata={"features": graph.ndata["features"].float().cpu().numpy(),
+               "labels": graph.ndata["labels"].cpu().numpy()},
+        n_nodes=n, n_edges=e,
+        in_degrees=lambda: np.diff(np.asarray(indptr_np)),
+        out_degrees=lambda: np.bincount(csc_src, minlength=n))
+
+
+def parallel_paths(torch, graph, indptr_np, cfg, plan, seeds, smask,
+                   wrappers, smi_line, fused_replayed_ms):
+    """Phase 3d: the main path's configuration through the parallel layer
+    at one rank (NCCL on the card): ``make_dp_train_step`` (``dp_path``)
+    and ``make_sharded_train_step`` (``sharded_path``), each counted, its
+    collectives recorded, and held against the fused step from one state,
+    eager and replayed. Returns the mesh (open for the sharded inference)
+    and the host view of the graph."""
+    from bliss_gnn_tpu_torch.parallel.dp import (
+        make_dp_multi_train_step,
+        make_dp_train_step,
+    )
+    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+    from bliss_gnn_tpu_torch.parallel.shardedstep import (
+        ShardedDeviceGraph,
+        init_exp3_shard,
+        make_sharded_multi_train_step,
+        make_sharded_train_step,
+        unshard_exp3,
+    )
+    from bliss_gnn_tpu_torch.sampling.samplers import init_exp3_weights
+    from bliss_gnn_tpu_torch.train.steps import make_train_step
+
+    dev = seeds.device
+    L, E = len(cfg.fanouts), graph.n_edges
+    mesh = make_mesh(1, device=dev)
+    fused = make_train_step(graph, cfg, plan, False, device=dev)
+
+    def new_twin():
+        twin = fresh_state(torch, dev, graph, cfg,
+                           init_exp3_weights(L, E, device=dev),
+                           torch.Generator(device=dev).manual_seed(0))
+        twin, _ = fused(twin, seeds, smask)  # makes Adam's state
+        return twin
+
+    # dp_path
+    state = fresh_state(torch, dev, graph, cfg,
+                        init_exp3_weights(L, E, device=dev),
+                        mesh.generator(0))
+    out, state = parallel_step_run(
+        torch, "dp", state,
+        make_dp_train_step(mesh, graph, cfg, plan, False,
+                           exp3_normalize=False),
+        make_dp_multi_train_step(mesh, graph, cfg, plan, False,
+                                 exp3_normalize=False),
+        fused, new_twin(), new_twin(), seeds, smask, wrappers, mesh,
+        lambda s: s.exp3_weights, DP_TOLERANCE)
+    emit({"phase": "dp_path", **out,
+          "fused_replayed_step_ms": fused_replayed_ms,
+          "nvidia_smi": smi_line})
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # sharded_path
+    t0 = time.perf_counter()
+    hv = host_view(torch, graph, indptr_np)
+    sg = ShardedDeviceGraph.build(hv, mesh, feature_dtype=torch.bfloat16)
+    build_s = time.perf_counter() - t0
+
+    def exp3_of(s):
+        w = s.exp3_weights
+        return unshard_exp3(w[None], L, E) if w.dim() == 1 else w
+
+    state = fresh_state(torch, dev, graph, cfg, init_exp3_shard(L, E, mesh),
+                        mesh.generator(0))
+    out, state = parallel_step_run(
+        torch, "sharded", state,
+        make_sharded_train_step(mesh, sg, cfg, plan, False),
+        make_sharded_multi_train_step(mesh, sg, cfg, plan, False),
+        fused, new_twin(), new_twin(), seeds, smask, wrappers, mesh,
+        exp3_of, LOCKSTEP_TOLERANCE)
+    gathers = {k: v for k, v in out["collectives_per_step"].items()
+               if k in ("all_gather", "reduce_scatter")}
+    emit({"phase": "sharded_path", **out, "build_seconds": build_s,
+          "row_gather_collectives_per_step": gathers,
+          "epr": sg.epr, "npr": sg.npr,
+          "fused_replayed_step_ms": fused_replayed_ms,
+          "nvidia_smi": smi_line})
+    del state, sg
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return mesh, hv
+
+
+def sharded_inference_phase(torch, mesh, hv, graph, models, wrappers,
+                            smi_line):
+    """Phase 5b (the end of ``sharded_path``): ``layerwise_inference_sharded``
+    of the trained SAGE and GATv2 models at one rank (one bucket: K6 and
+    K7 with its partial outputs on the whole CSC) against
+    ``layerwise_inference``, every row within 1e-2 x max|logit|. Returns
+    K7's launches with partial outputs by kernel-row name."""
+    from bliss_gnn_tpu_torch.models.inference import (
+        layerwise_inference,
+        layerwise_inference_sharded,
+    )
+
+    dev = mesh.device
+    partial_launches = {}
+    for name in ("sage", "gat"):
+        model = models[name]
+        model.eval()
+        reset_counts(wrappers)
+        timings = {}
+        t0 = time.perf_counter()
+        got = layerwise_inference_sharded(name, model, hv, mesh,
+                                          len(FANOUTS), timings=timings)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = {k: wrappers[k].launches
+                    for k in ("spmm", "gat_attention")}
+        want = layerwise_inference(name, model, graph, len(FANOUTS))
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        finite = bool(torch.isfinite(got).all().item())
+        del got, want
+        if name == "gat":
+            by = dict(wrappers["gat_attention"].launches_by_shape)
+            for l, conv in enumerate(model.layers):
+                shape = f"partials H={conv.num_heads} O={conv.out_feats}"
+                key = (f"gat_attention[H={conv.num_heads},"
+                       f"O={conv.out_feats},partials]")
+                partial_launches[key] = by.get(shape, 0)
+            if sum(by.values()) != len(FANOUTS) * mesh.size:
+                fail(f"sharded_inference: {by} K7 launches with partial "
+                     f"outputs for {len(FANOUTS)} layers x {mesh.size} "
+                     f"bucket(s)")
+            launches["gat_attention_partials"] = by
+        emit({"phase": "sharded_inference", "model": name, "seconds": secs,
+              **timings, "launches": launches, "ranks": mesh.size,
+              "max_abs_err": err, "max_abs_logit": scale, "finite": finite,
+              "tolerance": "1e-2 x max|layerwise_inference logit|",
+              "nvidia_smi": smi_line})
+        if not finite or err > 1e-2 * scale:
+            fail(f"sharded_inference {name}: {err} > 1e-2 x {scale}")
+        kname = "gat_attention" if name == "gat" else "spmm"
+        if launches[kname] <= 0:
+            fail(f"sharded_inference {name}: {kname} not launched")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return partial_launches
+
+
+DP2_CFG = dict(dataset="synth-pubmed", fanouts=(256, 128, 64), hidden=256,
+               batch=256, steps=3)
+
+
+def dp2_worker(device):
+    """One of phase 9's two ranks on one card (gloo: two ranks a card):
+    three DP and three sharded SAGE steps from one state on synth-pubmed,
+    their collectives, then the ring inference of SAGE and GATv2 at S = 2
+    against the single-device pass on this rank's card."""
+    import torch
+
+    from bliss_gnn_tpu_torch.graph.datasets import load_dataset
+    from bliss_gnn_tpu_torch.graph.structure import (
+        DeviceGraph,
+        Graph,
+        normalized_edata,
+    )
+    from bliss_gnn_tpu_torch.models.gnn import build_model
+    from bliss_gnn_tpu_torch.models.inference import (
+        layerwise_inference,
+        layerwise_inference_sharded,
+    )
+    from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
+    from bliss_gnn_tpu_torch.ops.spmm import spmm
+    from bliss_gnn_tpu_torch.parallel import commstats
+    from bliss_gnn_tpu_torch.parallel.dp import make_dp_train_step
+    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+    from bliss_gnn_tpu_torch.parallel.shardedstep import (
+        ShardedDeviceGraph,
+        init_exp3_shard,
+        make_sharded_train_step,
+        unshard_exp3,
+    )
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig,
+        init_exp3_weights,
+    )
+    from bliss_gnn_tpu_torch.train import steps as steps_mod
+    from bliss_gnn_tpu_torch.train.steps import TrainState, make_optimizer
+
+    c = DP2_CFG
+    mesh = make_mesh(None, device=device)
+    dev = mesh.device
+    g, n_cls, ml = load_dataset(c["dataset"])
+    g = Graph.canonicalize(g)
+    g.edata["w"] = normalized_edata(g)
+    dg = DeviceGraph.from_graph(g, device=dev)
+    sg = ShardedDeviceGraph.build(g, mesh)
+    cfg = SamplerConfig(kind="poisson-bandit", fanouts=c["fanouts"])
+    L, E = len(c["fanouts"]), g.n_edges
+    plan = CapacityPlan.build(c["batch"] // mesh.size, c["fanouts"],
+                              g.n_nodes, E, kind=cfg.kind)
+    n_feats = g.ndata["features"].shape[1]
+
+    def state(exp3):
+        model = build_model("sage", n_feats, c["hidden"], n_cls, L,
+                            device=dev, seed=0)
+        opt, sched = make_optimizer(model.parameters(), 2e-3, 100)
+        return TrainState(model, opt, sched, exp3, mesh.generator(0))
+
+    rng = np.random.default_rng(0)
+    train_ids = np.where(g.ndata["train_mask"])[0]
+    batches = [torch.from_numpy(rng.choice(train_ids, c["batch"]).astype(
+        np.int32)).to(dev) for _ in range(c["steps"])]
+    smask = torch.ones(c["batch"], dtype=torch.bool, device=dev)
+    runs = {}
+    for label, step, st in (
+            ("dp", make_dp_train_step(mesh, dg, cfg, plan, ml,
+                                      exp3_normalize=False),
+             state(init_exp3_weights(L, E, device=dev))),
+            ("sharded", make_sharded_train_step(mesh, sg, cfg, plan, ml),
+             state(init_exp3_shard(L, E, mesh)))):
+        times, losses, counts = [], [], []
+        with BlockRecorder(steps_mod) as br:
+            for i, seeds in enumerate(batches):
+                with commstats.recording() as rec:
+                    sync(torch, dev)
+                    t0 = time.perf_counter()
+                    st, m = step(st, seeds, smask)
+                    sync(torch, dev)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["train_loss"]))
+                counts.append([int(m[f"num_edges/{l}"]) for l in range(L)])
+        w = st.exp3_weights
+        if label == "sharded":
+            w = unshard_exp3(mesh.all_gather(w), L, E)
+        runs[label] = dict(
+            step_ms=times, loss=losses, num_edges=counts,
+            blocks=[[tuple(t.cpu() for t in b) for b in call]
+                    for call in br.calls],
+            comm=commstats.comm_summary(rec.entries, mesh.size),
+            params={k: v.detach().cpu()
+                    for k, v in st.model.state_dict().items()},
+            exp3=w.float().cpu())
+        del st
+    inference = {}
+    for name, seed in (("sage", 1), ("gat", 2)):
+        model = build_model(name, n_feats, 64, n_cls, 2, num_in_heads=4,
+                            num_out_heads=1, device=dev, seed=seed)
+        model.eval()
+        spmm.launches = gat_attention.launches = 0
+        gat_attention.launches_by_shape = {}
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got = layerwise_inference_sharded(name, model, g, mesh, 2)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = {"spmm": spmm.launches,
+                    "gat_attention": gat_attention.launches,
+                    "gat_attention_partials": sum(
+                        gat_attention.launches_by_shape.values())}
+        want = layerwise_inference(name, model, dg, 2)
+        inference[name] = dict(
+            seconds=secs, launches=launches,
+            max_abs_err=(got - want).abs().max().item(),
+            max_abs_logit=want.abs().max().item(),
+            finite=bool(torch.isfinite(got).all().item()))
+    return dict(rank=mesh.rank, backend=mesh.backend, runs=runs,
+                inference=inference, n_nodes=g.n_nodes, n_edges=E)
+
+
+def dp2_phase(torch, smi_line, workdir, device="cuda"):
+    """Phase 9: two ranks on the one card, gloo (NCCL refuses two ranks on
+    one card), spawned with a FileStore: ``dp2_worker`` on each, then
+    ``cli.main(["--dp", "2", "--shard-graph", ...])`` starting its own two
+    ranks, with a checkpoint and ``final_eval``. The times are gloo's
+    host collectives on one card: no scaling is read from them."""
+    from bliss_gnn_tpu_torch.parallel.multihost import run_ranks
+    from bliss_gnn_tpu_torch.train import cli
+
+    t0 = time.perf_counter()
+    outs = run_ranks(dp2_worker, 2, (device,), device=device,
+                     workdir=os.path.join(workdir, "dp2_ranks"), threads=None)
+    ranks_s = time.perf_counter() - t0
+    a, b = outs
+    problems = []
+    for run in ("dp", "sharded"):
+        for k, v in a["runs"][run]["params"].items():
+            if not torch.equal(v, b["runs"][run]["params"][k]):
+                problems.append(f"{run} params differ across ranks: {k}")
+    w_dp, w_sh = a["runs"]["dp"]["exp3"], a["runs"]["sharded"]["exp3"]
+    exp3_err = float(((w_sh - w_dp).abs()
+                      - 2e-2 * w_dp.abs()).clamp(min=0).max())
+    if exp3_err > 1e-6:
+        problems.append(f"sharded arm weights off the DP ones by {exp3_err}")
+    if a["runs"]["dp"]["num_edges"] != a["runs"]["sharded"]["num_edges"]:
+        problems.append("sharded and DP blocks differ")
+    blocks_equal = [[same_blocks(torch, x, y) for x, y in zip(
+        o["runs"]["dp"]["blocks"], o["runs"]["sharded"]["blocks"])]
+        for o in outs]
+    if not all(all(r) for r in blocks_equal):
+        problems.append(f"sharded and DP blocks differ: {blocks_equal}")
+    # the sharded step against the DP step at test_torch_shardedstep.py's
+    # bounds: losses rtol 1e-5 (atol 1e-6), parameters rtol 2e-5 (atol
+    # 2e-6); each the largest excess over its bound (0 when within)
+    loss_excess = max(abs(x - y) - (1e-6 + 1e-5 * abs(y)) for x, y in zip(
+        a["runs"]["sharded"]["loss"], a["runs"]["dp"]["loss"]))
+    param_excess = max(float(((v - a["runs"]["dp"]["params"][k]).abs()
+                              - 2e-6 - 2e-5 * a["runs"]["dp"]["params"][k]
+                              .abs()).max()) for k, v in
+                       a["runs"]["sharded"]["params"].items())
+    if loss_excess > 0:
+        problems.append(f"sharded losses off the DP ones by {loss_excess}")
+    if param_excess > 0:
+        problems.append(f"sharded parameters off the DP ones by "
+                        f"{param_excess}")
+    for o in outs:
+        for name, r in o["inference"].items():
+            if not r["finite"] or r["max_abs_err"] > 1e-2 * r["max_abs_logit"]:
+                problems.append(f"rank {o['rank']} {name} ring inference: "
+                                f"{r['max_abs_err']}")
+        if o["inference"]["gat"]["launches"]["gat_attention_partials"] \
+                != 2 * 2:
+            problems.append("K7 did not run once a bucket and layer")
+        if o["inference"]["sage"]["launches"]["spmm"] < 2 * 2:
+            problems.append("K6 did not run on every bucket")
+
+    logdir = os.path.join(workdir, "dp2_cli")
+    t0 = time.perf_counter()
+    res = cli.main(["--dataset", DP2_CFG["dataset"], "--model", "sage",
+                    "--num-layers", "2", "--fan-out", "64,32",
+                    "--batch-size", "64", "--num-steps", "6",
+                    "--num-hidden", "64", "--logdir", logdir, "--dp", "2",
+                    "--shard-graph", "--steps-per-call", "2",
+                    "--refit-after", "2", "--exp3-renorm-every", "2"]
+                   + (["--platform", "cpu"] if device == "cpu" else []))
+    cli_s = time.perf_counter() - t0
+    ckpts = [os.path.join(r, f) for r, _, fs in os.walk(logdir)
+             for f in fs if f == "best"]
+    if not ckpts or not all(0.0 <= res[0][s] <= 1.0
+                            for s in ("Train", "Validation", "Test")):
+        problems.append(f"cli --dp 2 --shard-graph: {res}, {ckpts}")
+    strip = {o["rank"]: {run: {k: v for k, v in r.items()
+                               if k not in ("params", "exp3", "blocks")}
+                         for run, r in o["runs"].items()} for o in outs}
+    emit({"phase": "dp2", "ranks": 2, "backend": a["backend"],
+          "note": "two ranks on one card under gloo: host collectives; "
+                  "no scaling is read from these times",
+          "config": {k: list(v) if isinstance(v, tuple) else v
+                     for k, v in DP2_CFG.items()},
+          "n_nodes": a["n_nodes"], "n_edges": a["n_edges"],
+          "runs": strip, "sharded_vs_dp_exp3_excess": exp3_err,
+          "sharded_vs_dp_loss_excess": max(loss_excess, 0.0),
+          "sharded_vs_dp_param_excess": max(param_excess, 0.0),
+          "sharded_vs_dp_blocks_equal_by_rank_and_step": blocks_equal,
+          "inference": {o["rank"]: o["inference"] for o in outs},
+          "ranks_seconds": ranks_s, "cli_seconds": cli_s,
+          "cli_result": res[0], "cli_checkpoint": bool(ckpts),
+          "nvidia_smi": smi_line})
+    if problems:
+        fail(f"dp2: {problems}")
+
 
 if __name__ == "__main__":
     main()

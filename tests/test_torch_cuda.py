@@ -851,3 +851,195 @@ def test_uva_step_equals_the_fused_step(dev, monkeypatch):
     torch.testing.assert_close(st.exp3_weights.float(), want_exp3.float(),
                                rtol=2.0 ** -8, atol=0)
     assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("h,o,dtype", [(4, 256, torch.bfloat16),
+                                       (1, 41, torch.bfloat16),
+                                       (2, 64, torch.float32),
+                                       (3, 41, torch.float32),
+                                       (8, 64, torch.bfloat16),
+                                       (1, 300, torch.bfloat16),
+                                       (1, 500, torch.float32),
+                                       (16, 8, torch.float32)])
+def test_gat_attention_partials_kernel(dev, gen, h, o, dtype):
+    """K7's partial outputs at the kernel test's grid: the attention
+    bit-equal to the call without them; the per-(dst, head) max logit and
+    denominator against the plain version's (-inf and 0 on rows without
+    in-edges); two edge sets of every dst (the src's parity) combined equal
+    the whole."""
+    from bliss_gnn_tpu_torch.ops.gat_attention import combine_partials
+
+    indptr, src, e = _csc(gen, dev, 2000, hub=30_000)
+    feat = torch.randn((2000, h, o), generator=gen, device=dev).to(dtype)
+    attn = torch.randn((1, h, o), generator=gen, device=dev) / o ** 0.5
+    before = gat_attention.launches
+    key = f"partials H={h} O={o}"
+    by = gat_attention.launches_by_shape.get(key, 0)
+    out, m, den = gat_attention(feat, attn, 0.2, indptr, src, partials=True)
+    assert gat_attention.launches == before + 1
+    assert gat_attention.launches_by_shape[key] == by + 1
+    assert torch.equal(out, gat_attention(feat, attn, 0.2, indptr, src))
+    assert gat_attention.launches_by_shape[key] == by + 1
+    w_out, w_m, w_den = gat_attention_plain(feat, attn, 0.2, indptr, src,
+                                            partials=True)
+    fin = torch.isfinite(w_m)
+    assert torch.equal(fin, torch.isfinite(m))
+    assert not fin[::97].any() and not den[::97].any()
+    torch.testing.assert_close(m[fin], w_m[fin], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(den, w_den, rtol=1e-4, atol=1e-6)
+    # split each dst's edges by src parity: two CSC slices of its edges
+    dst = torch.repeat_interleave(
+        torch.arange(2000, device=dev), (indptr[1:] - indptr[:-1]).long())
+    parts = []
+    for parity in (0, 1):
+        keep = src[:e] % 2 == parity
+        ip = torch.zeros(2001, dtype=torch.int32, device=dev)
+        ip[1:] = torch.cumsum(torch.bincount(dst[keep], minlength=2000), 0)
+        parts.append(gat_attention(feat, attn, 0.2, ip, src[:e][keep],
+                                   partials=True))
+    c_out, c_m, c_den = combine_partials(*parts)
+    torch.testing.assert_close(c_out, out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(c_m[fin], m[fin], rtol=1e-6, atol=0)
+    torch.testing.assert_close(c_den, den, rtol=1e-4, atol=1e-6)
+
+
+def _one_rank_mesh(dev):
+    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(1, device=dev)
+
+
+def _step_vs_fused(dev, monkeypatch, build, exp3_of, to_state):
+    """Three steps of a one-rank parallel step against three fused steps
+    from the same state at ``_small_training``'s size: each step's blocks
+    equal, losses within rtol 1e-5, parameters and Adam's state as
+    ``_assert_same_training`` holds them, the canonical arm weights within
+    one bf16 ulp."""
+    from bliss_gnn_tpu_torch.train import steps
+
+    dg, cfg, plan, fresh = _small_training(dev, "sage")
+    recorded = []
+    sample = steps.sample_blocks
+
+    def recording(*args, **kw):
+        blocks, stats = sample(*args, **kw)
+        recorded.append([b.src_gids.clone() for b in blocks])
+        return blocks, stats
+
+    monkeypatch.setattr(steps, "sample_blocks", recording)
+    batches = [torch.arange(32, dtype=torch.int32, device=dev) + 97 * i
+               for i in range(3)]
+    smask = torch.ones(32, dtype=torch.bool, device=dev)
+    fused = steps.make_train_step(dg, cfg, plan, False, device=dev)
+    st = fresh()
+    want = []
+    for seeds in batches:
+        st, m = fused(st, seeds, smask)
+        want.append(float(m["train_loss"]))
+    want_src, recorded[:] = list(recorded), []
+    want_train, want_exp3 = _train_tensors(st), st.exp3_weights.clone()
+    mesh = _one_rank_mesh(dev)
+    try:
+        step = build(mesh, dg, cfg, plan)
+        st = to_state(fresh(), mesh, dg)
+        got = []
+        for seeds in batches:
+            st, m = step(st, seeds, smask)
+            got.append(float(m["train_loss"]))
+        got_exp3 = exp3_of(st, mesh, dg)
+    finally:
+        mesh.close()
+    for a, b in zip(recorded, want_src):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in zip(got, want):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    _assert_same_training(_train_tensors(st), want_train)
+    torch.testing.assert_close(got_exp3.float(), want_exp3.float(),
+                               rtol=2.0 ** -8, atol=0)
+
+
+def test_dp_step_at_one_rank_equals_the_fused_step(dev, monkeypatch):
+    """``make_dp_train_step`` over a one-rank NCCL mesh: the fused step
+    (the gradient all-reduce, the delta all-gather and the metric sums
+    of one rank change nothing)."""
+    from bliss_gnn_tpu_torch.parallel.dp import make_dp_train_step
+
+    _step_vs_fused(
+        dev, monkeypatch,
+        lambda mesh, dg, cfg, plan: make_dp_train_step(
+            mesh, dg, cfg, plan, False, exp3_normalize=False),
+        lambda st, mesh, dg: st.exp3_weights,
+        lambda st, mesh, dg: st)
+
+
+def test_sharded_step_at_one_rank_equals_the_fused_step(dev, monkeypatch):
+    """``make_sharded_train_step`` at S = 1 (every row served by the
+    distributed gather, K4 on the flat shard): the fused step's blocks,
+    loss, update and arm weights."""
+    import dataclasses
+
+    from bliss_gnn_tpu_torch.parallel.shardedstep import (
+        ShardedDeviceGraph,
+        init_exp3_shard,
+        make_sharded_train_step,
+        unshard_exp3,
+    )
+
+    def host(dg):  # the small graph's arrays as the sharded build reads them
+        import types
+
+        e = dg.n_edges
+        return types.SimpleNamespace(
+            csc_indptr=dg.csc_indptr.cpu().numpy(),
+            csc_src=dg.csc_src[:e].cpu().numpy(),
+            edata={"w": dg.edata["w"][:e].cpu().numpy()},
+            ndata={"features": dg.ndata["features"].float().cpu().numpy(),
+                   "labels": dg.ndata["labels"].cpu().numpy()},
+            n_nodes=dg.n_nodes, n_edges=e)
+
+    _step_vs_fused(
+        dev, monkeypatch,
+        lambda mesh, dg, cfg, plan: make_sharded_train_step(
+            mesh, ShardedDeviceGraph.build(host(dg), mesh, shard_indptr=True),
+            cfg, plan, False),
+        lambda st, mesh, dg: unshard_exp3(st.exp3_weights[None], 2,
+                                          dg.n_edges),
+        lambda st, mesh, dg: dataclasses.replace(
+            st, exp3_weights=init_exp3_shard(2, dg.n_edges, mesh)))
+
+
+def test_repeated_seeds_sample_the_same_blocks_on_the_card(dev):
+    """A batch with repeated seeds: the card's blocks equal the CPU's and
+    their own on a second call (each repeated seed's edges at its last
+    slot, an ``amax`` scatter; a plain index write leaves the slot to the
+    run on the card)."""
+    from bliss_gnn_tpu_torch.graph.structure import DeviceGraph
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        init_exp3_weights, sample_blocks)
+
+    dg, cfg, plan, _ = _small_training(dev, "sage")
+    host = DeviceGraph(**{
+        f: (getattr(dg, f).cpu() if isinstance(getattr(dg, f), torch.Tensor)
+            else {k: v.cpu() for k, v in getattr(dg, f).items()}
+            if isinstance(getattr(dg, f), dict) else getattr(dg, f))
+        for f in ("csc_indptr", "csc_src", "csr_indptr", "csr_dst",
+                  "csr_eid", "ndata", "edata", "n_nodes", "n_edges")})
+    seeds = (torch.arange(32, dtype=torch.int32) % 7) * 31  # each 4-5 times
+    smask = torch.ones(32, dtype=torch.bool)
+    draws = [torch.rand(plan.cand_caps[l], generator=torch.Generator()
+                        .manual_seed(l)) for l in range(2)]
+    got = []
+    for d, s, m, w, g in ((dev, seeds.to(dev), smask.to(dev),
+                           init_exp3_weights(2, dg.n_edges, device=dev), dg),
+                          (dev, seeds.to(dev), smask.to(dev),
+                           init_exp3_weights(2, dg.n_edges, device=dev), dg),
+                          ("cpu", seeds, smask,
+                           init_exp3_weights(2, dg.n_edges, device="cpu"),
+                           host)):
+        blocks, _ = sample_blocks(g, cfg, plan, None, s, m, w,
+                                  draws=[x.to(d) for x in draws])
+        got.append([(b.src_gids.cpu(), b.e_src.cpu(), b.e_dst.cpu(),
+                     b.e_mask.cpu()) for b in blocks])
+    for other in got[1:]:
+        for a, b in zip(got[0], other):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -185,9 +185,21 @@ def test_uva_eval_fn_equals_eval_step():
         assert torch.equal(a, b)
     assert torch.equal(got[1], want[1]) and int(got[2]) == int(want[2]) == 12
     assert st.step == 0
-    with pytest.raises(NotImplementedError, match="item 6"):
-        steps.make_uva_steps(bare, cfg, plan, False, device="cpu",
-                             mesh=object())
+    # over a mesh of one rank (the DP hooks: the sums all-reduced), the same
+    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, device="cpu")
+    try:
+        sample_fn, _, eval_fn = steps.make_uva_steps(
+            bare, cfg, plan, False, device="cpu", mesh=mesh)
+        blocks, _ = sample_fn(st, seeds, smask,
+                              generator=torch.Generator().manual_seed(3))
+        got = eval_fn(st, blocks, x)
+    finally:
+        mesh.close()
+    for a, b in zip(got[0].__dict__.values(), want[0].__dict__.values()):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1]) and int(got[2]) == int(want[2])
 
 
 def test_uva_trainer_matches_hbm_trainer(tmp_path):

@@ -393,9 +393,7 @@ def test_final_eval_on_converted_parameters_matches_reference(tmp_path,
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, gt, nc, ml = _graphs()
-    for kw, item in ((dict(dp=2), "item 6"), (dict(shard_graph=True),
-                                              "item 6"),
-                     (dict(compute_dtype="float32"), "item 7"),
+    for kw, item in ((dict(compute_dtype="float32"), "item 7"),
                      (dict(param_dtype="bfloat16"), "item 7")):
         cfg = _cfgs(tmp_path, **kw)[1]
         with pytest.raises(NotImplementedError, match=item):

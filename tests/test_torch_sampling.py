@@ -211,10 +211,11 @@ def _record_draws(monkeypatch):
 
 
 def sample_both(gj, gt, kind, fanouts, batch, monkeypatch, key=0,
-                dense=None, exp3_np=None, **cfg_kw):
-    """Sample with both packages on the same draws; ``cfg_kw`` goes to both
-    SamplerConfigs. Returns (jax blocks, jax stats, port blocks, port
-    stats, port graph, port EXP3 state, cfgs)."""
+                dense=None, exp3_np=None, seeds=None, **cfg_kw):
+    """Sample with both packages on the same draws (seeds 0..batch-1 unless
+    ``seeds`` is given); ``cfg_kw`` goes to both SamplerConfigs. Returns
+    (jax blocks, jax stats, port blocks, port stats, port graph, port EXP3
+    state, cfgs)."""
     cfg_j = jsamp.SamplerConfig(kind=kind, fanouts=tuple(fanouts), **cfg_kw)
     cfg_t = tsamp.SamplerConfig(kind=kind, fanouts=tuple(fanouts), **cfg_kw)
     args = (batch, fanouts, gj.n_nodes, gj.n_edges)
@@ -230,7 +231,8 @@ def sample_both(gj, gt, kind, fanouts, batch, monkeypatch, key=0,
             exp3_j = jnp.asarray(exp3_np, jnp.bfloat16)
         exp3_t = convert.exp3_from_jax(np.asarray(exp3_j, np.float32),
                                        gj.n_edges)
-    seeds = np.arange(batch, dtype=np.int32)
+    seeds = (np.arange(batch, dtype=np.int32) if seeds is None
+             else np.asarray(seeds, np.int32))
     smask = np.ones(batch, bool)
     draws = _record_draws(monkeypatch)
     with jax.disable_jit():
@@ -299,6 +301,23 @@ def test_sample_blocks_match(synth_pair, monkeypatch, kind, dense,
     assert set(st) == set(sj)
     for k in sj:
         assert int(st[k]) == int(sj[k]), k
+
+
+def test_sample_blocks_repeated_seeds_match(synth_pair, monkeypatch):
+    """A seed repeated in the batch (a batch drawn with replacement) is one
+    candidate with several src slots: its edges point at the last slot, as
+    the reference's scatter gives on the CPU (the port's ``amax`` scatter
+    gives the same on the card, where a plain index write would leave the
+    winning slot to the run)."""
+    gj, gt = synth_pair
+    seeds = [3, 11, 3, 40, 11, 3]
+    bj, sj, bt, *_ = sample_both(gj, gt, "poisson-bandit", (16, 8), 6,
+                                 monkeypatch, key=2, seeds=seeds)
+    assert_blocks_match(bt, bj)
+    top = bt[-1]
+    used = set(top.e_src[top.e_mask].tolist())
+    # slots 0-5 hold 3, 11, 3, 40, 11, 3; every seed's self-loop is kept
+    assert {3, 4, 5} <= used and not {0, 1, 2} & used
 
 
 def test_sample_blocks_bandit_nonuniform_weights(synth_pair, monkeypatch):

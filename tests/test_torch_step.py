@@ -289,6 +289,18 @@ def test_cuda_default_raises_without_a_card():
                                num_layers=2, logdir=os.devnull)
     with pytest.raises(RuntimeError, match="CUDA"):
         trainer.Trainer(tcfg, graph=g, n_classes=2, multilabel=False)
+    import dataclasses
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.Trainer(dataclasses.replace(tcfg, dp=2), graph=g,
+                        n_classes=2, multilabel=False)
+    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+    from bliss_gnn_tpu_torch.parallel.multihost import run_ranks
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_ranks(print, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--dataset", "toy", "--num-layers", "2", "--fan-out",
                   "2,2", "--num-steps", "1", "--logdir", os.devnull])
