@@ -1,5 +1,6 @@
-// K4: sparse multiplicative update of the bf16 EXP3 arm-weight state,
-// state[idx] *= mult, where duplicate indices compose multiplicatively.
+// K4: sparse multiplicative update of the EXP3 arm-weight state (bf16 or
+// f32), state[idx] *= mult, where duplicate indices compose
+// multiplicatively.
 //
 // Replaces bliss_gnn_tpu/ops/exp3_pallas.py exp3_apply_streaming (kernel
 // body _apply_kernel). The TPU streamed the whole [L, R, 128] state through
@@ -21,6 +22,12 @@
 // m updates, in the hardware's order, as the TPU kernel's sequential
 // in-tile update did: within m - 1 bf16 ulps of one rounding of the f32
 // product. Nothing is ever skipped, so there is no overflow count.
+//
+// The f32 route (an f32 state, as the TPU kernel's body takes any dtype) is
+// the same design at 32 bits: each slot runs a 32-bit atomicCAS loop on the
+// entry's bits, computing old * mult in f32 with one rounding. Its bound is
+// 8 bytes per slot plus 8 per touched entry; an index repeated m times is
+// within m - 1 f32 ulps of one rounding of the product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +54,33 @@ __global__ void exp3_apply_kernel(unsigned short* state,
   }
 }
 
+__global__ void exp3_apply_f32_kernel(unsigned int* state,
+                                      const int32_t* __restrict__ idx,
+                                      const float* __restrict__ mult,
+                                      int64_t u, int32_t limit) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < u;
+       i += stride) {
+    const int32_t k = __ldg(idx + i);
+    if (k < 0 || k >= limit) continue;
+    const float f = __ldg(mult + i);
+    unsigned int* p = state + k;
+    unsigned int seen, old = __ldcg(p);
+    do {
+      seen = old;
+      const float v = __fmul_rn(__uint_as_float(seen), f);
+      old = atomicCAS(p, seen, __float_as_uint(v));
+    } while (old != seen);
+  }
+}
+
+long long grid_for(long long u, int threads) {
+  long long blocks = (u + threads - 1) / threads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 8192) blocks = 8192;
+  return blocks;
+}
+
 }  // namespace
 
 // state: flat bf16 [>= limit]; idx: int32 [u]; mult: f32 [u]. Updates state
@@ -55,12 +89,22 @@ __global__ void exp3_apply_kernel(unsigned short* state,
 extern "C" int bliss_exp3_apply(void* state, const void* idx, const void* mult,
                                 long long u, int limit, void* stream) {
   const int threads = 256;
-  long long blocks = (u + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 8192) blocks = 8192;
-  exp3_apply_kernel<<<(unsigned)blocks, threads, 0,
+  exp3_apply_kernel<<<(unsigned)grid_for(u, threads), threads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned short*>(state), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(mult), (int64_t)u, (int32_t)limit);
+  return (int)cudaGetLastError();
+}
+
+// The f32 route: state flat f32 [>= limit]; the other arguments and the
+// return as bliss_exp3_apply.
+extern "C" int bliss_exp3_apply_f32(void* state, const void* idx,
+                                    const void* mult, long long u, int limit,
+                                    void* stream) {
+  const int threads = 256;
+  exp3_apply_f32_kernel<<<(unsigned)grid_for(u, threads), threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned int*>(state), static_cast<const int32_t*>(idx),
       static_cast<const float*>(mult), (int64_t)u, (int32_t)limit);
   return (int)cudaGetLastError();
 }

@@ -6,6 +6,9 @@ Forward contract: ``model(blocks, x, generator=None)`` returns
 ``aux = {"embed_norms": [L x [n_src_cap_l]], "a_ijs": [L x [e_cap_l]] or
 None}``; the embed norms (and, for GATv2, the head-mean pre-softmax
 logits ``a_ijs``) feed the EXP3 reward. Dropout draws from ``generator``.
+Each model computes in its ``dtype`` and stores its parameters in its
+``param_dtype`` (``build_model``'s ``dtype``/``param_dtype``, as the flax
+modules' fields), both passed to every conv.
 """
 from __future__ import annotations
 
@@ -17,7 +20,6 @@ from torch import nn
 
 from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.models.layers import (
-    COMPUTE_DTYPE,
     GATv2Conv,
     GraphConv,
     SAGEConv,
@@ -37,18 +39,21 @@ class SAGE(nn.Module):
 
     def __init__(self, in_feats: int, n_hidden: int, n_classes: int,
                  n_layers: int, dropout: float = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n_layers, self.dropout = n_layers, dropout
+        self.n_layers, self.dropout, self.dtype = n_layers, dropout, dtype
         dims = [in_feats] + [n_hidden] * (n_layers - 1) + [n_classes]
         self.layers = nn.ModuleList(
-            SAGEConv(dims[l], dims[l + 1], generator=generator)
+            SAGEConv(dims[l], dims[l + 1], generator=generator, dtype=dtype,
+                     param_dtype=param_dtype)
             for l in range(n_layers))
 
     def forward(self, blocks: Sequence[Block], x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        h = x.to(COMPUTE_DTYPE)
+        h = x.to(self.dtype)
         embed_norms: List[torch.Tensor] = []
         for l, (conv, block) in enumerate(zip(self.layers, blocks)):
             embed_norms.append(_embed_norm(h.detach(), block.src_mask))
@@ -66,20 +71,23 @@ class GCN(nn.Module):
 
     def __init__(self, in_feats: int, n_hidden: int, n_classes: int,
                  n_layers: int, dropout: float = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n_layers, self.dropout = n_layers, dropout
+        self.n_layers, self.dropout, self.dtype = n_layers, dropout, dtype
         dims = [in_feats] + [n_hidden] * (n_layers - 1) + [n_classes]
         self.layers = nn.ModuleList(
             GraphConv(dims[l], dims[l + 1],
                       activation=None if l == n_layers - 1 else torch.relu,
-                      generator=generator)
+                      generator=generator, dtype=dtype,
+                      param_dtype=param_dtype)
             for l in range(n_layers))
 
     def forward(self, blocks: Sequence[Block], x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        h = x.to(COMPUTE_DTYPE)
+        h = x.to(self.dtype)
         embed_norms: List[torch.Tensor] = []
         for l, (conv, block) in enumerate(zip(self.layers, blocks)):
             embed_norms.append(_embed_norm(h.detach(), block.src_mask))
@@ -99,11 +107,13 @@ class GATv2(nn.Module):
                  n_layers: int, heads: Sequence[int] = (4, 4, 1),
                  feat_drop: float = 0.1, attn_drop: float = 0.1,
                  negative_slope: float = 0.2, residual: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if len(heads) != n_layers:
             raise ValueError(f"{len(heads)} head counts for {n_layers} layers")
-        self.n_layers, self.heads = n_layers, tuple(heads)
+        self.n_layers, self.heads, self.dtype = n_layers, tuple(heads), dtype
         layers = []
         d_in = in_feats
         for l in range(n_layers):
@@ -113,14 +123,15 @@ class GATv2(nn.Module):
                 d_in, out, heads[l], feat_drop=feat_drop,
                 attn_drop=attn_drop, negative_slope=negative_slope,
                 residual=residual and l > 0,
-                activation=None if last else F.elu, generator=generator))
+                activation=None if last else F.elu, generator=generator,
+                dtype=dtype, param_dtype=param_dtype))
             d_in = out * heads[l]
         self.layers = nn.ModuleList(layers)
 
     def forward(self, blocks: Sequence[Block], x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        h = x.to(COMPUTE_DTYPE)
+        h = x.to(self.dtype)
         embed_norms: List[torch.Tensor] = []
         a_ijs: List[torch.Tensor] = []
         for l, (conv, block) in enumerate(zip(self.layers, blocks)):
@@ -138,27 +149,31 @@ def build_model(name: str, in_feats: int, n_hidden: int, n_classes: int,
                 n_layers: int, dropout: float = 0.1, num_in_heads: int = 4,
                 num_out_heads: int = 1, attn_drop: float = 0.1,
                 negative_slope: float = 0.2, residual: bool = False,
-                device="cuda", seed: int = 0) -> nn.Module:
-    """Model factory (``sage``, ``gcn``, ``gat``); the weights are drawn on
-    the CPU from ``seed`` and moved to ``device`` (which raises when it is
-    CUDA and no card exists). For ``gat``, ``dropout`` is the feature
+                device="cuda", seed: int = 0,
+                dtype: torch.dtype = torch.bfloat16,
+                param_dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Model factory (``sage``, ``gcn``, ``gat``); the weights are drawn in
+    f32 on the CPU from ``seed``, stored in ``param_dtype`` and moved to
+    ``device`` (which raises when it is CUDA and no card exists); the
+    model computes in ``dtype``. For ``gat``, ``dropout`` is the feature
     dropout and the heads are ``num_in_heads`` per hidden layer and
     ``num_out_heads`` at the output."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
+    kw = dict(dtype=dtype, param_dtype=param_dtype)
     name = name.lower()
     if name == "sage":
         model = SAGE(in_feats, n_hidden, n_classes, n_layers, dropout,
-                     generator=gen)
+                     generator=gen, **kw)
     elif name == "gcn":
         model = GCN(in_feats, n_hidden, n_classes, n_layers, dropout,
-                    generator=gen)
+                    generator=gen, **kw)
     elif name == "gat":
         heads = (num_in_heads,) * (n_layers - 1) + (num_out_heads,)
         model = GATv2(in_feats, n_hidden, n_classes, n_layers, heads=heads,
                       feat_drop=dropout, attn_drop=attn_drop,
                       negative_slope=negative_slope, residual=residual,
-                      generator=gen)
+                      generator=gen, **kw)
     else:
         raise ValueError(f"unknown model {name!r}")
     return model.to(dev)

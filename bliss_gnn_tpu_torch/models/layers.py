@@ -3,8 +3,12 @@
 ``GraphConv`` (norm both) and ``GATv2Conv`` (shared weights, bias-free,
 pre-softmax logits exported for the bandit).
 
-Parameters are f32; the compute is bf16, with explicit casts at the places
-the reference rounds (no autocast). When ``in_feats > out_feats`` the
+Each conv computes in its ``dtype`` (bf16 by default, f32 for the
+reference's ``--precision highest``) and stores its parameters in its
+``param_dtype`` (f32 by default, or bf16), both fixed at construction as a
+flax module's ``dtype`` and ``param_dtype`` are; the parameters are cast
+to the compute dtype where they are used, and explicit casts sit at the
+places the reference rounds (no autocast). When ``in_feats > out_feats`` the
 projection runs before the aggregation, so fewer features go through the
 segment sum. A block's edges are sorted by dst on their valid prefix, so
 every sum by ``e_dst`` passes ``ids_sorted=True`` (the reduce-by-key route
@@ -27,11 +31,10 @@ from bliss_gnn_tpu_torch.ops.segment import (
 )
 from bliss_gnn_tpu_torch.sampling.block import Block
 
-COMPUTE_DTYPE = torch.bfloat16
-
 
 def _linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """A bias-free dense layer in the compute dtype (f32 params cast)."""
+    """A bias-free dense layer in ``x``'s dtype, the compute dtype (the
+    parameters cast)."""
     return F.linear(x, weight.to(x.dtype))
 
 
@@ -67,33 +70,37 @@ class SAGEConv(nn.Module):
     with gain sqrt 2); the bias starts at zero."""
 
     def __init__(self, in_feats: int, out_feats: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_feats, self.out_feats = in_feats, out_feats
+        self.dtype = dtype
         self.fc_neigh = nn.Linear(in_feats, out_feats, bias=False)
         self.fc_self = nn.Linear(in_feats, out_feats, bias=False)
         self.bias = nn.Parameter(torch.zeros(out_feats))
         for lin in (self.fc_neigh, self.fc_self):
             nn.init.xavier_uniform_(lin.weight, gain=math.sqrt(2.0),
                                     generator=generator)
+        self.to(param_dtype)
 
     def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
         n_dst = block.n_dst_cap
-        h_src = h_src.to(COMPUTE_DTYPE)
+        h_src = h_src.to(self.dtype)
         h_dst = h_src[:n_dst]
         lin_before = self.in_feats > self.out_feats
         src_val = _linear(h_src, self.fc_neigh.weight) if lin_before else h_src
         nv = block.n_valid_edges()
         msg = gather_rows(src_val, block.e_src, src_val.shape[0], n_valid=nv)
-        msg = msg * block.e_weight[:, None].to(COMPUTE_DTYPE)
+        msg = msg * block.e_weight[:, None].to(self.dtype)
         agg = masked_segment_sum(msg, block.e_dst, n_dst, block.e_mask,
                                  n_valid=nv, ids_sorted=True)
         deg = segment_count(block.e_dst, n_dst, block.e_mask,
                             dtype=torch.float32, n_valid=nv, ids_sorted=True)
-        agg = agg / torch.clamp(deg, min=1.0)[:, None].to(COMPUTE_DTYPE)
+        agg = agg / torch.clamp(deg, min=1.0)[:, None].to(self.dtype)
         h_neigh = agg if lin_before else _linear(agg, self.fc_neigh.weight)
         return (_linear(h_dst, self.fc_self.weight) + h_neigh
-                + self.bias.to(COMPUTE_DTYPE))
+                + self.bias.to(self.dtype))
 
 
 class GraphConv(nn.Module):
@@ -107,27 +114,30 @@ class GraphConv(nn.Module):
 
     def __init__(self, in_feats: int, out_feats: int,
                  activation: Optional[Callable] = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_feats, self.out_feats = in_feats, out_feats
-        self.activation = activation
+        self.activation, self.dtype = activation, dtype
         self.fc = nn.Linear(in_feats, out_feats, bias=True)
         nn.init.xavier_uniform_(self.fc.weight, generator=generator)
         nn.init.zeros_(self.fc.bias)
+        self.to(param_dtype)
 
     def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
         n_dst, n_src = block.n_dst_cap, block.n_src_cap
-        h_src = h_src.to(COMPUTE_DTYPE)
+        h_src = h_src.to(self.dtype)
         nv = block.n_valid_edges()
         out_deg = segment_count(block.e_src, n_src, block.e_mask,
                                 dtype=torch.float32, n_valid=nv)
-        src_norm = torch.rsqrt(torch.clamp(out_deg, min=1.0)).to(COMPUTE_DTYPE)
+        src_norm = torch.rsqrt(torch.clamp(out_deg, min=1.0)).to(self.dtype)
         feat = h_src * src_norm[:, None]
         lin_before = self.in_feats > self.out_feats
         if lin_before:
             feat = _dense(feat, self.fc)
         msg = gather_rows(feat, block.e_src, feat.shape[0], n_valid=nv)
-        msg = msg * block.e_weight[:, None].to(COMPUTE_DTYPE)
+        msg = msg * block.e_weight[:, None].to(self.dtype)
         rst = masked_segment_sum(msg, block.e_dst, n_dst, block.e_mask,
                                  n_valid=nv, ids_sorted=True)
         if not lin_before:
@@ -135,7 +145,7 @@ class GraphConv(nn.Module):
         in_deg = segment_count(block.e_dst, n_dst, block.e_mask,
                                dtype=torch.float32, n_valid=nv,
                                ids_sorted=True)
-        dst_norm = torch.rsqrt(torch.clamp(in_deg, min=1.0)).to(COMPUTE_DTYPE)
+        dst_norm = torch.rsqrt(torch.clamp(in_deg, min=1.0)).to(self.dtype)
         rst = rst * dst_norm[:, None]
         return rst if self.activation is None else self.activation(rst)
 
@@ -155,9 +165,12 @@ class GATv2Conv(nn.Module):
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
                  negative_slope: float = 0.2, residual: bool = False,
                  activation: Optional[Callable] = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         H, O = num_heads, out_feats
+        self.dtype = dtype
         self.in_feats, self.out_feats, self.num_heads = in_feats, O, H
         self.feat_drop, self.attn_drop = feat_drop, attn_drop
         self.negative_slope = negative_slope
@@ -171,13 +184,14 @@ class GATv2Conv(nn.Module):
         if residual and in_feats != H * O:
             self.res_fc = nn.Linear(in_feats, H * O, bias=False)
             nn.init.xavier_uniform_(self.res_fc.weight, generator=generator)
+        self.to(param_dtype)
 
     def forward(self, block: Block, h_src: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         n_dst = block.n_dst_cap
         H, O = self.num_heads, self.out_feats
-        h_src = h_src.to(COMPUTE_DTYPE)
+        h_src = h_src.to(self.dtype)
         if self.training:
             h_src = dropout(h_src, self.feat_drop, generator)
         h_dst = h_src[:n_dst]
@@ -188,12 +202,12 @@ class GATv2Conv(nn.Module):
                           n_dst, n_valid=nv, ids_sorted=True)
         el = el2.reshape(-1, H, O)
         e_full = F.leaky_relu(el + er2.reshape(-1, H, O), self.negative_slope)
-        e = (e_full * self.attn.to(COMPUTE_DTYPE)).sum(dim=-1)  # [E, H]
+        e = (e_full * self.attn.to(self.dtype)).sum(dim=-1)  # [E, H]
         a = edge_softmax(e, block.e_dst, n_dst, block.e_mask, n_valid=nv,
                          ids_sorted=True)
         if self.training:
             a = dropout(a, self.attn_drop, generator)
-        msg2 = (el * a[..., None].to(COMPUTE_DTYPE)).reshape(-1, H * O)
+        msg2 = (el * a[..., None].to(self.dtype)).reshape(-1, H * O)
         rst = masked_segment_sum(msg2, block.e_dst, n_dst, block.e_mask,
                                  n_valid=nv, ids_sorted=True
                                  ).reshape(n_dst, H, O)

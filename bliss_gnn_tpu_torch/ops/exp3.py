@@ -1,4 +1,5 @@
-"""K4: sparse multiplicative update of the bf16 EXP3 arm-weight state.
+"""K4: sparse multiplicative update of the EXP3 arm-weight state (bf16, or
+f32 as the reference's ``exp3_dtype="float32"`` gives).
 
 Counterpart of ``bliss_gnn_tpu/ops/exp3_pallas.py``. The state is flat
 (``[L * (n_edges + EDGE_PAD)]`` viewed from the sampler's ``[L, E']``), and
@@ -7,12 +8,15 @@ so a functional copy would move the whole 690 MB state at Reddit scale.
 
 The hand-written kernel ``csrc/exp3_apply.cu`` takes the update slots as
 they come, in one launch: one thread per slot applies its factor to its
-bf16 entry with a 16-bit compare-and-swap loop, so nothing is sorted.
-Slots with an index outside [0, limit) are no-ops. Distinct indices get one
-f32 multiply and one rounding, bit for bit :func:`exp3_apply_plain`; an
-index repeated m times rounds after each update, in the card's order, as the
-TPU kernel's sequential update does, which is within m - 1 bf16 ulps of the
-plain version. No update is ever skipped.
+entry with a compare-and-swap loop, 16-bit on a bf16 state and 32-bit on
+an f32 state (two routes), so nothing is sorted. Slots with an index
+outside [0, limit) are no-ops. Distinct indices get one f32 multiply and
+one rounding, bit for bit :func:`exp3_apply_plain`; an index repeated m
+times rounds after each update, in the card's order, as the TPU kernel's
+sequential update does, which is within m - 1 ulps (of the state's dtype)
+of the plain version. No update is ever skipped. ``exp3_apply.launches``
+adds one per launch, ``launches_by_shape`` the same by route and length,
+e.g. ``"f32 186496"``.
 """
 from __future__ import annotations
 
@@ -24,33 +28,38 @@ from bliss_gnn_tpu_torch.ops._args import index_i32
 
 def exp3_apply_plain(state: torch.Tensor, flat_idx: torch.Tensor,
                      mult: torch.Tensor, limit: int) -> None:
-    """Plain PyTorch version of the kernel: per distinct index, the f32
-    product of its factors, applied to the bf16 entry with one rounding."""
+    """Plain PyTorch version of the kernel: per distinct index, the product
+    of its factors, applied to the entry with one rounding to the state's
+    dtype. Both are taken in a float wider than the state (f32 for a bf16
+    state, f64 for an f32 state), so a distinct index gets the correctly
+    rounded product, as the kernel's one f32 multiply does, and a repeated
+    one the value the kernel's m roundings stay within m - 1 ulps of."""
+    wide = torch.float64 if state.dtype == torch.float32 else torch.float32
     s_idx, order = torch.sort(flat_idx.long(), stable=True)
-    s_mult = mult.to(torch.float32)[order]
+    s_mult = mult.to(wide)[order]
     uniq, inverse = torch.unique_consecutive(s_idx, return_inverse=True)
-    prod = torch.ones(uniq.shape[0], dtype=torch.float32, device=state.device)
+    prod = torch.ones(uniq.shape[0], dtype=wide, device=state.device)
     prod.scatter_reduce_(0, inverse, s_mult, "prod")
     live = (uniq >= 0) & (uniq < limit)
     target, factor = uniq[live], prod[live]
-    state[target] = (state[target].to(torch.float32) * factor).to(state.dtype)
+    state[target] = (state[target].to(wide) * factor).to(state.dtype)
 
 
 def exp3_apply(state: torch.Tensor, flat_idx: torch.Tensor,
                mult: torch.Tensor, limit: int) -> None:
-    """state[flat_idx] *= mult in place on a flat bf16 ``state``, in one
-    launch that allocates nothing. The checks are kept to a few attribute
-    reads: the call is on the step's host-bound path."""
+    """state[flat_idx] *= mult in place on a flat bf16 or f32 ``state``, in
+    one launch that allocates nothing. The checks are kept to a few
+    attribute reads: the call is on the step's host-bound path."""
     if not state.is_cuda:
         if state.device.type == "cpu":
             exp3_apply_plain(state, flat_idx, mult, limit)
             return
         raise ValueError(f"exp3_apply: no kernel for {state.device}")
     card = state.get_device()
-    if (state.dtype != torch.bfloat16 or state.dim() != 1
-            or not state.is_contiguous()):
+    route = _ROUTES.get(state.dtype)
+    if route is None or state.dim() != 1 or not state.is_contiguous():
         raise TypeError("exp3_apply: the state must be a flat contiguous "
-                        "bf16 tensor")
+                        "bf16 or f32 tensor")
     if flat_idx.get_device() != card or mult.get_device() != card:
         raise ValueError("exp3_apply: the state, indices and factors must "
                          "lie on one card")
@@ -63,12 +72,21 @@ def exp3_apply(state: torch.Tensor, flat_idx: torch.Tensor,
                          "length")
     if not 0 <= limit <= state.numel():
         raise ValueError(f"exp3_apply: limit {limit} outside the state")
-    err = _build.load("exp3_apply").bliss_exp3_apply(
+    name, entry = route
+    err = getattr(_build.load("exp3_apply"), entry)(
         state.data_ptr(), flat_idx.data_ptr(), mult.data_ptr(), u, limit,
         _build.stream_of(state))
     exp3_apply.launches += 1
+    by = exp3_apply.launches_by_shape
+    key = f"{name} {u}"
+    by[key] = by.get(key, 0) + 1
     if err:
         _build.check(err, "exp3_apply")
 
 
+# state dtype -> (route, C entry)
+_ROUTES = {torch.bfloat16: ("bf16", "bliss_exp3_apply"),
+           torch.float32: ("f32", "bliss_exp3_apply_f32")}
 exp3_apply.launches = 0
+# the same launches by route and update count, e.g. "f32 186496"
+exp3_apply.launches_by_shape = {}

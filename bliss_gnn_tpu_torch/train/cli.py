@@ -11,7 +11,9 @@ the plain PyTorch path. ``--gpu``, ``--num-workers``, ``--data-cpu`` and
 datasets are read from ``BLISS_DATA_ROOT``). ``--use-uva`` keeps the
 features in host memory behind a device cache of ``--cache-size`` rows.
 ``--inference-backend`` named the reference's TPU layouts; every value runs
-the CSC kernels here. Not ported, and raising: ``--precision highest``.
+the CSC kernels here. ``--precision highest`` computes in f32 (features,
+activations and final inference; the parameters stay f32 and the arm
+weights bf16, as in the reference).
 
 ``--dp N`` trains over N ranks (``parallel/dp.py``; ``--shard-graph``
 range-shards the graph over them). With no process group running the CLI
@@ -71,8 +73,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--early-stopping-patience", type=int, default=1000)
     p.add_argument("--disable-checkpoint", action="store_true")
     p.add_argument("--precision", type=str, default="medium",
-                   help="medium = bf16 compute; highest = f32 (not ported: "
-                        "raises)")
+                   help="medium = bf16 compute; highest = f32")
     p.add_argument("--k-runs", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     # accepted and ignored: sampling runs on the device, and nothing is

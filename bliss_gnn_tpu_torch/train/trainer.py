@@ -36,9 +36,13 @@ moments and counts, the arm weights) and the generator's state, never by
 replacing them: a step captured in a CUDA graph keeps reading the tensors
 it was captured with. A checkpoint holds the canonical (unsharded) arm
 weights and every rank's generator state; loading it re-shards them.
+Every tensor keeps its dtype through a save and a load.
 
-Not ported (each raises ``NotImplementedError``): f32 compute and bf16
-parameters (ROADMAP Queue 1 item 7).
+Precision (the reference's): ``compute_dtype`` is the models' compute and
+the device features' dtype, and final inference's (bf16, or f32 for
+``--precision highest``); ``param_dtype`` the parameters' and Adam's
+moments' (f32, or bf16); ``exp3_dtype`` the arm weights' (bf16, or f32,
+which K4's 32-bit route updates on the card).
 """
 from __future__ import annotations
 
@@ -181,17 +185,6 @@ class TrainConfig:
         )
 
 
-def _check_supported(cfg: TrainConfig, device: torch.device) -> None:
-    if cfg.compute_dtype != "bfloat16" or cfg.param_dtype != "float32":
-        raise NotImplementedError(
-            "the port's models compute in bf16 with f32 parameters; f32 "
-            "compute (--precision highest) and bf16 parameters are not "
-            "ported yet (ROADMAP Queue 1 item 7)")
-    if cfg.exp3_dtype != "bfloat16" and device.type == "cuda":
-        raise NotImplementedError(
-            "K4 updates bf16 arm weights only (ROADMAP Queue 1 item 7)")
-
-
 def _metrics_to_host(metrics: Dict[str, object], device: torch.device,
                      chained: bool) -> List[Dict[str, object]]:
     """A step's metrics, or a chain's stacked over K, copied to the host in
@@ -231,7 +224,12 @@ class Trainer:
                  multilabel: Optional[bool] = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        _check_supported(cfg, self.device)
+        # each field its default's name, or else the other of bf16 and
+        # f32, as the reference reads them
+        bf16, f32 = torch.bfloat16, torch.float32
+        self.dtype = bf16 if cfg.compute_dtype == "bfloat16" else f32
+        self.pdtype = f32 if cfg.param_dtype == "float32" else bf16
+        self.exp3_dtype = bf16 if cfg.exp3_dtype == "bfloat16" else f32
         self.mesh = None
         self.dp = 1
         if cfg.dp != 1:
@@ -264,19 +262,19 @@ class Trainer:
             self.feature_cache = FeatureCache(
                 graph.ndata["features"],
                 cfg.cache_size or min(graph.n_nodes, 1 << 21),
-                dtype=torch.bfloat16, device=self.device)
+                dtype=self.dtype, device=self.device)
         self.sharded_graph = None
         if cfg.shard_graph:
             # no replicated device graph: each rank holds its ranges
             shard_indptr = (cfg.shard_indptr if cfg.shard_indptr is not None
                             else graph.n_nodes > 32_000_000)
             self.sharded_graph = pss.ShardedDeviceGraph.build(
-                graph, self.mesh, feature_dtype=torch.bfloat16,
+                graph, self.mesh, feature_dtype=self.dtype,
                 shard_indptr=shard_indptr, include_features=not cfg.use_uva)
             self.graph = None
         else:
             self.graph = DeviceGraph.from_graph(
-                graph, device=self.device, feature_dtype=torch.bfloat16,
+                graph, device=self.device, feature_dtype=self.dtype,
                 exclude=("features",) if cfg.use_uva else ())
         self.train_nid = np.where(graph.ndata["train_mask"])[0].astype(
             np.int32)
@@ -299,7 +297,8 @@ class Trainer:
             n_classes, cfg.num_layers, dropout=cfg.dropout,
             num_in_heads=cfg.num_in_heads, num_out_heads=cfg.num_out_heads,
             attn_drop=cfg.attn_dropout, negative_slope=cfg.negative_slope,
-            residual=cfg.residual, device=self.device, seed=cfg.seed)
+            residual=cfg.residual, device=self.device, seed=cfg.seed,
+            dtype=self.dtype, param_dtype=self.pdtype)
         # the GLOBAL batch; under dp a multiple of dp, batch / dp a rank
         self.batch_size = min(cfg.batch_size, max(1, len(self.train_nid)))
         self.batch_size = max(self.dp,
@@ -402,11 +401,11 @@ class Trainer:
             if self.sampler_cfg.is_bandit and cfg.shard_graph:
                 exp3 = pss.init_exp3_shard(
                     cfg.num_layers, g.n_edges, self.mesh,
-                    dtype=getattr(torch, cfg.exp3_dtype))
+                    dtype=self.exp3_dtype)
             elif self.sampler_cfg.is_bandit:
                 exp3 = init_exp3_weights(
                     cfg.num_layers, g.n_edges, device=self.device,
-                    dtype=getattr(torch, cfg.exp3_dtype))
+                    dtype=self.exp3_dtype)
             gen = (self.mesh.generator(cfg.seed) if self.mesh is not None
                    else torch.Generator(device=self.device).manual_seed(
                        cfg.seed))
@@ -892,19 +891,19 @@ class Trainer:
                 cfg.model, self.state.model, self.host_graph, self.mesh,
                 cfg.num_layers, heads=heads,
                 negative_slope=cfg.negative_slope, residual=cfg.residual,
-                dtype=torch.bfloat16,
+                dtype=self.dtype,
                 features=(None if self.feature_cache is None
                           else self.feature_cache.host))
         if self.feature_cache is not None:
             return torch.from_numpy(layerwise_inference_uva(
                 cfg.model, self.state.model, self.host_graph, cfg.num_layers,
                 heads=heads, negative_slope=cfg.negative_slope,
-                residual=cfg.residual, dtype=torch.bfloat16,
+                residual=cfg.residual, dtype=self.dtype,
                 features=self.feature_cache.host, device=self.device))
         return layerwise_inference(
             cfg.model, self.state.model, self.graph, cfg.num_layers,
             heads=heads, negative_slope=cfg.negative_slope,
-            residual=cfg.residual, dtype=torch.bfloat16)
+            residual=cfg.residual, dtype=self.dtype)
 
     def final_eval(self) -> Dict[str, float]:
         """Full-graph inference and micro-F1 per split."""

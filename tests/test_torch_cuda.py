@@ -324,6 +324,77 @@ def test_exp3_apply_all_noop_leaves_state(dev, gen):
     assert torch.equal(state, before)
 
 
+def _f32_ulp(x):
+    """One f32 ulp at each value of the f32 tensor ``x``."""
+    _, e = torch.frexp(x)  # |x| in [2^(e-1), 2^e)
+    return torch.ldexp(torch.ones_like(x), e - 24)
+
+
+def test_exp3_apply_f32_distinct_is_bitwise(dev, gen):
+    """K4's 32-bit route on an f32 state: one f32 multiply and one rounding
+    per entry, bit for bit the plain version; no-op slots (past the limit
+    and negative) and untouched entries unchanged; launched once, on the
+    f32 route."""
+    limit = 1 << 21
+    idx = torch.randperm(limit, generator=gen, device=dev)[:120_000].to(
+        torch.int32)
+    idx[::5] = limit + 7  # no-op slots
+    idx[1::97] = -1
+    state = torch.rand(limit, generator=gen, device=dev) + 0.5
+    mult = torch.exp(torch.rand(idx.shape[0], generator=gen, device=dev)
+                     * 0.5)
+    ref, before = state.clone(), state.clone()
+    launches = exp3_apply.launches
+    by_route = dict(exp3_apply.launches_by_shape)
+    exp3_apply(state, idx, mult, limit)
+    assert exp3_apply.launches == launches + 1
+    key = f"f32 {idx.shape[0]}"
+    assert exp3_apply.launches_by_shape[key] == by_route.get(key, 0) + 1
+    exp3_apply_plain(ref, idx, mult, limit)
+    assert torch.equal(state, ref)
+    touched = torch.zeros(limit, dtype=torch.bool, device=dev)
+    live = idx[(idx >= 0) & (idx < limit)].long()
+    touched[live] = True
+    assert torch.equal(state[~touched], before[~touched])
+    assert not torch.equal(state[touched], before[touched])
+
+
+def test_exp3_apply_f32_duplicates_within_m_minus_1_ulps(dev, gen):
+    """Each index 1 to 8 times on an f32 state: every update rounds, in the
+    card's order, so an entry updated m times is within m - 1 f32 ulps of
+    one rounding of the product."""
+    limit = 1 << 20
+    base = torch.randperm(limit, generator=gen, device=dev)[:20_000]
+    reps = torch.randint(1, 9, (base.shape[0],), generator=gen, device=dev)
+    idx = base.repeat_interleave(reps)
+    idx = idx[torch.randperm(idx.shape[0], generator=gen, device=dev)].to(
+        torch.int32)
+    state = torch.rand(limit, generator=gen, device=dev) + 0.5
+    mult = torch.exp(torch.rand(idx.shape[0], generator=gen, device=dev)
+                     * 0.5)
+    ref = state.clone()
+    exp3_apply(state, idx, mult, limit)
+    exp3_apply_plain(ref, idx, mult, limit)
+    m = torch.zeros(limit, dtype=torch.float32, device=dev)
+    m.index_add_(0, idx.long(), torch.ones_like(mult))
+    ulp = torch.maximum(_f32_ulp(state), _f32_ulp(ref))
+    diff = (state - ref).abs()
+    assert (diff <= (m - 1).clamp(min=0) * ulp).all()
+    assert torch.equal(state[m <= 1], ref[m <= 1])
+    assert int(m.max()) == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_exp3_apply_other_dtypes_raise(dev, dtype):
+    state = torch.ones(1024, dtype=dtype, device=dev)
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        exp3_apply(state, idx, torch.ones(8, device=dev), 1024)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        exp3_apply(torch.ones((32, 32), device=dev), idx,
+                   torch.ones(8, device=dev), 1024)
+
+
 @pytest.mark.parametrize("dtype,n_valid,out_dtype", [
     (torch.bfloat16, None, torch.float32),
     (torch.bfloat16, 30_001, torch.float32),

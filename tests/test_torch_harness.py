@@ -392,15 +392,28 @@ def test_final_eval_on_converted_parameters_matches_reference(tmp_path,
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """The precision settings are ported: the trainer builds with each, in
+    the reference's dtypes, and ``--precision highest`` trains; a platform
+    the port does not run on still raises."""
     _, gt, nc, ml = _graphs()
-    for kw, item in ((dict(compute_dtype="float32"), "item 7"),
-                     (dict(param_dtype="bfloat16"), "item 7")):
+    for kw, want in ((dict(compute_dtype="float32"),
+                      (torch.float32, torch.float32, torch.bfloat16)),
+                     (dict(param_dtype="bfloat16"),
+                      (torch.bfloat16, torch.bfloat16, torch.bfloat16)),
+                     (dict(exp3_dtype="float32"),
+                      (torch.bfloat16, torch.float32, torch.float32))):
         cfg = _cfgs(tmp_path, **kw)[1]
-        with pytest.raises(NotImplementedError, match=item):
-            ttrainer.Trainer(cfg, graph=gt, n_classes=nc, multilabel=ml,
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcli.main(["--platform", "cpu", "--dataset", "toy", "--precision",
-                   "highest", "--logdir", str(tmp_path)])
+        tr = ttrainer.Trainer(cfg, graph=gt, n_classes=nc, multilabel=ml,
+                              device="cpu")
+        dtype, pdtype, edtype = want
+        assert tr.graph.ndata["features"].dtype == dtype
+        assert {p.dtype for p in tr.state.model.parameters()} == {pdtype}
+        assert tr.state.exp3_weights.dtype == edtype
+    (res,) = tcli.main(["--platform", "cpu", "--dataset", "toy", "--precision",
+                        "highest", "--num-layers", "2", "--fan-out", "4,4",
+                        "--batch-size", "4", "--num-steps", "3",
+                        "--num-hidden", "8", "--disable-checkpoint",
+                        "--logdir", str(tmp_path / "cli")])
+    assert all(0.0 <= v <= 1.0 for v in res.values() if not np.isnan(v))
     with pytest.raises(ValueError, match="platform"):
         tcli.main(["--platform", "tpu", "--dataset", "toy"])
