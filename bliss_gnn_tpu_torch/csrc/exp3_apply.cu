@@ -74,6 +74,45 @@ __global__ void exp3_apply_f32_kernel(unsigned int* state,
   }
 }
 
+template <typename T, typename W>
+__device__ __forceinline__ T apply_product(T old, W prod);
+
+template <>
+__device__ __forceinline__ unsigned short apply_product(unsigned short old,
+                                                        float prod) {
+  const float v = __bfloat162float(__ushort_as_bfloat16(old)) * prod;
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+template <>
+__device__ __forceinline__ unsigned int apply_product(unsigned int old,
+                                                      double prod) {
+  return __float_as_uint(
+      __double2float_rn(__dmul_rn((double)__uint_as_float(old), prod)));
+}
+
+// s_idx: the flat indices sorted (stable); order: each sorted slot's place
+// in the list, so mult[order[j]] is its factor.
+template <typename T, typename W>
+__global__ void exp3_apply_runs_kernel(T* state,
+                                       const int32_t* __restrict__ s_idx,
+                                       const int64_t* __restrict__ order,
+                                       const float* __restrict__ mult,
+                                       int64_t u, int32_t limit) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < u;
+       i += stride) {
+    const int32_t k = __ldg(s_idx + i);
+    if (k < 0 || k >= limit) continue;
+    if (i > 0 && __ldg(s_idx + i - 1) == k) continue;  // not a run's head
+    W prod = (W)__ldg(mult + __ldg(order + i));
+    for (int64_t j = i + 1; j < u && __ldg(s_idx + j) == k; ++j) {
+      prod *= (W)__ldg(mult + __ldg(order + j));
+    }
+    state[k] = apply_product<T, W>(state[k], prod);
+  }
+}
+
 long long grid_for(long long u, int threads) {
   long long blocks = (u + threads - 1) / threads;
   if (blocks < 1) blocks = 1;
@@ -106,5 +145,38 @@ extern "C" int bliss_exp3_apply_f32(void* state, const void* idx,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned int*>(state), static_cast<const int32_t*>(idx),
       static_cast<const float*>(mult), (int64_t)u, (int32_t)limit);
+  return (int)cudaGetLastError();
+}
+
+// The repeats route (see the note at the top): s_idx int32 [u], the flat
+// indices stable-sorted; order int64 [u], the sort's permutation; mult f32
+// [u] in list order. One launch on a bf16 (f32: the _f32 entry) flat state;
+// returns cudaGetLastError().
+extern "C" int bliss_exp3_apply_runs(void* state, const void* s_idx,
+                                     const void* order, const void* mult,
+                                     long long u, int limit, void* stream) {
+  const int threads = 256;
+  exp3_apply_runs_kernel<unsigned short, float>
+      <<<(unsigned)grid_for(u, threads), threads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<unsigned short*>(state),
+          static_cast<const int32_t*>(s_idx),
+          static_cast<const int64_t*>(order), static_cast<const float*>(mult),
+          (int64_t)u, (int32_t)limit);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bliss_exp3_apply_runs_f32(void* state, const void* s_idx,
+                                         const void* order, const void* mult,
+                                         long long u, int limit,
+                                         void* stream) {
+  const int threads = 256;
+  exp3_apply_runs_kernel<unsigned int, double>
+      <<<(unsigned)grid_for(u, threads), threads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<unsigned int*>(state),
+          static_cast<const int32_t*>(s_idx),
+          static_cast<const int64_t*>(order), static_cast<const float*>(mult),
+          (int64_t)u, (int32_t)limit);
   return (int)cudaGetLastError();
 }

@@ -50,7 +50,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "bliss_segment_sum_fold": [_P, _P, _I, _LL, _I, _P, _P, _I, _P],
     },
     "exp3_apply": {"bliss_exp3_apply": [_P, _P, _P, _LL, _I, _P],
-                   "bliss_exp3_apply_f32": [_P, _P, _P, _LL, _I, _P]},
+                   "bliss_exp3_apply_f32": [_P, _P, _P, _LL, _I, _P],
+                   "bliss_exp3_apply_runs": [_P, _P, _P, _P, _LL, _I, _P],
+                   "bliss_exp3_apply_runs_f32": [_P, _P, _P, _P, _LL, _I,
+                                                 _P]},
     "row_scatter": {
         "bliss_row_scatter_tiles": [_P, _I, _P, _P, _LL, _I, _P, _I, _P, _I,
                                     _P, _P, _LL, _I, _P],

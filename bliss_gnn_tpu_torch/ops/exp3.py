@@ -14,9 +14,18 @@ outside [0, limit) are no-ops. Distinct indices get one f32 multiply and
 one rounding, bit for bit :func:`exp3_apply_plain`; an index repeated m
 times rounds after each update, in the card's order, as the TPU kernel's
 sequential update does, which is within m - 1 ulps (of the state's dtype)
-of the plain version. No update is ever skipped. ``exp3_apply.launches``
-adds one per launch, ``launches_by_shape`` the same by route and length,
-e.g. ``"f32 186496"``.
+of the plain version. No update is ever skipped.
+
+A list that can repeat an index (``distinct=False``: the all-gathered
+deltas of S > 1 data-parallel ranks) takes the repeats route instead, so
+that every replica of the state keeps the same bits: the flat indices are
+stable-sorted (each index's slots one run, in list order), and one thread
+per run multiplies the run's factors in list order in the wide float and
+writes the entry once. That is :func:`exp3_apply_plain`'s arithmetic, the
+same bits on every call and every card. It allocates the sort's outputs and
+syncs nothing, so it runs inside a captured step. ``exp3_apply.launches``
+adds one per kernel launch, ``launches_by_shape`` the same by route and
+length, e.g. ``"f32 186496"`` or ``"repeats bf16 745984"``.
 """
 from __future__ import annotations
 
@@ -33,7 +42,9 @@ def exp3_apply_plain(state: torch.Tensor, flat_idx: torch.Tensor,
     dtype. Both are taken in a float wider than the state (f32 for a bf16
     state, f64 for an f32 state), so a distinct index gets the correctly
     rounded product, as the kernel's one f32 multiply does, and a repeated
-    one the value the kernel's m roundings stay within m - 1 ulps of."""
+    one the value the CAS route's m roundings stay within m - 1 ulps of.
+    The repeats route computes the same products in the same (list) order,
+    so on the CPU's sequential product the two agree to the bit."""
     wide = torch.float64 if state.dtype == torch.float32 else torch.float32
     s_idx, order = torch.sort(flat_idx.long(), stable=True)
     s_mult = mult.to(wide)[order]
@@ -46,10 +57,13 @@ def exp3_apply_plain(state: torch.Tensor, flat_idx: torch.Tensor,
 
 
 def exp3_apply(state: torch.Tensor, flat_idx: torch.Tensor,
-               mult: torch.Tensor, limit: int) -> None:
+               mult: torch.Tensor, limit: int, distinct: bool = True) -> None:
     """state[flat_idx] *= mult in place on a flat bf16 or f32 ``state``, in
-    one launch that allocates nothing. The checks are kept to a few
-    attribute reads: the call is on the step's host-bound path."""
+    one launch. With ``distinct`` (every index of the list at most once, as
+    one rank's deltas are) the CAS route, which allocates nothing; else the
+    repeats route (a stable sort, then one thread per run). The checks are
+    kept to a few attribute reads: the call is on the step's host-bound
+    path."""
     if not state.is_cuda:
         if state.device.type == "cpu":
             exp3_apply_plain(state, flat_idx, mult, limit)
@@ -72,21 +86,32 @@ def exp3_apply(state: torch.Tensor, flat_idx: torch.Tensor,
                          "length")
     if not 0 <= limit <= state.numel():
         raise ValueError(f"exp3_apply: limit {limit} outside the state")
-    name, entry = route
-    err = getattr(_build.load("exp3_apply"), entry)(
-        state.data_ptr(), flat_idx.data_ptr(), mult.data_ptr(), u, limit,
-        _build.stream_of(state))
+    name, entry, runs_entry = route
+    lib = _build.load("exp3_apply")
+    if distinct:
+        err = getattr(lib, entry)(
+            state.data_ptr(), flat_idx.data_ptr(), mult.data_ptr(), u, limit,
+            _build.stream_of(state))
+        key = f"{name} {u}"
+    else:
+        s_idx, order = torch.sort(flat_idx, stable=True)
+        err = getattr(lib, runs_entry)(
+            state.data_ptr(), s_idx.data_ptr(), order.data_ptr(),
+            mult.data_ptr(), u, limit, _build.stream_of(state))
+        key = f"repeats {name} {u}"
     exp3_apply.launches += 1
     by = exp3_apply.launches_by_shape
-    key = f"{name} {u}"
     by[key] = by.get(key, 0) + 1
     if err:
         _build.check(err, "exp3_apply")
 
 
-# state dtype -> (route, C entry)
-_ROUTES = {torch.bfloat16: ("bf16", "bliss_exp3_apply"),
-           torch.float32: ("f32", "bliss_exp3_apply_f32")}
+# state dtype -> (route, C entry of distinct lists, of lists with repeats)
+_ROUTES = {torch.bfloat16: ("bf16", "bliss_exp3_apply",
+                            "bliss_exp3_apply_runs"),
+           torch.float32: ("f32", "bliss_exp3_apply_f32",
+                           "bliss_exp3_apply_runs_f32")}
 exp3_apply.launches = 0
-# the same launches by route and update count, e.g. "f32 186496"
+# the same launches by route and update count, e.g. "f32 186496",
+# "repeats bf16 745984"
 exp3_apply.launches_by_shape = {}

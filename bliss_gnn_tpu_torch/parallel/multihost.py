@@ -27,6 +27,7 @@ from bliss_gnn_tpu_torch.parallel.mesh import (
     Mesh,
     make_mesh,
     pick_backend,
+    rank_device,
     ranks_per_card,
 )
 
@@ -36,7 +37,10 @@ def initialize(device="cuda", store=None, rank: Optional[int] = None,
     """Joins the process group: from ``store``/``rank``/``world_size`` when
     given, else from the launcher's environment. True when a group runs
     afterwards; False (nothing done) in a single process. The backend is
-    chosen from the ranks per card (``mesh.pick_backend``) and printed."""
+    chosen from the ranks per card (``mesh.pick_backend``) and printed.
+    Under NCCL the rank's card (``mesh.rank_device``) is made current
+    before the group exists and handed to it as ``device_id``, so that the
+    communicators bind that card and nothing of the rank lands on card 0."""
     if dist.is_initialized():
         return True
     world = world_size or int(os.environ.get("WORLD_SIZE", "1"))
@@ -44,14 +48,20 @@ def initialize(device="cuda", store=None, rank: Optional[int] = None,
         return False
     dev = resolve_device(device)
     rank = int(os.environ.get("RANK", "0")) if rank is None else rank
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     backend = pick_backend(dev, ranks_per_card(dev, local_world))
+    kw = {}
+    if backend == "nccl":
+        card = rank_device(dev, local_rank, local_world)
+        torch.cuda.set_device(card)
+        kw["device_id"] = card
     if store is not None:
         dist.init_process_group(backend, store=store, rank=rank,
-                                world_size=world)
+                                world_size=world, **kw)
     else:
         dist.init_process_group(backend, init_method="env://", rank=rank,
-                                world_size=world)
+                                world_size=world, **kw)
     if rank == 0:
         print(f"[multihost] joined {world} ranks, backend {backend}",
               flush=True)

@@ -157,9 +157,10 @@ class ShardedStorage(StepStorage):
             return None
         return ShardedExp3(exp3, self.mesh, self.epr, self.n_layers)
 
-    def apply_deltas(self, exp3, deltas, normalize: bool) -> None:
+    def apply_deltas(self, exp3, deltas, normalize: bool,
+                     distinct: bool = True) -> None:
         apply_exp3_deltas_sharded(exp3, deltas, self.mesh.rank, self.epr,
-                                  self.n_layers)
+                                  self.n_layers, distinct=distinct)
         if normalize:
             normalize_exp3_sharded(exp3, self.n_layers, self.epr, self.mesh)
 

@@ -115,13 +115,16 @@ class ShardedExp3:
 
 
 def apply_exp3_deltas_sharded(local: torch.Tensor, deltas, rank: int,
-                              epr: int, n_layers: int) -> torch.Tensor:
+                              epr: int, n_layers: int,
+                              distinct: bool = True) -> torch.Tensor:
     """The ownership-filtered multiplicative update of this rank's flat
     shard, in place, by K4 (``state[flat_idx] *= mult``). ``deltas`` are
     every rank's all-gathered (eid, exponent) lists; this rank applies the
     updates whose edge it owns. Updates of other ranks' edges, and zero
     exponents, point at the dump slot ``L * epr``, which is K4's limit (a
-    no-op index), so the slot stays 0."""
+    no-op index), so the slot stays 0. ``distinct`` False (S > 1: an edge
+    several ranks sampled repeats in the list) takes K4's repeats route,
+    so the shard gets the DP replicas' bits for the same deltas."""
     dump = n_layers * epr
     idxs, mults = [], []
     for layer, (eid, dr) in enumerate(deltas):
@@ -131,7 +134,7 @@ def apply_exp3_deltas_sharded(local: torch.Tensor, deltas, rank: int,
         idxs.append(torch.where(owned, layer * epr + loc, dump))
         mults.append(torch.exp(dr).to(torch.float32))
     exp3_apply(local, torch.cat(idxs).to(torch.int32), torch.cat(mults),
-               dump)
+               dump, distinct=distinct)
     return local
 
 

@@ -566,15 +566,12 @@ def exp3_edge_deltas(graph: DeviceGraph, cfg: SamplerConfig,
     return out
 
 
-def apply_exp3_deltas(exp3_weights: torch.Tensor,
-                      deltas: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                      normalize: bool = True) -> torch.Tensor:
-    """w[eid] *= exp(dr) IN PLACE (K4), then optionally L1-normalise each
-    layer row. Zero exponents are no-op slots (index = limit). Returns the
-    state."""
-    L = len(deltas)
-    span = exp3_weights.shape[1]
-    limit = L * span
+def exp3_delta_slots(deltas: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                     span: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """K4's arguments for per-layer (eid, exponent) lists on a flat [L *
+    span] state: (flat indices int32, factors exp(dr) f32, limit L * span).
+    A zero exponent is a no-op slot (index = limit)."""
+    limit = len(deltas) * span
     flat_idx = torch.cat([
         torch.where(dr.reshape(-1) != 0,
                     eid.reshape(-1).to(torch.int32) + l * span, limit)
@@ -582,7 +579,21 @@ def apply_exp3_deltas(exp3_weights: torch.Tensor,
     ]).to(torch.int32)
     mult = torch.cat([torch.exp(dr).reshape(-1).to(torch.float32)
                       for _, dr in deltas])
-    exp3_apply(exp3_weights.view(-1), flat_idx, mult, limit)
+    return flat_idx, mult, limit
+
+
+def apply_exp3_deltas(exp3_weights: torch.Tensor,
+                      deltas: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                      normalize: bool = True,
+                      distinct: bool = True) -> torch.Tensor:
+    """w[eid] *= exp(dr) IN PLACE (K4), then optionally L1-normalise each
+    layer row. Zero exponents are no-op slots (index = limit). ``distinct``
+    False for lists that can repeat an edge (every DP rank's deltas
+    gathered): K4's repeats route, the same bits on every replica. Returns
+    the state."""
+    flat_idx, mult, limit = exp3_delta_slots(deltas, exp3_weights.shape[1])
+    exp3_apply(exp3_weights.view(-1), flat_idx, mult, limit,
+               distinct=distinct)
     if normalize:
         normalize_exp3_weights(exp3_weights)
     return exp3_weights

@@ -16,7 +16,8 @@ The bodies take a ``mesh`` (``parallel/mesh.py``) for seed-batch data
 parallelism, the per-rank half of ``parallel/dp.py``: each rank samples
 its slice of the batch with its own generator, the gradients are averaged
 over the ranks before Adam (which then runs replicated), the EXP3 deltas
-are all-gathered and every rank applies all of them (K4), and the metrics
+are all-gathered and every rank applies all of them (K4; at S > 1 on its
+repeats route, so the replicas keep the same bits), and the metrics
 are summed, the refit's maxima maxed. A :class:`StepStorage` says where
 node rows and the arm weights live: the default reads the device graph;
 ``parallel/shardedstep.py`` serves them from range shards.
@@ -76,8 +77,13 @@ class StepStorage:
             return deltas
         return all_gather_deltas(deltas, mesh)
 
-    def apply_deltas(self, exp3, deltas, normalize: bool) -> None:
-        apply_exp3_deltas(exp3, deltas, normalize=normalize)
+    def apply_deltas(self, exp3, deltas, normalize: bool,
+                     distinct: bool = True) -> None:
+        """``distinct`` False when ``deltas`` are several ranks' lists,
+        which can repeat an edge: K4's repeats route keeps every replica
+        of the state on the same bits."""
+        apply_exp3_deltas(exp3, deltas, normalize=normalize,
+                          distinct=distinct)
 
 
 _DEFAULT_STORAGE = StepStorage()
@@ -295,7 +301,8 @@ def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
             deltas = exp3_edge_deltas(graph, sampler_cfg, blocks,
                                       aux["embed_norms"], aux["a_ijs"])
             deltas = storage.sync_deltas(deltas, mesh)
-            storage.apply_deltas(state.exp3_weights, deltas, exp3_normalize)
+            storage.apply_deltas(state.exp3_weights, deltas, exp3_normalize,
+                                 distinct=mesh is None or mesh.size == 1)
         f1 = f1_update(F1State.zero(x.device), logits.detach(), labels,
                        dst_mask, multilabel)
         return {

@@ -95,9 +95,38 @@ the f32 SAGE and GATv2 (K6 and K7 on their f32 routes); the kernel rows
 add K3, K4, K5, K6 and K7 at f32. The small steps are also held against
 the CPU at f32, and ``cli_small`` runs ``--precision highest``.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+The K4 rows add its repeats route (the gathered deltas of data-parallel
+ranks, which repeat an edge) at four ranks' shape; its launches on one
+card are ``dp2``'s.
+
+``python3 chip_smoke.py --cards 4`` runs only the parallel layer across
+four cards of one host, one NCCL rank a card (it refuses, before any work,
+with fewer cards visible): the Reddit-shaped CSC built once and shared as
+``.npy`` files, then groups of 1, 2 and 4 ranks, a new spawn each, at the
+main path's configuration with a local batch of 256 a rank:
+
+    multicard_dp       the DP step: 13 eager steps, the captured chained
+                       step (10 synced replays, a 10-chain), eager steps
+                       and replays against two eager DP twins from one
+                       state (the twins against each other: the floor);
+                       after every step the parameters, Adam state and arm
+                       weights bit-equal across the ranks, K4 against its
+                       plain version on the gathered list;
+    multicard_sharded  the range-sharded step so, against DP twins (blocks
+                       equal to the DP step's);
+    multicard_gat      GATv2 through the DP step at S = 4 (K5);
+    multicard_inference  ring inference of the trained SAGE and GATv2 at
+                       S = 4 against the one-device pass on each card;
+    multicard_cli      ``cli.main`` with ``--dp 4``, then ``--dp 4
+                       --shard-graph`` (checkpoint, ``final_eval``);
+    multicard_scaling  replayed and chained step ms at S = 1, 2, 4, weak
+                       scaling, sampled edges a second, collectives, bytes
+                       and memory a rank, the cards and NCCL's version.
+
+Run from the root of a checkout:  python3 chip_smoke.py [--cards 4]
 Every phase prints one JSON line. The line before the last is the kernels'
-summary, the last line the device record. Any failed check exits non-zero.
+summary (one card) or the scaling summary (--cards 4), the last line the
+device record. Any failed check exits non-zero.
 """
 import dataclasses
 import gc
@@ -247,19 +276,30 @@ def host_us(fn, torch, calls=1000):
 
 
 def main_graph(torch, dev):
-    """The main path's graph on ``dev``: the Reddit-shaped CSC, weights
-    1/in-degree (bf16), random bf16 features and labels from seed 0; the
-    samplers walk the CSC only, and of the CSR GCN's norm reads the
-    out-degrees. Returns (graph, the CSC indptr in host memory, seconds)."""
-    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
-
+    """The main path's graph on ``dev`` (``graph_from_csc`` of the
+    Reddit-shaped CSC). Returns (graph, the CSC indptr in host memory,
+    seconds)."""
     t0 = time.perf_counter()
     indptr_np, csc_src_np = reddit_shaped_csc()
+    graph = graph_from_csc(torch, dev, indptr_np, csc_src_np, N_FEATS,
+                           N_CLASSES)
+    del csc_src_np
+    return graph, indptr_np, time.perf_counter() - t0
+
+
+def graph_from_csc(torch, dev, indptr_np, csc_src_np, n_feats, n_classes):
+    """A ``DeviceGraph`` of a CSC on ``dev``: weights 1/in-degree (bf16),
+    random bf16 features and labels from seed 0 (the same on every card);
+    the samplers walk the CSC only, and of the CSR GCN's norm reads the
+    out-degrees. ``csc_src_np`` may be a memmap."""
+    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
+
+    n_nodes = int(indptr_np.shape[0]) - 1
     n_edges = int(csc_src_np.shape[0])
     gen = torch.Generator(device=dev).manual_seed(0)
     indptr = torch.from_numpy(indptr_np.astype(np.int32)).to(dev)
     csc_src = torch.zeros(n_edges + EDGE_PAD, dtype=torch.int32, device=dev)
-    csc_src[:n_edges] = torch.from_numpy(csc_src_np).to(dev)
+    csc_src[:n_edges] = torch.from_numpy(np.array(csc_src_np)).to(dev)
     deg = (indptr[1:] - indptr[:-1]).long()
     w = torch.zeros(n_edges + EDGE_PAD, dtype=torch.bfloat16, device=dev)
     w[:n_edges] = (1.0 / deg.clamp(min=1).float()).repeat_interleave(
@@ -267,19 +307,25 @@ def main_graph(torch, dev):
     dummy = torch.zeros(1, dtype=torch.int32, device=dev)
     graph = DeviceGraph(
         csc_indptr=indptr, csc_src=csc_src,
-        csr_indptr=out_indptr(torch, csc_src[:n_edges], N_NODES),
+        csr_indptr=out_indptr(torch, csc_src[:n_edges], n_nodes),
         csr_dst=dummy, csr_eid=dummy,
-        ndata={"features": torch.randn((N_NODES, N_FEATS), generator=gen,
+        ndata={"features": torch.randn((n_nodes, n_feats), generator=gen,
                                        device=dev, dtype=torch.bfloat16),
-               "labels": torch.randint(0, N_CLASSES, (N_NODES,),
+               "labels": torch.randint(0, n_classes, (n_nodes,),
                                        generator=gen, device=dev)},
-        edata={"w": w}, n_nodes=N_NODES, n_edges=n_edges)
-    del csc_src_np
+        edata={"w": w}, n_nodes=n_nodes, n_edges=n_edges)
     sync(torch, dev)
-    return graph, indptr_np, time.perf_counter() - t0
+    return graph
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cards", type=int, default=0,
+                    help="run only the multi-card phases, on this many "
+                         "cards of one host (4), one NCCL rank a card")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bliss_gnn_tpu_torch", "csrc")):
         fail("run from a checkout: bliss_gnn_tpu_torch/ is missing")
@@ -288,6 +334,9 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, here)
+    if args.cards:
+        multicard_main(torch, here, args.cards)
+        return
     from bliss_gnn_tpu_torch.models.gnn import build_model
     from bliss_gnn_tpu_torch.ops import _build
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
@@ -329,6 +378,10 @@ def main():
     emit({"phase": "device", "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
+    emit({"phase": "multicard", "not_in_this_run": True,
+          "note": "the parallel layer across cards (NCCL between them, "
+                  "S = 1, 2, 4) runs under python3 chip_smoke.py --cards 4 "
+                  "on four cards of one host"})
     build_s = _build.build_all()
     for name in _build.SIGNATURES:
         _build.load(name)
@@ -477,9 +530,13 @@ def main():
     eval_phase(torch, graph, cfg, final, state, smi_line)
     sites = call_site_inputs(torch, graph, cfg, final, state.exp3_weights,
                              seeds, smask)
+    sites["k4_gathered"] = gathered_k4_slots(torch, graph, cfg, final,
+                                             state.exp3_weights)
     emit({"phase": "call_sites", "plan_block_e_caps": final.block_e_caps,
+          "k4_gathered_slots_s4": int(sites["k4_gathered"][0].numel()),
+          "k4_gathered_max_repeats": sites["k4_gathered"][3],
           **{k: v for k, v in sites.items()
-             if not isinstance(v, torch.Tensor)}})
+             if not isinstance(v, (torch.Tensor, tuple))}})
     # -- phase 3c: the main path with the features in host memory -------
     uva_path(torch, graph, cfg, final, N_FEATS, N_CLASSES, wrappers,
              smi_line, step_med)
@@ -633,7 +690,10 @@ def main():
     ondisk_phase(torch, dev, wrappers, smi_line, workdir)
 
     # -- phase 9: two ranks on the one card (gloo) ------------------------
-    dp2_phase(torch, smi_line, workdir)
+    k4_repeats = dp2_phase(torch, smi_line, workdir)
+    for r in rows:  # K4's repeats route runs on this card in dp2's steps
+        if r["name"].startswith("exp3_apply[repeats"):
+            r["launches"] = k4_repeats
     shutil.rmtree(workdir, ignore_errors=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -678,6 +738,45 @@ def call_site_inputs(torch, graph, cfg, plan, exp3, seeds, smask, seed=5):
                dsts_with_edges0=int((deg > 0).sum()),
                max_in_degree_out=int(blocks[-1].in_degrees().max()))
     return out
+
+
+def gathered_k4_slots(torch, graph, cfg, plan, exp3, n_ranks=4, seed=5):
+    """K4's input at S = ``n_ranks`` DP ranks: each rank's blocks sampled on
+    ``plan`` from its own slice of a global batch (``--cards 4``'s seeds,
+    rank r's generator ``rank_seed(seed, r)``), the deltas of every rank
+    gathered layer by layer in rank order (``all_gather_deltas``), random
+    exponents in [0, 0.5) on valid edges and 0 (a no-op slot) elsewhere,
+    as ``exp3_delta_slots`` lays them out. Hub edges are sampled by
+    several ranks, so indices repeat (up to ``n_ranks`` times). Returns
+    (flat indices, factors, limit, the largest repeat count)."""
+    from bliss_gnn_tpu_torch.parallel.mesh import rank_seed
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        exp3_delta_slots,
+        sample_blocks,
+    )
+
+    dev = exp3.device
+    B = plan.batch_size
+    seeds_np = np.random.default_rng(0).integers(
+        0, graph.n_nodes, n_ranks * B).astype(np.int32)
+    smask = torch.ones(B, dtype=torch.bool, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    per_layer = None
+    for r in range(n_ranks):
+        gen = torch.Generator(device=dev).manual_seed(rank_seed(seed, r))
+        seeds = torch.from_numpy(seeds_np[r * B:(r + 1) * B]).to(dev)
+        blocks, _ = sample_blocks(graph, cfg, plan, gen, seeds, smask, exp3)
+        lists = [(b.eid.reshape(-1), torch.where(
+            b.e_mask.reshape(-1),
+            torch.rand(b.eid.numel(), generator=g, device=dev) * 0.5, 0.0))
+            for b in blocks]
+        per_layer = lists if per_layer is None else [
+            (torch.cat([a, x]), torch.cat([d, y]))
+            for (a, d), (x, y) in zip(per_layer, lists)]
+    idx, mult, limit = exp3_delta_slots(per_layer, exp3.shape[1])
+    live = idx[idx < limit].long()
+    _, cnt = torch.unique(live, return_counts=True)
+    return idx, mult, limit, int(cnt.max().item())
 
 
 def profile_steps(torch, run, step_ms, smi_line, model="sage", n=3,
@@ -743,24 +842,16 @@ def load_train_state(torch, dst, src):
 
 LOCKSTEP_TOLERANCE = {"loss": 2.0 ** -7, "update": 2.0 ** -4,
                       "exp3": 2.0 ** -6}
-# the one-rank DP and sharded steps against the fused step from one state:
-# the same blocks; loss and update equal up to the unsorted K1/K3 routes'
-# atomic order (at most 1.95e-5 seen between a DP step and a fused twin on
-# the H100); arm weights within one bf16 ulp (tests/test_torch_cuda.py's
-# bounds). Each step is held to the nearer of two fused twins from the
-# same state: the twins part from each other by that order too (2.5e-4 of
-# the update's norm seen), and a step that lands on either is a fused
-# step's result; the step itself can part from both by as much, which
-# this bound, set before that was measured, does not cover
-DP_TOLERANCE = {"loss": 1e-4, "update": 1e-4, "exp3": 2.0 ** -8}
-# the one-rank sharded step, held so, at measured multiples of the floor:
-# over two smoke runs and six runs of tools/sharded_gate_probe.py on the
+# the one-rank DP and sharded steps, each held to the nearer of two fused
+# twins from one state: the same blocks; loss and update equal up to the
+# unsorted K1/K3 routes' atomic order, which parts the twins themselves.
+# Over two smoke runs and six runs of tools/sharded_gate_probe.py on the
 # H100 a fused step parted from its fused twin (or from its own replay) by
-# up to 2.5e-4 of the update's norm and 1.9e-6 of the loss, and the
-# sharded step by up to 2.4e-4 from both twins, which agreed with each
-# other (the same atomic order: at S = 1 every served row is a copy). So
-# the update at 5x that floor, the loss at 50x, the arm weights within one
-# bf16 ulp at any value (2^-7; 0.0066 seen)
+# up to 2.5e-4 of the update's norm and 1.9e-6 of the loss, the sharded
+# step by up to 2.4e-4 from both twins, and in run BL one DP replay by
+# 8.5e-5 from both (the DP step's bound was 1e-4 then, below that floor).
+# So both steps at 5x the floor on the update, 50x on the loss, the arm
+# weights within one bf16 ulp at any value (2^-7; 0.0066 seen)
 SHARDED_TOLERANCE = {"loss": 1e-4, "update": 1.25e-3, "exp3": 2.0 ** -7}
 
 
@@ -2075,6 +2166,55 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
             dup_max_abs_err=dup_err.max().item(),
             dup_err_over_tolerance=dup_ratio))
         del st_k, st_p
+
+    # K4's repeats route at S = 4's shape: four DP ranks' sampled deltas
+    # gathered (hub edges repeat up to 4 times); the same bits on two
+    # calls, within one bf16 ulp of the plain version on the card.
+    # ``launches`` is its count on the one card's path (dp2's DP steps at
+    # S = 2, filled in after that phase)
+    idx, mult, limit_g, max_rep = sites["k4_gathered"]
+    st0 = (torch.rand(limit_g, generator=g, device=dev) + 0.5).to(
+        torch.bfloat16)
+    st_k, st_k2, st_p = st0.clone(), st0.clone(), st0.clone()
+    k4[0](st_k, idx, mult, limit_g, distinct=False)
+    k4[0](st_k2, idx, mult, limit_g, distinct=False)
+    k4[1](st_p, idx, mult, limit_g)
+    live = idx[idx < limit_g].long()
+    uniq = torch.unique(live)
+    a, b = st_k[uniq].float(), st_p[uniq].float()
+    ulps = ((a - b).abs() / torch.maximum(bf16_ulp(torch, a),
+                                         bf16_ulp(torch, b))).max().item()
+    err = (a - b).abs().max().item()
+    if not torch.equal(st_k, st_k2) or ulps > 1.0:
+        fail(f"exp3_apply repeats route: two calls equal "
+             f"{torch.equal(st_k, st_k2)}, {ulps} ulps off the plain "
+             f"version")
+    n_upd, u_g = int(uniq.numel()), int(idx.numel())
+    mult_v = mult[idx < limit_g].to(torch.bfloat16)
+
+    def repeats():
+        k4[0](st_k, idx, mult, limit_g, distinct=False)
+
+    rows.append(kernel_row(
+        "exp3_apply[repeats,S=4]", None, "exp3_apply.cu",
+        "bliss_gnn_tpu/ops/exp3_pallas.py:62", err,
+        "the same bits on every call; one bf16 ulp of the plain version "
+        "on the card (bit for bit the CPU's)",
+        time_ms(repeats, 20, torch),
+        time_ms(lambda: k4[1](st_p, idx, mult, limit_g), 5, torch),
+        time_ms(lambda: st_p.scatter_reduce_(0, live, mult_v, "prod"), 20,
+                torch),
+        u_g * 8 + n_upd * 4, n_upd,
+        device_ms=device_time_ms(repeats, torch),
+        library_device_ms=device_time_ms(
+            lambda: st_p.scatter_reduce_(0, live, mult_v, "prod"), torch),
+        host_us=host_us(repeats, torch),
+        launches_from="dp2: rank 0's DP steps at S = 2 on this card",
+        shape=f"{u_g} update slots (4 ranks x {u_g // 4}; "
+              f"{int(live.numel())} valid, {n_upd} entries, an index up to "
+              f"{max_rep} times) into {limit_g} bf16",
+        max_ulps=ulps, repeat_bitwise=True))
+    del st0, st_k, st_k2, st_p
     return rows
 
 
@@ -3347,6 +3487,8 @@ def step_errors(torch, twin, state, pre, loss_twin, loss_state, exp3_of):
 def nearer_twin(r1, r2, tol):
     """The record of the twin a parallel step lies nearer to, in units of
     ``tol``, marked with which twin it was and the other's errors."""
+    tol = tol or SHARDED_TOLERANCE  # ungated runs: scored on this scale
+
     def score(r):
         return max(r["loss_err"] / tol["loss"], r["update_err"] / tol["update"],
                    r.get("exp3_err", 0.0) / tol["exp3"])
@@ -3404,20 +3546,34 @@ def same_blocks(torch, a, b):
                for x, y in zip(ba, bb))
 
 
-def fresh_state(torch, dev, graph, cfg, exp3, generator, seed=0):
+MAIN_DIMS = dict(n_feats=N_FEATS, hidden=HIDDEN, n_classes=N_CLASSES,
+                 gat_heads=GAT_HEADS)
+
+
+def fresh_state(torch, dev, graph, cfg, exp3, generator, seed=0,
+                dims=MAIN_DIMS):
+    """A training state of ``cfg.model`` at ``dims`` (the main path's by
+    default): weights from ``seed``, Adam capturable on the card."""
     from bliss_gnn_tpu_torch.models.gnn import build_model
     from bliss_gnn_tpu_torch.train.steps import TrainState, make_optimizer
 
-    model = build_model(cfg.model, N_FEATS, HIDDEN, N_CLASSES,
-                        len(cfg.fanouts), num_in_heads=GAT_HEADS[0],
-                        num_out_heads=GAT_HEADS[1], device=dev, seed=seed)
+    model = build_model(cfg.model, dims["n_feats"], dims["hidden"],
+                        dims["n_classes"], len(cfg.fanouts),
+                        num_in_heads=dims["gat_heads"][0],
+                        num_out_heads=dims["gat_heads"][1], device=dev,
+                        seed=seed)
     opt, sched = make_optimizer(model.parameters(), 2e-3, 100,
                                 capturable=dev.type == "cuda")
     return TrainState(model, opt, sched, exp3, generator)
 
 
+STEP_KERNELS = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")
+
+
 def parallel_step_run(torch, label, state, step, multi, fused, twin, twin2,
-                      seeds, smask, wrappers, mesh, exp3_of, tol):
+                      seeds, smask, wrappers, mesh, exp3_of, tol,
+                      counts=None, kernels=STEP_KERNELS, audit=None,
+                      twin_name="fused"):
     """The counted eager steps of a parallel step (``step``), one recorded
     step's collectives, eager steps against the fused step from one state
     (blocks recorded and compared; and, as the floor, a second fused twin
@@ -3426,16 +3582,27 @@ def parallel_step_run(torch, label, state, step, multi, fused, twin, twin2,
     bits), then the chained step (``multi``, captured under NCCL): single
     replays and a chain, and replays against the fused step from one
     state. Each step is held to the nearer of the two fused twins
-    (``nearer_twin``), gated at ``tol`` with blocks (eager) and counts
-    (replayed) equal; ``bitwise`` marks the steps that agree to the bit.
-    Returns the phase's numbers."""
+    (``nearer_twin``), gated at ``tol`` (None: recorded, not gated) with
+    blocks (eager) and counts (replayed) equal; ``bitwise`` marks the steps
+    that agree to the bit. ``fused`` is any eager step of the twins'
+    states (``twin_name`` in the keys): across cards the DP step itself.
+    ``counts``: (eager steps, timed replays, steps against the twins),
+    default the main path's (13, 10, 3). ``audit`` (``RankAudit``) checks
+    the state after every step, outside the timed spans, and holds K4
+    against its plain version around the untimed eager steps. Returns the
+    phase's numbers and the state."""
     from bliss_gnn_tpu_torch.parallel import commstats
     from bliss_gnn_tpu_torch.train import steps as steps_mod
     from bliss_gnn_tpu_torch.train.steps import CAPTURE_WARMUP_STEPS
 
     dev = seeds.device
-    kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")
-    n_steps = WARMUP_STEPS + TIMED_STEPS
+    n_steps, n_timed, n_lock = counts or (WARMUP_STEPS + TIMED_STEPS,
+                                          TIMED_STEPS, LOCKSTEP_STEPS)
+    warm = WARMUP_STEPS if n_steps > WARMUP_STEPS else 0
+    audit = audit or RankAudit(torch, None)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
     times, losses = [], []
     for _ in range(n_steps):
@@ -3444,28 +3611,33 @@ def parallel_step_run(torch, label, state, step, multi, fused, twin, twin2,
         sync(torch, dev)
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["train_loss"]))
+        audit.after(state, "eager")
     launches = {k: wrappers[k].launches for k in kernels}
+    edges = sum(int(m[k]) for k in m if k.startswith("num_edges/"))
     with commstats.recording() as rec:
         state, m = step(state, seeds, smask)
         sync(torch, dev)
     comm = commstats.comm_summary(rec.entries, mesh.size)
-    # the fused eager step in the same phase (the mesh's process group
+    audit.after(state, "eager")
+    # the twins' eager step in the same phase (the mesh's process group
     # alive), for a like-for-like eager comparison
     fused_times = []
-    for _ in range(TIMED_STEPS):
+    for _ in range(n_timed):
         t0 = time.perf_counter()
         twin, _ = fused(twin, seeds, smask)
         sync(torch, dev)
         fused_times.append((time.perf_counter() - t0) * 1e3)
 
     eager, floor = [], []
-    for _ in range(LOCKSTEP_STEPS):
+    for _ in range(n_lock):
         load_state_into(torch, twin, state, exp3_of)
         load_state_into(torch, twin2, state, exp3_of)
         pre = [p.detach().clone() for p in state.model.parameters()]
         with BlockRecorder(steps_mod) as br:
             twin, mt = fused(twin, seeds, smask)
-            state, ms = step(state, seeds, smask)
+            with audit.plain_shadow():
+                state, ms = step(state, seeds, smask)
+        audit.after(state, "eager")
         twin2, m2 = fused(twin2, seeds, smask)
         f = step_errors(torch, twin, twin2, pre, float(mt["train_loss"]),
                         float(m2["train_loss"]), exp3_of)
@@ -3486,26 +3658,30 @@ def parallel_step_run(torch, label, state, step, multi, fused, twin, twin2,
     s1, m1 = seeds[None], smask[None]
     for _ in range(CAPTURE_WARMUP_STEPS + 1):  # warm-ups, then the capture
         state, m = multi(state, s1, m1)
+        audit.after(state, "replayed")
     sync(torch, dev)
     single = []
-    for _ in range(TIMED_STEPS):
+    for _ in range(n_timed):
         t0 = time.perf_counter()
         state, m = multi(state, s1, m1)
         sync(torch, dev)
         single.append((time.perf_counter() - t0) * 1e3)
-    sk, mk = seeds.expand(TIMED_STEPS, -1), smask.expand(TIMED_STEPS, -1)
+        audit.after(state, "replayed")
+    sk, mk = seeds.expand(n_timed, -1), smask.expand(n_timed, -1)
     t0 = time.perf_counter()
     state, m = multi(state, sk, mk)
     sync(torch, dev)
-    chained = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    chained = (time.perf_counter() - t0) * 1e3 / n_timed
+    audit.after(state, "chain")
     replayed = []
-    for _ in range(LOCKSTEP_STEPS):
+    for _ in range(n_lock):
         load_state_into(torch, twin, state, exp3_of)
         load_state_into(torch, twin2, state, exp3_of)
         pre = [p.detach().clone() for p in state.model.parameters()]
         twin, mt = fused(twin, seeds, smask)
         twin2, m2 = fused(twin2, seeds, smask)
         state, mr = multi(state, s1, m1)
+        audit.after(state, "replayed")
         loss_r = float(mr["train_loss"][0])
         r = nearer_twin(
             step_errors(torch, twin, state, pre, float(mt["train_loss"]),
@@ -3518,34 +3694,42 @@ def parallel_step_run(torch, label, state, step, multi, fused, twin, twin2,
                         and r.get("exp3_err", 0.0) == 0)
         replayed.append(r)
         del pre
-    out = {f"{label}_step_ms": statistics.median(times[WARMUP_STEPS:]),
-           f"{label}_step_ms_all": times[WARMUP_STEPS:],
+    tn = twin_name
+    out = {f"{label}_step_ms": statistics.median(times[warm:]),
+           f"{label}_step_ms_all": times[warm:],
            f"{label}_replayed_step_ms": statistics.median(single),
            f"{label}_replayed_step_ms_all": single,
            f"{label}_chained_step_ms": chained,
-           "fused_step_ms_same_phase": statistics.median(fused_times),
-           "fused_step_ms_same_phase_all": fused_times,
+           f"{tn}_step_ms_same_phase": statistics.median(fused_times),
+           f"{tn}_step_ms_same_phase_all": fused_times,
            "loss": losses, "launches": launches,
            "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+           "sampled_edges_per_step": edges,
            "collectives_per_step": comm["per_kind"],
            "collective_bytes_per_step": comm["total_out_bytes"],
            "collectives_count_per_step": comm["n_collectives"],
+           "moved_bytes_per_step": comm["moved_bytes_per_device"],
            "backend": mesh.backend, "ranks": mesh.size,
            "captured": mesh.capturable,
-           "eager_vs_fused": eager, "replayed_vs_fused": replayed,
-           "fused_vs_fused": floor,
-           "bitwise_vs_fused": sum(r["bitwise"] for r in eager + replayed),
-           "compared_vs_fused": len(eager + replayed),
-           "tolerance": tol}
+           f"eager_vs_{tn}": eager, f"replayed_vs_{tn}": replayed,
+           f"{tn}_vs_{tn}": floor,
+           f"bitwise_vs_{tn}": sum(r["bitwise"] for r in eager + replayed),
+           f"compared_vs_{tn}": len(eager + replayed),
+           "tolerance": tol, **audit.summary()}
+    if dev.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
     bad = [r for r in eager if not r["blocks_equal"]]
     bad += [r for r in replayed if not r["counts_equal"]]
-    if bad or not within(eager + replayed, tol):
-        fail(f"{label}: differs from the fused step from one state: {out}")
+    if tol is not None and (bad or not within(eager + replayed, tol)):
+        fail(f"{label}: differs from the {tn} step from one state: {out}")
+    # the plain versions count nothing: kernels exist on the card alone
     missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
+    if missing and dev.type == "cuda":
         fail(f"{label}: kernels not launched: {missing}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label}: non-finite loss {losses}")
+    audit.gate(label)
     return out, state
 
 
@@ -3612,7 +3796,7 @@ def parallel_paths(torch, graph, indptr_np, cfg, plan, seeds, smask,
         make_dp_multi_train_step(mesh, graph, cfg, plan, False,
                                  exp3_normalize=False),
         fused, new_twin(), new_twin(), seeds, smask, wrappers, mesh,
-        lambda s: s.exp3_weights, DP_TOLERANCE)
+        lambda s: s.exp3_weights, SHARDED_TOLERANCE)
     emit({"phase": "dp_path", **out,
           "fused_replayed_step_ms": fused_replayed_ms,
           "nvidia_smi": smi_line})
@@ -3653,35 +3837,60 @@ def parallel_paths(torch, graph, indptr_np, cfg, plan, seeds, smask,
 
 def sharded_inference_phase(torch, mesh, hv, graph, models, wrappers,
                             smi_line):
-    """Phase 5b (the end of ``sharded_path``): ``layerwise_inference_sharded``
-    of the trained SAGE and GATv2 models at one rank (one bucket: K6 and
-    K7 with its partial outputs on the whole CSC) against
-    ``layerwise_inference``, every row within 1e-2 x max|logit|. Returns
-    K7's launches with partial outputs by kernel-row name."""
+    """Phase 5b (the end of ``sharded_path``): ``sharded_inference_records``
+    of the trained SAGE and GATv2 at one rank (one bucket: K6 and K7 with
+    its partial outputs on the whole CSC), each printed. Returns K7's
+    launches with partial outputs by kernel-row name."""
+    records, partial_launches = sharded_inference_records(
+        torch, mesh, hv, graph, models, wrappers)
+    for rec in records:
+        emit({"phase": "sharded_inference", **rec, "nvidia_smi": smi_line})
+    return partial_launches
+
+
+def sharded_inference_records(torch, mesh, hv, graph, models, wrappers,
+                              n_layers=len(FANOUTS)):
+    """``layerwise_inference_sharded`` of each model of ``models`` ("sage",
+    "gat") over ``mesh`` against ``layerwise_inference`` on this rank's
+    device, every row within 1e-2 x max|logit|; K6 launched on every
+    bucket of every layer (SAGE), K7 with its partial outputs once a bucket
+    and layer (GATv2), counted by shape at the launch site
+    (``gat_attention.launches_by_shape``). Two passes a model: the first
+    also sets up the ring (NCCL connects a pair of ranks at its first
+    send), the second is the one timed, counted and checked. Fails
+    otherwise. Returns the records and K7's launches with partial outputs
+    by kernel-row name."""
     from bliss_gnn_tpu_torch.models.inference import (
         layerwise_inference,
         layerwise_inference_sharded,
     )
 
     dev = mesh.device
-    partial_launches = {}
-    for name in ("sage", "gat"):
-        model = models[name]
+    partial_launches, records = {}, []
+    for name, model in models.items():
         model.eval()
+        first = {}
+        t0 = time.perf_counter()
+        layerwise_inference_sharded(name, model, hv, mesh, n_layers,
+                                    timings=first)
+        sync(torch, dev)
+        first = {f"first_pass_{k}": v for k, v in first.items()}
+        first["first_pass_seconds"] = time.perf_counter() - t0
         reset_counts(wrappers)
         timings = {}
         t0 = time.perf_counter()
-        got = layerwise_inference_sharded(name, model, hv, mesh,
-                                          len(FANOUTS), timings=timings)
+        got = layerwise_inference_sharded(name, model, hv, mesh, n_layers,
+                                          timings=timings)
         sync(torch, dev)
         secs = time.perf_counter() - t0
         launches = {k: wrappers[k].launches
                     for k in ("spmm", "gat_attention")}
-        want = layerwise_inference(name, model, graph, len(FANOUTS))
+        want = layerwise_inference(name, model, graph, n_layers)
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         finite = bool(torch.isfinite(got).all().item())
         del got, want
+        buckets = n_layers * mesh.size
         if name == "gat":
             by = dict(wrappers["gat_attention"].launches_by_shape)
             for l, conv in enumerate(model.layers):
@@ -3689,24 +3898,28 @@ def sharded_inference_phase(torch, mesh, hv, graph, models, wrappers,
                 key = (f"gat_attention[H={conv.num_heads},"
                        f"O={conv.out_feats},partials]")
                 partial_launches[key] = by.get(shape, 0)
-            if sum(by.values()) != len(FANOUTS) * mesh.size:
+            if sum(by.values()) != buckets and dev.type == "cuda":
                 fail(f"sharded_inference: {by} K7 launches with partial "
-                     f"outputs for {len(FANOUTS)} layers x {mesh.size} "
+                     f"outputs for {n_layers} layers x {mesh.size} "
                      f"bucket(s)")
             launches["gat_attention_partials"] = by
-        emit({"phase": "sharded_inference", "model": name, "seconds": secs,
-              **timings, "launches": launches, "ranks": mesh.size,
-              "max_abs_err": err, "max_abs_logit": scale, "finite": finite,
-              "tolerance": "1e-2 x max|layerwise_inference logit|",
-              "nvidia_smi": smi_line})
+        rec = {"model": name, "seconds": secs, **timings, **first,
+               "launches": launches, "ranks": mesh.size,
+               "buckets_per_layer": mesh.size,
+               "max_abs_err": err, "max_abs_logit": scale, "finite": finite,
+               "tolerance": "1e-2 x max|layerwise_inference logit|"}
+        records.append(rec)
         if not finite or err > 1e-2 * scale:
             fail(f"sharded_inference {name}: {err} > 1e-2 x {scale}")
         kname = "gat_attention" if name == "gat" else "spmm"
-        if launches[kname] <= 0:
-            fail(f"sharded_inference {name}: {kname} not launched")
+        # K6 launches at least once a bucket and layer (once per L2 column
+        # slice); the plain versions count nothing
+        if launches[kname] < buckets and dev.type == "cuda":
+            fail(f"sharded_inference {name}: {kname} launched "
+                 f"{launches[kname]} times for {buckets} buckets")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    return partial_launches
+    return records, partial_launches
 
 
 DP2_CFG = dict(dataset="synth-pubmed", fanouts=(256, 128, 64), hidden=256,
@@ -3731,6 +3944,7 @@ def dp2_worker(device):
         layerwise_inference,
         layerwise_inference_sharded,
     )
+    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
     from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
     from bliss_gnn_tpu_torch.ops.spmm import spmm
     from bliss_gnn_tpu_torch.parallel import commstats
@@ -3783,6 +3997,7 @@ def dp2_worker(device):
             ("sharded", make_sharded_train_step(mesh, sg, cfg, plan, ml),
              state(init_exp3_shard(L, E, mesh)))):
         times, losses, counts = [], [], []
+        exp3_apply.launches_by_shape = {}
         with BlockRecorder(steps_mod) as br:
             for i, seeds in enumerate(batches):
                 with commstats.recording() as rec:
@@ -3803,7 +4018,8 @@ def dp2_worker(device):
             comm=commstats.comm_summary(rec.entries, mesh.size),
             params={k: v.detach().cpu()
                     for k, v in st.model.state_dict().items()},
-            exp3=w.float().cpu())
+            exp3=w.float().cpu(),
+            exp3_apply_by_route=dict(exp3_apply.launches_by_shape))
         del st
     inference = {}
     for name, seed in (("sage", 1), ("gat", 2)):
@@ -3886,6 +4102,13 @@ def dp2_phase(torch, smi_line, workdir, device="cuda"):
             problems.append("K7 did not run once a bucket and layer")
         if o["inference"]["sage"]["launches"]["spmm"] < 2 * 2:
             problems.append("K6 did not run on every bucket")
+    # at S = 2 the DP step's gathered deltas take K4's repeats route
+    k4_repeats = sum(v for k, v in
+                     a["runs"]["dp"]["exp3_apply_by_route"].items()
+                     if k.startswith("repeats "))
+    if device == "cuda" and k4_repeats != DP2_CFG["steps"]:
+        problems.append(f"K4's repeats route launched {k4_repeats} times in "
+                        f"{DP2_CFG['steps']} DP steps")
 
     logdir = os.path.join(workdir, "dp2_cli")
     t0 = time.perf_counter()
@@ -3917,10 +4140,623 @@ def dp2_phase(torch, smi_line, workdir, device="cuda"):
           "sharded_vs_dp_blocks_equal_by_rank_and_step": blocks_equal,
           "inference": {o["rank"]: o["inference"] for o in outs},
           "ranks_seconds": ranks_s, "cli_seconds": cli_s,
+          "k4_repeats_route_launches_rank0": k4_repeats,
           "cli_result": res[0], "cli_checkpoint": bool(ckpts),
           "nvidia_smi": smi_line})
     if problems:
         fail(f"dp2: {problems}")
+    return k4_repeats
+
+
+
+# ---------------------------------------------------------------------------
+# --cards 4: the parallel layer across four cards of one host, one NCCL rank
+# a card (multicard_dp, multicard_sharded, multicard_gat,
+# multicard_inference, multicard_cli, multicard_scaling)
+# ---------------------------------------------------------------------------
+
+MULTICARD_SIZES = (1, 2, 4)
+# the main path's configuration at a local batch of BATCH seeds a rank
+# (weak scaling); counts: (eager steps, timed replays, steps against twins)
+MULTICARD_CFG = dict(
+    n_feats=N_FEATS, hidden=HIDDEN, n_classes=N_CLASSES, gat_heads=GAT_HEADS,
+    fanouts=FANOUTS, batch=BATCH, pilot_steps=WARMUP_STEPS + TIMED_STEPS,
+    counts=(WARMUP_STEPS + TIMED_STEPS, TIMED_STEPS, LOCKSTEP_STEPS),
+    gat_counts=(3, 3, 3), gate=True)
+# every step across cards, held to the nearer of two eager DP twins from
+# one state (both step kinds: the sharded step serves the DP step's rows).
+# The floor, two eager DP twins from one state, on four H100s (PERF.md):
+# tools/multicard_gate_probe.py at S = 4 (5 comparisons of each step kind)
+# and one --cards 4 run (3 a kind at S = 1, 2, 4) gave at most 4.57e-4 of
+# the update's norm (S = 4, sharded comparisons; 3.6e-4 at S = 2 and 3.5e-4
+# at S = 1) and 1.69e-5 of the loss (S = 1). So the update at 5x that
+# floor and the loss at 50x, as SHARDED_TOLERANCE at one rank (a later
+# probe run saw a DP step 8.5e-4 from both twins, the twins 2.5e-4 apart);
+# the arm weights within one bf16 ulp at any value (2^-7: 0.00775 seen
+# while the sharded step took K4's CAS route, 0 since the repeats route)
+MULTICARD_TOLERANCE = {"loss": 8.5e-4, "update": 2.3e-3, "exp3": 2.0 ** -7}
+
+
+class RankAudit:
+    """Checks a parallel state across the mesh's ranks: after every step
+    (:meth:`after`), its parameters and Adam state, and with ``exp3`` its
+    arm weights, bit-equal on every rank (an all-reduce gives every rank
+    the same bits, and K4's repeats route keeps the replicated arm weights
+    so); around untimed eager steps (:meth:`plain_shadow`), K4's update
+    held against ``exp3_apply_plain`` on the same gathered list, within one
+    ulp of the state's dtype. With no mesh it checks nothing."""
+
+    CHUNK = 1 << 25  # elements a rank all-gathers at a time
+
+    def __init__(self, torch, mesh, exp3=False):
+        self.torch, self.mesh, self.exp3 = torch, mesh, exp3
+        self.checks, self.unequal, self.plain = 0, [], []
+
+    def _same(self, x):
+        t = self.torch
+        bits = {t.bfloat16: t.int16, t.float32: t.int32}[x.dtype]
+        x = x.detach().reshape(-1)
+        for chunk in x.split(self.CHUNK):
+            rows = self.mesh.all_gather(chunk).view(bits)
+            if not bool((rows == rows[0]).all()):
+                return False
+        return True
+
+    def after(self, state, where):
+        if self.mesh is None:
+            return
+        t = self.torch
+        opt = state.optimizer
+        flat = t.cat([v.detach().reshape(-1).float()
+                      for p in state.model.parameters()
+                      for v in (p, *(opt.state[p][k]
+                                     for k in sorted(opt.state[p])))])
+        same = {"params_adam": self._same(flat)}
+        if self.exp3:
+            same["exp3"] = self._same(state.exp3_weights)
+        self.checks += 1
+        if not all(same.values()):
+            self.unequal.append({"where": where, "step": state.step, **same})
+
+    def plain_shadow(self):
+        import contextlib
+
+        if self.mesh is None or not self.exp3:
+            return contextlib.nullcontext()
+        return self._shadow()
+
+    def _shadow(self):
+        import contextlib
+
+        from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply_plain
+        from bliss_gnn_tpu_torch.sampling.samplers import (
+            exp3_delta_slots,
+            normalize_exp3_weights,
+        )
+        from bliss_gnn_tpu_torch.train import steps as steps_mod
+
+        t, audit = self.torch, self
+        storage = steps_mod._DEFAULT_STORAGE
+        apply = storage.apply_deltas
+
+        def shadowed(exp3, deltas, normalize, distinct=True):
+            ref = exp3.clone()
+            apply(exp3, deltas, normalize, distinct=distinct)
+            idx, mult, limit = exp3_delta_slots(deltas, exp3.shape[1])
+            exp3_apply_plain(ref.view(-1), idx, mult, limit)
+            if normalize:
+                normalize_exp3_weights(ref)
+            live = idx[(idx >= 0) & (idx < limit)].long()
+            uniq, cnt = t.unique(live, return_counts=True)
+            a, b = exp3.view(-1), ref.view(-1)
+            changed = t.nonzero(a != b).squeeze(1)
+            x, y = a[uniq].float(), b[uniq].float()
+            ulp_of = f32_ulp if exp3.dtype == t.float32 else bf16_ulp
+            ulp = t.maximum(ulp_of(t, x), ulp_of(t, y))
+            audit.plain.append({
+                "distinct": distinct, "slots": int(idx.numel()),
+                "live_slots": int(live.numel()),
+                "entries": int(uniq.numel()),
+                "max_repeats": int(cnt.max().item()) if cnt.numel() else 0,
+                "repeated_entries": int((cnt > 1).sum().item()),
+                "max_ulps": float(((x - y).abs() / ulp).max().item())
+                if cnt.numel() else 0.0,
+                "bitwise": bool(t.equal(a, b)),
+                "untouched_equal": bool(t.isin(changed, uniq).all().item())})
+            del ref
+
+        @contextlib.contextmanager
+        def ctx():
+            storage.apply_deltas = shadowed
+            try:
+                yield
+            finally:
+                del storage.apply_deltas
+
+        return ctx()
+
+    def summary(self):
+        if self.mesh is None:
+            return {}
+        return {"replica_checks": self.checks,
+                "replicas_unequal": self.unequal,
+                "k4_vs_plain": self.plain}
+
+    def gate(self, label):
+        if self.unequal:
+            fail(f"{label}: state differs across ranks: {self.unequal}")
+        bad = [r for r in self.plain
+               if r["max_ulps"] > 1.0 or not r["untouched_equal"]]
+        if bad:
+            fail(f"{label}: K4 off exp3_apply_plain by more than one ulp on "
+                 f"the gathered list: {bad}")
+
+
+def card_identity(torch, dev):
+    """This rank's card: its index, name, uuid and PCI bus id (in
+    ``nvidia-smi``'s format), so the parent can tell the cards apart."""
+    if dev.type != "cuda":
+        return {"device": str(dev)}
+    p = torch.cuda.get_device_properties(dev)
+    bus = getattr(p, "pci_bus_id", None)
+    pci = (f"{getattr(p, 'pci_domain_id', 0):08X}:{bus:02X}:"
+           f"{getattr(p, 'pci_device_id', 0):02X}.0" if bus is not None
+           else None)
+    uuid = str(getattr(p, "uuid", ""))
+    smi = subprocess.run(
+        ["nvidia-smi", f"--id=GPU-{uuid}",
+         "--query-gpu=name,power.limit,pci.bus_id",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return {"device": str(dev), "name": p.name, "uuid": uuid,
+            "pci_bus_id": pci, "nvidia_smi": smi.stdout.strip()
+            or smi.stderr.strip()}
+
+
+def tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_wrappers():
+    """Every kernel wrapper by name (their launch counts)."""
+    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
+    from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
+    from bliss_gnn_tpu_torch.ops.gather import lut_gather
+    from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add
+    from bliss_gnn_tpu_torch.ops.scatter import scatter_add
+    from bliss_gnn_tpu_torch.ops.segsum import segment_sum
+    from bliss_gnn_tpu_torch.ops.spmm import spmm
+
+    return {"scatter_add": scatter_add, "lut_gather": lut_gather,
+            "segment_sum": segment_sum, "exp3_apply": exp3_apply,
+            "row_scatter_add": row_scatter_add, "spmm": spmm,
+            "gat_attention": gat_attention}
+
+
+def pilot_plan(torch, graph, scfg, cfg, indptr_np, seeds, smask):
+    """The main path's plan: a pilot of ``pilot_steps`` fused steps at the
+    a-priori caps, the refit from its maxima, then as many counted steps
+    from fresh weights, widened 1.5x after an overflow. Returns the final
+    plan and the pilot's numbers."""
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.samplers import init_exp3_weights
+    from bliss_gnn_tpu_torch.train.steps import make_train_step
+
+    dev = seeds.device
+    L, n_steps = len(scfg.fanouts), cfg["pilot_steps"]
+    deg_np = np.diff(indptr_np)
+    plan = CapacityPlan.build(cfg["batch"], scfg.fanouts, graph.n_nodes,
+                              graph.n_edges, kind=scfg.kind,
+                              deg_std=float(deg_np.std()),
+                              max_degree=int(deg_np.max()))
+
+    def run(step_plan, seed, widen):
+        st = fresh_state(torch, dev, graph, scfg,
+                         init_exp3_weights(L, graph.n_edges, device=dev),
+                         torch.Generator(device=dev).manual_seed(seed),
+                         seed=seed, dims=cfg)
+        step = make_train_step(graph, scfg, step_plan, False, device=dev)
+        log, widened = [], 0
+        for _ in range(n_steps):
+            st, m = step(st, seeds, smask)
+            log.append(m)
+            over = {k for l in range(L)
+                    for k in ("frontier_overflow", "block_edge_overflow")
+                    if int(m[f"layer{l}/{k}"]) > 0}
+            if widen and over:
+                step_plan = step_plan.widen(
+                    1.5, frontier="frontier_overflow" in over)
+                step = make_train_step(graph, scfg, step_plan, False,
+                                       device=dev)
+                widened += 1
+        return log, step_plan, widened
+
+    pilot, _, _ = run(plan, 1, False)
+    fr = [max(int(m[f"layer{l}/frontier_edges"]) for m in pilot)
+          for l in range(L)]
+    be = [max(int(m[f"layer{l}/n_block_edges_true"]) for m in pilot)
+          for l in range(L)]
+    tight = plan.refit(fr, be, max_degree=int(deg_np.max()))
+    _, final, widened = run(tight, 0, True)
+    return final, {"pilot_steps": n_steps, "pilot_frontier_edges": fr,
+                   "pilot_block_edges": be, "widened": widened,
+                   "frontier_caps": final.frontier_caps,
+                   "block_e_caps": final.block_e_caps}
+
+
+def multicard_worker(cfg, graph_dir, device, plan, last):
+    """One rank of a group of S (one rank a card under NCCL; gloo ranks on
+    the CPU to rehearse): the graph from ``graph_dir`` on its card, the
+    plan (``pilot_plan`` on rank 0 when ``plan`` is None, broadcast), then
+    the DP step and the range-sharded step of SAGE (``parallel_step_run``:
+    eager steps, the captured chained step, each against two eager DP
+    twins from one state; every step audited across the ranks), and, in
+    the ``last`` group, GATv2 through the DP step and the ring inference
+    of both trained models. Returns this rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from bliss_gnn_tpu_torch.parallel.dp import (
+        make_dp_multi_train_step,
+        make_dp_train_step,
+    )
+    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+    from bliss_gnn_tpu_torch.parallel.shardedstep import (
+        ShardedDeviceGraph,
+        init_exp3_shard,
+        make_sharded_multi_train_step,
+        make_sharded_train_step,
+        unshard_exp3,
+    )
+    from bliss_gnn_tpu_torch.sampling.samplers import (
+        SamplerConfig,
+        init_exp3_weights,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(None, device=device)
+    dev, S, L = mesh.device, mesh.size, len(cfg["fanouts"])
+    tol = MULTICARD_TOLERANCE if cfg["gate"] else None
+    wrappers = kernel_wrappers()
+    out = {"rank": mesh.rank, "ranks": S, "backend": mesh.backend,
+           "pid": os.getpid(), **card_identity(torch, dev)}
+    t0 = time.perf_counter()
+    indptr_np = np.load(os.path.join(graph_dir, "indptr.npy"))
+    graph = graph_from_csc(
+        torch, dev, indptr_np,
+        np.load(os.path.join(graph_dir, "csc_src.npy"), mmap_mode="r"),
+        cfg["n_feats"], cfg["n_classes"])
+    out["graph_seconds"] = time.perf_counter() - t0
+    t_start = time.perf_counter()
+
+    def note(stage):  # progress on stderr, one line a rank and stage
+        print(f"[multicard S={S} rank {mesh.rank}] {stage} at "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+              flush=True)
+
+    E = graph.n_edges
+    # every rank made the same graph (features and labels from one seed)
+    digest = torch.stack([graph.ndata["features"].sum(dtype=torch.float64),
+                          graph.ndata["labels"].sum(dtype=torch.float64),
+                          graph.csc_src.sum(dtype=torch.float64)])
+    if not bool((mesh.all_gather(digest) == digest).all()):
+        fail(f"rank {mesh.rank}: the ranks' graphs differ")
+    scfg = SamplerConfig(kind="poisson-bandit", fanouts=tuple(cfg["fanouts"]))
+    B = cfg["batch"]
+    seeds_np = np.random.default_rng(0).integers(
+        0, graph.n_nodes, max(MULTICARD_SIZES) * B).astype(np.int32)
+    seeds = torch.from_numpy(seeds_np[:S * B]).to(dev)
+    smask = torch.ones(S * B, dtype=torch.bool, device=dev)
+    if plan is None:
+        box = [pilot_plan(torch, graph, scfg, cfg, indptr_np, seeds[:B],
+                          smask[:B]) if mesh.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        plan, out["pilot"] = box[0]
+    out["plan"] = plan
+    note("plan")
+    if last and dev.type == "cuda":
+        mesh.barrier()  # every rank holds its card: who is on which card
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,gpu_bus_id",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        out["compute_apps"] = apps.stdout.strip().splitlines()
+        mesh.barrier()
+
+    def state(c, exp3, seed=0):
+        return fresh_state(torch, dev, graph, c, exp3, mesh.generator(seed),
+                           dims=cfg)
+
+    def dp_run(c, label, counts, kernels=STEP_KERNELS):
+        step = make_dp_train_step(mesh, graph, c, plan, False,
+                                  exp3_normalize=False)
+        multi = make_dp_multi_train_step(mesh, graph, c, plan, False,
+                                         exp3_normalize=False)
+
+        def twin():
+            tw = state(c, init_exp3_weights(L, E, device=dev))
+            tw, _ = step(tw, seeds, smask)  # makes Adam's state
+            return tw
+
+        st = state(c, init_exp3_weights(L, E, device=dev))
+        res, st = parallel_step_run(
+            torch, label, st, step, multi, step, twin(), twin(), seeds,
+            smask, wrappers, mesh, lambda s: s.exp3_weights, tol,
+            counts=counts, kernels=kernels,
+            audit=RankAudit(torch, mesh, exp3=True), twin_name="dp")
+        return res, st.model, step
+
+    out["dp"], sage_model, dp_step = dp_run(scfg, "dp", cfg["counts"])
+    # what the DP step holds on a rank: the replicated graph and arm
+    # weights [L, E + EDGE_PAD] (bf16)
+    out["dp"]["storage_bytes"] = tensor_bytes(
+        graph.csc_indptr, graph.csc_src, graph.csr_indptr,
+        *graph.ndata.values(), *graph.edata.values()) + (
+            L * graph.csc_src.numel() * 2)
+    note("dp")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    hv = host_view(torch, graph, indptr_np)
+    sg = ShardedDeviceGraph.build(hv, mesh, feature_dtype=torch.bfloat16)
+    build_s = time.perf_counter() - t0
+
+    def exp3_of(s):
+        w = s.exp3_weights
+        return unshard_exp3(mesh.all_gather(w), L, E) if w.dim() == 1 else w
+
+    def dp_twin():
+        tw = state(scfg, init_exp3_weights(L, E, device=dev))
+        tw, _ = dp_step(tw, seeds, smask)
+        return tw
+
+    res, st = parallel_step_run(
+        torch, "sharded", state(scfg, init_exp3_shard(L, E, mesh)),
+        make_sharded_train_step(mesh, sg, scfg, plan, False),
+        make_sharded_multi_train_step(mesh, sg, scfg, plan, False),
+        dp_step, dp_twin(), dp_twin(), seeds, smask, wrappers, mesh, exp3_of,
+        tol, counts=cfg["counts"], audit=RankAudit(torch, mesh),
+        twin_name="dp")
+    out["sharded"] = dict(
+        res, build_seconds=build_s, epr=sg.epr, npr=sg.npr,
+        storage_bytes=tensor_bytes(  # this rank's shards and arm weights
+            sg.csc_indptr, sg.csc_src_sh, sg.w_sh, sg.features_sh,
+            sg.labels_sh) + (L * sg.epr + 1) * 2,
+        row_gather_collectives_per_step={
+            k: v for k, v in res["collectives_per_step"].items()
+            if k in ("all_gather", "reduce_scatter")})
+    del st, sg
+    note("sharded")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if last:
+        gcfg = dataclasses.replace(scfg, model="gat")
+        out["gat"], gat_model, _ = dp_run(
+            gcfg, "gat", cfg["gat_counts"],
+            STEP_KERNELS + ("row_scatter_add",))
+        note("gat")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["inference"], out["k7_partials"] = sharded_inference_records(
+            torch, mesh, hv, graph, {"sage": sage_model, "gat": gat_model},
+            wrappers, n_layers=L)
+        note("inference")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def multicard_phases(torch, cfg, graph_dir, device, sizes=MULTICARD_SIZES):
+    """The groups of ``sizes`` ranks, a new spawn each (``run_ranks``, one
+    rank a card under NCCL), each running ``multicard_worker``; the plan
+    of the first group is handed to the others. Prints ``multicard_dp``,
+    ``multicard_sharded`` per group and, for the largest,
+    ``multicard_gat`` and ``multicard_inference``; fails on a gate held
+    across the ranks (the backend, one card a rank). Returns each group's
+    ranks' numbers by S."""
+    from bliss_gnn_tpu_torch.parallel.multihost import run_ranks
+
+    runs, plan = {}, None
+    for S in sizes:
+        t0 = time.perf_counter()
+        threads = max(1, (os.cpu_count() or 1) // S)
+        ranks = run_ranks(multicard_worker, S,
+                          (cfg, graph_dir, device, plan, S == sizes[-1]),
+                          device=device,
+                          workdir=os.path.join(graph_dir, f"ranks{S}"),
+                          threads=threads)
+        spawn_s = time.perf_counter() - t0
+        plan = plan or ranks[0]["plan"]
+        want = "nccl" if device == "cuda" else "gloo"
+        cards = [r.get("uuid") or r["device"] for r in ranks]
+        if any(r["backend"] != want for r in ranks) or (
+                device == "cuda" and len(set(cards)) != S):
+            got = [(r["backend"], r["device"]) for r in ranks]
+            fail(f"multicard S = {S}: ranks {got}: want {want}, one card a "
+                 f"rank")
+        apps = check_one_process_a_card(ranks) if device == "cuda" else {}
+        ident = [{k: r.get(k) for k in ("rank", "device", "name", "uuid",
+                                        "pci_bus_id", "nvidia_smi", "pid")}
+                 for r in ranks]
+        for kind in ("dp", "sharded"):
+            emit({"phase": f"multicard_{kind}", "ranks": S,
+                  "backend": ranks[0]["backend"], "cards": ident,
+                  "group_seconds": spawn_s,
+                  "graph_seconds": [r["graph_seconds"] for r in ranks],
+                  "pilot": ranks[0].get("pilot"), **apps,
+                  "by_rank": [r[kind] for r in ranks]})
+        if S == sizes[-1]:
+            emit({"phase": "multicard_gat", "ranks": S,
+                  "by_rank": [r["gat"] for r in ranks]})
+            emit({"phase": "multicard_inference", "ranks": S,
+                  "by_rank": [{"rank": r["rank"], "models": r["inference"],
+                               "k7_partials": r["k7_partials"]}
+                              for r in ranks]})
+        runs[S] = ranks
+    return runs
+
+
+def bus_key(pci):
+    """A PCI bus id without its domain, lower case ("18:00.0"): the part
+    ``nvidia-smi`` and CUDA's device properties print alike."""
+    return ":".join((pci or "").strip().lower().split(":")[-2:])
+
+
+def check_one_process_a_card(ranks):
+    """``nvidia-smi``'s compute processes while every rank of the group held
+    its card: where the ranks' pids show, each on its own card and no card
+    with two; where they do not (a PID namespace), recorded as not
+    visible."""
+    apps = ranks[0].get("compute_apps") or []
+    seen = {}
+    for line in apps:
+        pid, _, bus = (x.strip() for x in line.partition(","))
+        seen.setdefault(pid, []).append(bus_key(bus))
+    mine = {str(r["pid"]): bus_key(r.get("pci_bus_id")) for r in ranks}
+    visible = {p: seen[p] for p in mine if p in seen}
+    if visible and (set(visible) != set(mine) or any(
+            v != [mine[p]] for p, v in visible.items())):
+        fail(f"multicard: not one rank process a card: {apps} {mine}")
+    return {"compute_apps": apps,
+            "rank_pids_visible": bool(visible)}
+
+
+def multicard_cli(torch, workdir, device, n):
+    """``cli.main`` on synth-pubmed as ``dp2`` runs it, with ``--dp n`` and
+    then ``--dp n --shard-graph``: the ranks start themselves, rank 0
+    writes a checkpoint, ``final_eval`` gives F1s in [0, 1]."""
+    from bliss_gnn_tpu_torch.train import cli
+
+    recs = []
+    for shard in (False, True):
+        logdir = os.path.join(workdir, f"cli_dp{n}{'_shard' if shard else ''}")
+        argv = (["--dataset", DP2_CFG["dataset"], "--model", "sage",
+                 "--num-layers", "2", "--fan-out", "64,32",
+                 "--batch-size", "64", "--num-steps", "6",
+                 "--num-hidden", "64", "--logdir", logdir, "--dp", str(n),
+                 "--steps-per-call", "2", "--refit-after", "2",
+                 "--exp3-renorm-every", "2"]
+                + (["--shard-graph"] if shard else [])
+                + (["--platform", "cpu"] if device == "cpu" else []))
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        secs = time.perf_counter() - t0
+        ckpts = [os.path.join(r, f) for r, _, fs in os.walk(logdir)
+                 for f in fs if f == "best"]
+        ok = bool(ckpts) and all(0.0 <= res[0][s] <= 1.0
+                                 for s in ("Train", "Validation", "Test"))
+        recs.append({"argv": argv, "seconds": secs, "result": res[0],
+                     "checkpoint": bool(ckpts)})
+        if not ok:
+            fail(f"multicard_cli {' '.join(argv)}: {res}, {ckpts}")
+    emit({"phase": "multicard_cli", "ranks": n, "runs": recs})
+    return recs
+
+
+def multicard_scaling(torch, runs, device):
+    """``multicard_scaling``: for the DP and the sharded step, the replayed
+    and chained step ms (the slowest rank's), ``dp_weak_scaling_pct`` =
+    replayed_step_ms(S = 1) / replayed_step_ms(S) x 100 (``bench.py``'s
+    key), sampled edges a second over all ranks, collectives, bytes, the
+    graph and arm weights a rank holds and peak memory a rank; each rank's
+    card (``nvidia-smi`` by its uuid) and NCCL's version."""
+    sizes = sorted(runs)
+    out = {"phase": "multicard_scaling", "sizes": sizes}
+    for kind in ("dp", "sharded"):
+        rep = {S: max(r[kind][f"{kind}_replayed_step_ms"] for r in runs[S])
+               for S in sizes}
+        chained = {S: max(r[kind][f"{kind}_chained_step_ms"]
+                          for r in runs[S]) for S in sizes}
+        eager = {S: max(r[kind][f"{kind}_step_ms"] for r in runs[S])
+                 for S in sizes}
+        edges = {S: runs[S][0][kind]["sampled_edges_per_step"]
+                 for S in sizes}
+        out[kind] = {
+            "replayed_step_ms": rep, "chained_step_ms": chained,
+            "eager_step_ms": eager,
+            "dp_weak_scaling_pct": {S: rep[sizes[0]] / rep[S] * 100.0
+                                    for S in sizes[1:]},
+            "chained_weak_scaling_pct": {
+                S: chained[sizes[0]] / chained[S] * 100.0
+                for S in sizes[1:]},
+            "sampled_edges_per_s": {S: edges[S] / (rep[S] / 1e3)
+                                    for S in sizes},
+            "collectives_per_step_per_rank": {
+                S: runs[S][0][kind]["collectives_count_per_step"]
+                for S in sizes},
+            "collective_bytes_per_step_per_rank": {
+                S: runs[S][0][kind]["collective_bytes_per_step"]
+                for S in sizes},
+            "moved_bytes_per_step_per_rank": {
+                S: runs[S][0][kind]["moved_bytes_per_step"] for S in sizes},
+            "storage_bytes_per_rank": {
+                S: runs[S][0][kind]["storage_bytes"] for S in sizes},
+            "peak_memory_bytes_per_rank": {
+                S: [r[kind].get("peak_memory_bytes") for r in runs[S]]
+                for S in sizes}}
+    out["cards"] = [{k: r.get(k) for k in ("rank", "device", "uuid",
+                                           "pci_bus_id", "nvidia_smi")}
+                    for r in runs[sizes[-1]]]
+    out["nccl"] = (".".join(str(v) for v in torch.cuda.nccl.version())
+                   if device == "cuda" else None)
+    emit(out)
+    vals = [v for kind in ("dp", "sharded")
+            for k in ("replayed_step_ms", "dp_weak_scaling_pct",
+                      "sampled_edges_per_s")
+            for v in out[kind][k].values()]
+    if not all(math.isfinite(v) and v > 0 for v in vals):
+        fail(f"multicard_scaling: {out}")
+    return out
+
+
+def multicard_main(torch, here, n_cards):
+    """``--cards 4``: only the multi-card phases, with groups of 1, 2 and 4
+    ranks on the four cards. Raises before any work with fewer cards
+    visible."""
+    sizes = MULTICARD_SIZES
+    if n_cards != sizes[-1]:
+        fail(f"--cards {n_cards}: the multi-card phases are defined for "
+             f"--cards {sizes[-1]} (groups of {sizes})")
+    visible = torch.cuda.device_count()
+    if visible < n_cards:
+        fail(f"--cards {n_cards}: {visible} card(s) visible; the multi-card "
+             f"phases never run on fewer")
+    from bliss_gnn_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,pci.bus_id",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    lines = [l.strip() for l in smi.stdout.strip().splitlines() if l.strip()]
+    if smi.returncode != 0 or len(lines) < n_cards:
+        fail(f"nvidia-smi: {smi.stdout} {smi.stderr.strip()}")
+    print(lines[0].rsplit(",", 1)[0], flush=True)
+    emit({"phase": "device", "cards": lines, "visible": visible,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": ".".join(str(v) for v in torch.cuda.nccl.version())})
+    build_s = _build.build_all()
+    emit({"phase": "build", "seconds": round(build_s, 2),
+          "kernels": sorted(_build.SIGNATURES)})
+    workdir = os.path.join(here, "build", "chip_smoke_runs", "multicard")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    indptr_np, csc_src_np = reddit_shaped_csc()
+    np.save(os.path.join(workdir, "indptr.npy"), indptr_np)
+    np.save(os.path.join(workdir, "csc_src.npy"), csc_src_np)
+    emit({"phase": "multicard_graph", "n_nodes": N_NODES,
+          "n_edges": int(csc_src_np.shape[0]),
+          "seconds": time.perf_counter() - t0})
+    del csc_src_np
+    runs = multicard_phases(torch, MULTICARD_CFG, workdir, "cuda", sizes)
+    multicard_cli(torch, workdir, "cuda", n_cards)
+    multicard_scaling(torch, runs, "cuda")
+    shutil.rmtree(os.path.join(here, "build", "chip_smoke_runs"),
+                  ignore_errors=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": n_cards}})
 
 
 if __name__ == "__main__":

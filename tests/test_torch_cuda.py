@@ -384,6 +384,56 @@ def test_exp3_apply_f32_duplicates_within_m_minus_1_ulps(dev, gen):
     assert int(m.max()) == 8
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_exp3_apply_repeats_route_same_bits_every_call(dev, gen, dtype):
+    """K4's repeats route on a gathered list of four ranks' lists, each
+    distinct, so an index repeats up to 4 times (as the all-gathered
+    deltas of a DP step at S = 4 do), with no-op slots: the same bits on
+    20 calls (the card's slot order does not reach the result), bit for
+    bit the CPU's sequential ``exp3_apply_plain`` (the same products in
+    list order, one rounding), within one ulp of the plain version on the
+    card, untouched entries unchanged; launched once a call, counted on
+    its route."""
+    limit, per = 1 << 20, 60_000
+    pool = torch.randperm(limit, generator=gen, device=dev)[:90_000]
+    lists = [pool[torch.randperm(pool.shape[0], generator=gen,
+                                 device=dev)[:per]] for _ in range(4)]
+    idx = torch.cat(lists).to(torch.int32)
+    idx[::7] = limit  # zero exponents: no-op slots
+    idx[3::101] = -1
+    mult = torch.exp(torch.rand(idx.shape[0], generator=gen, device=dev)
+                     * 0.5)
+    state = (torch.rand(limit, generator=gen, device=dev) + 0.5).to(dtype)
+    live = idx[(idx >= 0) & (idx < limit)].long()
+    uniq, cnt = torch.unique(live, return_counts=True)
+    assert int(cnt.max()) == 4 and int((cnt == 1).sum()) > 0
+    launches = exp3_apply.launches
+    key = (f"repeats {'f32' if dtype == torch.float32 else 'bf16'} "
+           f"{idx.shape[0]}")
+    before = exp3_apply.launches_by_shape.get(key, 0)
+    outs = []
+    for _ in range(20):
+        got = state.clone()
+        exp3_apply(got, idx, mult, limit, distinct=False)
+        outs.append(got)
+    assert exp3_apply.launches == launches + 20
+    assert exp3_apply.launches_by_shape[key] == before + 20
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    got = outs[0]
+    cpu = state.cpu()
+    exp3_apply_plain(cpu, idx.cpu(), mult.cpu(), limit)
+    assert torch.equal(got.cpu(), cpu)
+    ref = state.clone()
+    exp3_apply_plain(ref, idx, mult, limit)
+    ulp_of = _f32_ulp if dtype == torch.float32 else _bf16_ulp
+    a, b = got[uniq].float(), ref[uniq].float()
+    ulp = torch.maximum(ulp_of(a.to(dtype)), ulp_of(b.to(dtype)))
+    assert ((a - b).abs() <= ulp).all()
+    untouched = torch.ones(limit, dtype=torch.bool, device=dev)
+    untouched[uniq] = False
+    assert torch.equal(got[untouched], state[untouched])
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_exp3_apply_other_dtypes_raise(dev, dtype):
     state = torch.ones(1024, dtype=dtype, device=dev)
@@ -1114,3 +1164,100 @@ def test_repeated_seeds_sample_the_same_blocks_on_the_card(dev):
     for other in got[1:]:
         for a, b in zip(got[0], other):
             assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _four_card_worker():
+    """One of four NCCL ranks (one a card) at ``_small_training``'s size,
+    32 seeds a rank: three eager DP steps from one state, after each the
+    parameters, Adam's state and the arm weights gathered from every rank;
+    then the chained DP step captured with its collectives, and one replay
+    against an eager DP twin loaded with the same state."""
+    from bliss_gnn_tpu_torch.parallel.dp import (
+        make_dp_multi_train_step, make_dp_train_step)
+    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+    from bliss_gnn_tpu_torch.train import steps
+
+    mesh = make_mesh(None, device="cuda")
+    dev = mesh.device
+    dg, cfg, plan, fresh = _small_training(dev, "sage")
+    step = make_dp_train_step(mesh, dg, cfg, plan, False,
+                              exp3_normalize=False)
+    seeds = (torch.arange(32 * mesh.size, dtype=torch.int32, device=dev)
+             * 37) % dg.n_nodes
+    smask = torch.ones_like(seeds, dtype=torch.bool)
+
+    def gathered_equal(t, bits):
+        rows = mesh.all_gather(t.reshape(-1)).view(bits)
+        return bool((rows == rows[0]).all())
+
+    st = fresh()
+    st.generator = mesh.generator(0)
+    equal = []
+    for _ in range(3):
+        st, _ = step(st, seeds, smask)
+        flat = torch.cat([v.float().reshape(-1)
+                          for v in _train_tensors(st).values()])
+        equal.append((gathered_equal(flat, torch.int32),
+                      gathered_equal(st.exp3_weights, torch.int16)))
+    multi = make_dp_multi_train_step(mesh, dg, cfg, plan, False,
+                                     exp3_normalize=False)
+    for _ in range(steps.CAPTURE_WARMUP_STEPS + 1):  # warm-ups, capture
+        st, _ = multi(st, seeds[None], smask[None])
+    twin = fresh()
+    twin, _ = step(twin, seeds, smask)  # makes Adam's state
+    with torch.no_grad():
+        for p, q in zip(twin.model.parameters(), st.model.parameters()):
+            p.copy_(q)
+            for k, v in st.optimizer.state[q].items():
+                twin.optimizer.state[p][k].copy_(v)
+        twin.exp3_weights.copy_(st.exp3_weights)
+    twin.scheduler.load_state_dict(st.scheduler.state_dict())
+    twin.generator.set_state(st.generator.get_state())
+    twin.step = st.step
+    twin, me = step(twin, seeds, smask)
+    st, mr = multi(st, seeds[None], smask[None])
+    cpu = {k: v.cpu() for k, v in _train_tensors(st).items()}
+    return dict(backend=mesh.backend, device=str(dev), equal=equal,
+                loss_eager=float(me["train_loss"]),
+                loss_replayed=float(mr["train_loss"][0]),
+                replayed=cpu, eager={k: v.cpu() for k, v in
+                                     _train_tensors(twin).items()},
+                exp3_replayed=st.exp3_weights.float().cpu(),
+                exp3_eager=twin.exp3_weights.float().cpu())
+
+
+@pytest.fixture(scope="module")
+def four_card_ranks():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs of one host: one NCCL rank a "
+                    "card")
+    from bliss_gnn_tpu_torch.parallel.multihost import run_ranks
+
+    return run_ranks(_four_card_worker, 4, device="cuda", threads=None)
+
+
+def test_dp_step_at_four_nccl_ranks_is_bit_equal_across_ranks(
+        four_card_ranks):
+    """Four ranks on four cards under NCCL: after every DP step the
+    parameters and Adam's state (one all-reduce of the gradients) and the
+    arm weights (every rank's deltas on K4's repeats route) are the same
+    bits on every rank."""
+    assert [r["backend"] for r in four_card_ranks] == ["nccl"] * 4
+    assert [r["device"] for r in four_card_ranks] == [
+        f"cuda:{i}" for i in range(4)]
+    for r in four_card_ranks:
+        assert r["equal"] == [(True, True)] * 3
+
+
+def test_dp_replay_at_four_nccl_ranks_equals_its_eager_twin(
+        four_card_ranks):
+    """The chained DP step captured with its NCCL collectives, replayed
+    from one state against an eager DP step: the loss within rtol 1e-5, the
+    training state as ``_assert_same_training`` holds it, the arm weights
+    within one bf16 ulp."""
+    for r in four_card_ranks:
+        assert abs(r["loss_replayed"] - r["loss_eager"]) <= (
+            1e-5 * abs(r["loss_eager"]))
+        _assert_same_training(r["replayed"], r["eager"])
+        torch.testing.assert_close(r["exp3_replayed"], r["exp3_eager"],
+                                   rtol=2.0 ** -8, atol=0)
