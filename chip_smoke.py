@@ -99,6 +99,14 @@ The K4 rows add its repeats route (the gathered deltas of data-parallel
 ranks, which repeat an edge) at four ranks' shape; its launches on one
 card are ``dp2``'s.
 
+Last, phase ``bench_torch``: ``python3 bench_torch.py`` (the reference
+benchmark's keys measured through the port) in a subprocess with its
+default switches but the full SBM section, its line checked for the keys
+``bench.py`` prints on one card; the kernel rows add the two shapes it
+gives K6 and K7 (F = 602 f32 with edge weights; (1, 256)), with its
+launches. The main path's graph is ``bench_torch.build_graph``'s, cached
+in ``.bench_cache/torch/``, so the subprocess reads it back.
+
 ``python3 chip_smoke.py --cards 4`` runs only the parallel layer across
 four cards of one host, one NCCL rank a card (it refuses, before any work,
 with fewer cards visible): the Reddit-shaped CSC built once and shared as
@@ -141,19 +149,35 @@ import time
 
 import numpy as np
 
-N_NODES = 232_965
-N_RAND_EDGES = 114_615_892  # directed edges; one self-loop per node is added
-N_FEATS = 602
-N_CLASSES = 41
-BATCH = 256
-FANOUTS = (4096, 2048, 1024)
-HIDDEN = 256
-GAT_HEADS = (4, 1)  # per hidden layer, at the output
+from bench_torch import (  # the configuration and helpers both files run
+    BATCH,
+    FANOUTS,
+    GAT_HEADS,
+    HIDDEN,
+    N_CLASSES,
+    N_FEATS,
+    N_NODES,
+    TTVF1_K,
+    TTVF1_KV,
+    build_graph,
+    expected_keys,
+    fresh_state,
+    graph_from_csc,
+    headline_inputs,
+    kernel_wrappers,
+    out_indptr,
+    reddit_shaped_csc,
+    reset_counts,
+    roofline_ms,
+    spmm_cost,
+    switches,
+    sync,
+    time_to_val_f1,
+)
+
 PREFIX_EDGES = 4_000_000  # the CSC prefix the inference checks run on
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 LOCKSTEP_STEPS = 3  # replayed steps held against eager twins, each path
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 BF16_ULP = 2.0 ** -7
 
 
@@ -164,50 +188,6 @@ def emit(obj):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def reddit_shaped_csc(seed=0):
-    """The power-law graph of ``bench.py`` (degree sequence capped at 21k,
-    hub degrees on random node ids, uniform srcs, one self-loop per node),
-    built straight into CSC order: each dst's random in-edges in draw order,
-    then its self-loop. Returns (indptr int64 [N+1], csc_src int32 [E])."""
-    rng = np.random.default_rng(seed)
-    e_rand = N_RAND_EDGES
-    ranks = np.arange(1, N_NODES + 1, dtype=np.float64)
-    wgt = ranks ** -0.8
-    deg = np.minimum(wgt / wgt.sum() * e_rand, 21_000).astype(np.int64)
-    deg[deg < 1] = 1
-    while deg.sum() < e_rand:
-        deficit = e_rand - deg.sum()
-        deg = np.minimum(deg + np.minimum(deg, max(deficit // len(deg), 1)),
-                         21_000)
-    extra = deg.sum() - e_rand
-    for i in range(N_NODES - 1, -1, -1):  # trim from the tail
-        if extra <= 0:
-            break
-        cut = min(extra, deg[i] - 1)
-        deg[i] -= cut
-        extra -= cut
-    node_of_rank = rng.permutation(N_NODES)
-    src_rand = rng.integers(0, N_NODES, size=int(deg.sum()))  # rank order
-    deg_node = np.empty(N_NODES, np.int64)
-    deg_node[node_of_rank] = deg
-    rank_off = np.cumsum(deg) - deg  # offset of each rank's draws
-    off_node = np.empty(N_NODES, np.int64)
-    off_node[node_of_rank] = rank_off
-    indptr = np.zeros(N_NODES + 1, np.int64)
-    np.cumsum(deg_node + 1, out=indptr[1:])
-    n_edges = int(indptr[-1])
-    csc_src = np.empty(n_edges, np.int32)
-    loops = indptr[1:] - 1
-    is_rand = np.ones(n_edges, bool)
-    is_rand[loops] = False
-    start_node = np.cumsum(deg_node) - deg_node  # among random edges
-    take = (np.repeat(off_node - start_node, deg_node)
-            + np.arange(int(deg.sum()), dtype=np.int64))
-    csc_src[is_rand] = src_rand[take]
-    csc_src[loops] = np.arange(N_NODES, dtype=np.int32)
-    return indptr, csc_src
 
 
 def time_ms(fn, reps, torch, warmup=2):
@@ -277,45 +257,15 @@ def host_us(fn, torch, calls=1000):
 
 def main_graph(torch, dev):
     """The main path's graph on ``dev`` (``graph_from_csc`` of the
-    Reddit-shaped CSC). Returns (graph, the CSC indptr in host memory,
-    seconds)."""
+    Reddit-shaped CSC, ``bench_torch.build_graph``'s: cached, so the
+    ``bench_torch`` phase reads it back). Returns (graph, the CSC indptr in
+    host memory, seconds)."""
     t0 = time.perf_counter()
-    indptr_np, csc_src_np = reddit_shaped_csc()
+    indptr_np, csc_src_np = build_graph()
     graph = graph_from_csc(torch, dev, indptr_np, csc_src_np, N_FEATS,
                            N_CLASSES)
     del csc_src_np
     return graph, indptr_np, time.perf_counter() - t0
-
-
-def graph_from_csc(torch, dev, indptr_np, csc_src_np, n_feats, n_classes):
-    """A ``DeviceGraph`` of a CSC on ``dev``: weights 1/in-degree (bf16),
-    random bf16 features and labels from seed 0 (the same on every card);
-    the samplers walk the CSC only, and of the CSR GCN's norm reads the
-    out-degrees. ``csc_src_np`` may be a memmap."""
-    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
-
-    n_nodes = int(indptr_np.shape[0]) - 1
-    n_edges = int(csc_src_np.shape[0])
-    gen = torch.Generator(device=dev).manual_seed(0)
-    indptr = torch.from_numpy(indptr_np.astype(np.int32)).to(dev)
-    csc_src = torch.zeros(n_edges + EDGE_PAD, dtype=torch.int32, device=dev)
-    csc_src[:n_edges] = torch.from_numpy(np.array(csc_src_np)).to(dev)
-    deg = (indptr[1:] - indptr[:-1]).long()
-    w = torch.zeros(n_edges + EDGE_PAD, dtype=torch.bfloat16, device=dev)
-    w[:n_edges] = (1.0 / deg.clamp(min=1).float()).repeat_interleave(
-        deg, output_size=n_edges).to(torch.bfloat16)
-    dummy = torch.zeros(1, dtype=torch.int32, device=dev)
-    graph = DeviceGraph(
-        csc_indptr=indptr, csc_src=csc_src,
-        csr_indptr=out_indptr(torch, csc_src[:n_edges], n_nodes),
-        csr_dst=dummy, csr_eid=dummy,
-        ndata={"features": torch.randn((n_nodes, n_feats), generator=gen,
-                                       device=dev, dtype=torch.bfloat16),
-               "labels": torch.randint(0, n_classes, (n_nodes,),
-                                       generator=gen, device=dev)},
-        edata={"w": w}, n_nodes=n_nodes, n_edges=n_edges)
-    sync(torch, dev)
-    return graph
 
 
 def main(argv=None):
@@ -668,6 +618,8 @@ def main(argv=None):
     rows += wide_kernel_checks(torch, dev, gfinal, graph, indptr_np,
                                gby_shape, gsites, layer_launches,
                                prec_launches)
+    bench_rows = bench_kernel_rows(torch, dev, graph, indptr_np)
+    rows += bench_rows
 
     # -- phase 7: the trainer, the CLI, time to validation F1 -------------
     workdir = os.path.join(here, "build", "chip_smoke_runs")
@@ -695,19 +647,13 @@ def main(argv=None):
         if r["name"].startswith("exp3_apply[repeats"):
             r["launches"] = k4_repeats
     shutil.rmtree(workdir, ignore_errors=True)
+
+    # -- phase 10: bench_torch.py, the reference benchmark's keys ----------
+    bench_torch_phase(here, smi_line, bench_rows)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
-
-
-def reset_counts(wrappers):
-    """Sets every wrapper's launch count, and its counts by shape where it
-    keeps them (K1, K3, K5, K7's partial outputs), to 0."""
-    for fn in wrappers.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_shape"):
-            fn.launches_by_shape = {}
 
 
 def call_site_inputs(torch, graph, cfg, plan, exp3, seeds, smask, seed=5):
@@ -1410,28 +1356,17 @@ def small_replay_check(torch, dev, model_name, k=3):
 def kernel_row(name, launches, src, replaces, err, tol, ms, plain_ms, lib_ms,
                nbytes, flops, **extra):
     """One kernel's record, printed as a ``kernel`` phase line. The bound
-    is max(bytes / HBM rate, f32 operations / f32 rate) of the call."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    is max(bytes / HBM rate, f32 operations / f32 rate) of the call
+    (``roofline_ms``)."""
+    bound, by = roofline_ms(nbytes, flops)
     r = {"name": name, "route": "cuda",
          "source": f"bliss_gnn_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches,
          "max_abs_err": err, "tolerance": tol, "ms": ms,
-         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
          "library_ms": lib_ms, **extra}
     emit({"phase": "kernel", **r})
     return r
-
-
-def out_indptr(torch, csc_src, n_nodes):
-    """CSR row pointer (int32 [n_nodes + 1]) of the edges ``csc_src``: the
-    out-degrees' prefix sum, all GCN's norm reads of the CSR."""
-    deg = torch.bincount(csc_src.long(), minlength=n_nodes)
-    indptr = torch.zeros(n_nodes + 1, dtype=torch.int32,
-                         device=csc_src.device)
-    indptr[1:] = torch.cumsum(deg, 0)
-    return indptr
 
 
 def csc_prefix(torch, graph, indptr_np):
@@ -2396,14 +2331,6 @@ REFERENCE_SERIES = ("train_acc", "train_loss", "iter_time",
                     "forward_backward_time", "val_acc", "val_loss",
                     "Final Accuracy/Train", "Final Accuracy/Validation",
                     "Final Accuracy/Test")
-TTVF1_K, TTVF1_KV = 8, 4  # bench.py's train steps a chain, val batches
-
-
-def sync(torch, dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
 def host_graph_from(torch, graph, n_classes, seed=4):
     """The main path's graph as the host ``Graph`` a user hands the
     trainer: its CSC, the CSR (the stable sort ``Graph`` makes, taken on
@@ -2697,106 +2624,6 @@ def cli_phase(torch, dev, wrappers, smi_line, workdir):
                  f"series missing {sorted(want - names)}, result {res}")
     emit({"phase": "cli_small", **runs,
           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line})
-
-
-def time_to_val_f1(torch, dev, target=0.90, max_chains=25, freeze=False,
-                   seed_offset=0):
-    """``bench.py``'s time-to-validation-F1 protocol through the port:
-    synth-pubmed-hard, SAGE-256 x3, poisson-bandit, fan-outs 256/128/64,
-    batch 1024, Adam 2e-3; chains of TTVF1_K train steps (on the card one
-    captured step replayed) and, after each, validation micro-F1 on a fixed
-    set of TTVF1_KV batches with a fixed eval seed, until it reaches
-    ``target`` or ``max_chains`` chains ran. The train seconds exclude the
-    first chain (the capture) and the evaluations; the first chain is
-    counted at the mean of the others. ``freeze``: the bandit ablation,
-    sampling from the arm weights but never updating them.
-    ``seed_offset``: moves the weights' seed (1) and the draws' (2) by
-    1000 times it."""
-    from bliss_gnn_tpu_torch.graph.datasets import load_dataset
-    from bliss_gnn_tpu_torch.graph.structure import (
-        DeviceGraph,
-        Graph,
-        normalized_edata,
-    )
-    from bliss_gnn_tpu_torch.models.gnn import build_model
-    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
-    from bliss_gnn_tpu_torch.sampling.samplers import (
-        SamplerConfig,
-        init_exp3_weights,
-    )
-    from bliss_gnn_tpu_torch.train.metrics import f1_compute
-    from bliss_gnn_tpu_torch.train.steps import (
-        TrainState,
-        make_multi_eval_step,
-        make_multi_train_step,
-        make_optimizer,
-    )
-
-    g, n_classes, ml = load_dataset("synth-pubmed-hard")
-    g = Graph.canonicalize(g)
-    g.edata["w"] = normalized_edata(g)
-    dg = DeviceGraph.from_graph(g, device=dev)
-    K, Kv, bs = TTVF1_K, TTVF1_KV, 1024
-    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128, 64),
-                        exp3_freeze=freeze)
-    plan = CapacityPlan.build(bs, cfg.fanouts, g.n_nodes, g.n_edges,
-                              kind=cfg.kind)
-    model = build_model("sage", int(g.ndata["features"].shape[1]), 256,
-                        n_classes, 3, device=dev, seed=1 + 1000 * seed_offset)
-    rng = np.random.default_rng(0)
-    train_ids = np.where(g.ndata["train_mask"])[0]
-    val_ids = np.where(g.ndata["val_mask"])[0]
-    rng.choice(train_ids, bs)  # the reference's initialisation batch
-    opt, sched = make_optimizer(model.parameters(), 2e-3,
-                                max(1, len(train_ids) // bs),
-                                capturable=dev.type == "cuda")
-    state = TrainState(model, opt, sched,
-                       init_exp3_weights(3, g.n_edges, device=dev),
-                       torch.Generator(device=dev).manual_seed(
-                           2 + 1000 * seed_offset))
-    multi = make_multi_train_step(dg, cfg, plan, ml, K, device=dev)
-    eval_multi = make_multi_eval_step(dg, cfg, plan, ml, device=dev)
-    val_seeds = torch.from_numpy(
-        rng.choice(val_ids, (Kv, bs)).astype(np.int32)).to(dev)
-    val_mask = torch.ones((Kv, bs), dtype=torch.bool, device=dev)
-    eval_gen = torch.Generator(device=dev)
-
-    def val_f1():
-        f1, _, _ = eval_multi(state, eval_gen.manual_seed(7), val_seeds,
-                              val_mask)
-        return float(f1_compute(f1, ml))
-
-    def chain():
-        s = torch.from_numpy(rng.choice(train_ids, (K, bs)).astype(
-            np.int32)).to(dev)
-        t0 = time.perf_counter()
-        _, m = multi(state, s, torch.ones((K, bs), dtype=torch.bool,
-                                          device=dev))
-        sync(torch, dev)
-        return time.perf_counter() - t0, m
-
-    _, m = chain()  # warm-ups and the capture
-    curve = [val_f1()]
-    losses = m["train_loss"].tolist()
-    steps, train_s = K, 0.0
-    reached = curve[-1] >= target
-    for _ in range(max_chains - 1):
-        if reached:
-            break
-        dt, m = chain()
-        train_s += dt
-        steps += K
-        losses += m["train_loss"].tolist()
-        curve.append(val_f1())
-        reached = curve[-1] >= target
-    if steps > K:
-        train_s += train_s / (steps / K - 1)
-    elif reached:
-        train_s, _ = chain()
-    return {"steps": steps, "reached": reached, "train_seconds": train_s,
-            "val_f1_curve": curve, "final_val_f1": curve[-1],
-            "loss_first_last": [losses[0], losses[-1]],
-            "finite": all(math.isfinite(x) for x in losses)}
 
 
 def ttvf1_phase(torch, dev, wrappers, smi_line):
@@ -3546,27 +3373,6 @@ def same_blocks(torch, a, b):
                for x, y in zip(ba, bb))
 
 
-MAIN_DIMS = dict(n_feats=N_FEATS, hidden=HIDDEN, n_classes=N_CLASSES,
-                 gat_heads=GAT_HEADS)
-
-
-def fresh_state(torch, dev, graph, cfg, exp3, generator, seed=0,
-                dims=MAIN_DIMS):
-    """A training state of ``cfg.model`` at ``dims`` (the main path's by
-    default): weights from ``seed``, Adam capturable on the card."""
-    from bliss_gnn_tpu_torch.models.gnn import build_model
-    from bliss_gnn_tpu_torch.train.steps import TrainState, make_optimizer
-
-    model = build_model(cfg.model, dims["n_feats"], dims["hidden"],
-                        dims["n_classes"], len(cfg.fanouts),
-                        num_in_heads=dims["gat_heads"][0],
-                        num_out_heads=dims["gat_heads"][1], device=dev,
-                        seed=seed)
-    opt, sched = make_optimizer(model.parameters(), 2e-3, 100,
-                                capturable=dev.type == "cuda")
-    return TrainState(model, opt, sched, exp3, generator)
-
-
 STEP_KERNELS = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")
 
 
@@ -4148,6 +3954,151 @@ def dp2_phase(torch, smi_line, workdir, device="cuda"):
     return k4_repeats
 
 
+# -- bench_torch.py: the reference benchmark's keys through the port ----------
+
+BENCH_TORCH_ENV = {"BLISS_BENCH_SBM": "0"}  # the full SBM graph: see PERF.md
+BENCH_TORCH_TIMEOUT_S = 600
+
+
+def bench_kernel_rows(torch, dev, graph, indptr_np):
+    """The two kernel shapes ``bench_torch.py`` adds to the paths': K6 at
+    F = 602 f32 with edge weights (its headline, ``headline_inputs``) and
+    K7 at (H, O) = (1, 256) on bf16 rows (its GAT section), each against
+    its plain version on the CSC prefix and timed on the full graph beside
+    its plain version (K6 also beside ``torch.sparse.mm`` on the weighted
+    CSR). Their ``launches`` are set by the ``bench_torch`` phase."""
+    from bliss_gnn_tpu_torch.ops.gat_attention import (
+        gat_attention,
+        gat_attention_plain,
+        gat_plan,
+    )
+    from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain, spmm_plan
+
+    n, n_edges = graph.n_nodes, graph.n_edges
+    prefix, k, e_pre = csc_prefix(torch, graph, indptr_np)
+    ip, src, pip = graph.csc_indptr, graph.csc_src, prefix.csc_indptr
+    where = {"prefix_rows": k, "prefix_edges": e_pre}
+    w_np, x_np = headline_inputs(n, n_edges)
+    w, x = torch.from_numpy(w_np).to(dev), torch.from_numpy(x_np).to(dev)
+    del w_np, x_np
+    got, want = spmm(x, pip, src, w)[:k], spmm_plain(x, pip, src, w)[:k]
+    err = (got - want).abs().max().item()
+    tol = 1e-4 * want.abs().max().item()
+    del got, want
+    if err > tol:
+        fail(f"spmm F={N_FEATS} f32 weighted differs from its plain version: "
+             f"{err} > {tol}")
+    ld, cols, _ = spmm_plan(n, N_FEATS, x.dtype)
+    before = spmm.launches
+    spmm(x, ip, src, w)
+    per_call = spmm.launches - before
+    csr = torch.sparse_csr_tensor(ip, src[:n_edges], w, (n, n))
+    rows = [kernel_row(
+        f"spmm[F={N_FEATS},f32,weighted]", 0, "spmm_csr.cu",
+        "bliss_gnn_tpu/ops/spmm_pallas.py:1004", err,
+        "atol 1e-4 x max|plain| on the prefix",
+        time_ms(lambda: spmm(x, ip, src, w), 5, torch, warmup=1),
+        time_ms(lambda: spmm_plain(x, ip, src, w), 1, torch, warmup=0),
+        time_ms(lambda: torch.sparse.mm(csr, x), 3, torch, warmup=1),
+        *spmm_cost(n, n_edges, N_FEATS, 4, True),
+        device_ms=device_time_ms(lambda: spmm(x, ip, src, w), torch, reps=3,
+                                 replays=2),
+        library_device_ms=device_time_ms(lambda: torch.sparse.mm(csr, x),
+                                         torch, reps=3, replays=2),
+        kernel_launches_per_call=per_call, slice_cols=cols, padded_cols=ld,
+        shape=f"{n} x {N_FEATS} f32, {n_edges} weighted edges", **where)]
+    del x, w, csr
+
+    h, o = 1, HIDDEN
+    g = torch.Generator(device=dev).manual_seed(9)
+    feat = torch.randn((n, h, o), generator=g, device=dev).to(torch.bfloat16)
+    attn = torch.randn((1, h, o), generator=g, device=dev) / o ** 0.5
+    got = gat_attention(feat, attn, 0.2, pip, src)[:k]
+    want = gat_attention_plain(feat, attn, 0.2, pip, src)[:k]
+    err = (got - want).abs().max().item()
+    tol = 2e-4 * want.abs().max().item()
+    del got, want
+    if err > tol:
+        fail(f"gat_attention ({h}, {o}) differs from its plain version: "
+             f"{err} > {tol}")
+    op, splits = gat_plan(h, o, feat.dtype)
+    before = gat_attention.launches
+    gat_attention(feat, attn, 0.2, ip, src)
+    per_call = gat_attention.launches - before
+    rows.append(kernel_row(
+        f"gat_attention[H={h},O={o}]", 0, "gat_attention.cu",
+        "bliss_gnn_tpu/ops/gat_pallas.py:411", err,
+        "atol 2e-4 x max|plain| on the prefix",
+        time_ms(lambda: gat_attention(feat, attn, 0.2, ip, src), 3, torch,
+                warmup=1),
+        time_ms(lambda: gat_attention_plain(feat, attn, 0.2, ip, src), 1,
+                torch, warmup=0),
+        None,
+        n * h * o * 2 + (n + 1) * 4 + n_edges * 4 + n * h * o * 4 + h * o * 4,
+        n_edges * h * (7 * o + 2),
+        device_ms=device_time_ms(
+            lambda: gat_attention(feat, attn, 0.2, ip, src), torch, reps=2,
+            replays=2),
+        kernel_launches_per_call=per_call, padded_cols=op,
+        splits_per_head=splits,
+        shape=f"{n} x {h} x {o} bf16, {n_edges} edges", **where))
+    return rows
+
+
+def bench_torch_phase(here, smi_line, rows):
+    """``python3 bench_torch.py`` in a subprocess on the card, the default
+    switches but for ``BENCH_TORCH_ENV``: it must exit 0 with a last line of
+    every key ``bench.py`` prints under those switches on one card (plus
+    ``step_eager_ms``), each number finite but the time-to-F1 nulls
+    ``bench.py`` allows. Prints the line on a line of its own, then the
+    phase line. The launches it reports by section set the ``launches`` of
+    ``rows`` (``bench_kernel_rows``': K6 at F = 602 from the headline
+    section, K7 at (1, 256) from the GAT section), and the SAGE and GATv2
+    steps' kernels must have launched in the step section."""
+    run_env = {**os.environ, **BENCH_TORCH_ENV}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "bench_torch.py")],
+        cwd=here, env=run_env, capture_output=True, text=True,
+        timeout=BENCH_TORCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    notes = {}
+    for line in proc.stderr.splitlines():
+        if line.startswith("bench_torch: "):
+            name, _, body = line[len("bench_torch: "):].partition(" ")
+            notes[name] = json.loads(body)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"bench_torch: exit {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    print(lines[-1], flush=True)
+    scale = float(run_env.get("BLISS_BENCH_SCALE", "1.0"))
+    want = expected_keys(switches(run_env, scale), False)
+    nulls = {"time_to_val_f1_90_s", "ttvf1_steps"}
+    bad = sorted(k for k, v in line.items()
+                 if isinstance(v, float) and not math.isfinite(v)
+                 or v is None and k not in nulls)
+    launches = notes.get("launches", {})
+    step = launches.get("step", {})
+    missing = [k for k in ("scatter_add", "lut_gather", "segment_sum",
+                           "exp3_apply", "row_scatter_add")
+               if step.get(k, 0) <= 0]
+    emit({"phase": "bench_torch", "seconds": secs, "env": {
+              k: v for k, v in run_env.items() if k.startswith("BLISS_BENCH")},
+          "keys_missing": sorted(want - set(line)),
+          "keys_extra": sorted(set(line) - want), "not_finite": bad,
+          "notes": notes, "nvidia_smi": smi_line})
+    if set(line) != want or bad or missing:
+        fail(f"bench_torch: keys {sorted(set(line) ^ want)}, not finite "
+             f"{bad}, step kernels not launched {missing}")
+    k6, k7 = rows
+    k6["launches"] = launches.get("headline", {}).get("spmm", 0)
+    k7["launches"] = launches.get("gat", {}).get("gat_attention", 0)
+    if k6["launches"] <= 0 or k7["launches"] <= 0:
+        fail(f"bench_torch: K6 or K7 not launched in its section: {launches}")
+    return line
+
 
 # ---------------------------------------------------------------------------
 # --cards 4: the parallel layer across four cards of one host, one NCCL rank
@@ -4315,22 +4266,6 @@ def card_identity(torch, dev):
 
 def tensor_bytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def kernel_wrappers():
-    """Every kernel wrapper by name (their launch counts)."""
-    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
-    from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
-    from bliss_gnn_tpu_torch.ops.gather import lut_gather
-    from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add
-    from bliss_gnn_tpu_torch.ops.scatter import scatter_add
-    from bliss_gnn_tpu_torch.ops.segsum import segment_sum
-    from bliss_gnn_tpu_torch.ops.spmm import spmm
-
-    return {"scatter_add": scatter_add, "lut_gather": lut_gather,
-            "segment_sum": segment_sum, "exp3_apply": exp3_apply,
-            "row_scatter_add": row_scatter_add, "spmm": spmm,
-            "gat_attention": gat_attention}
 
 
 def pilot_plan(torch, graph, scfg, cfg, indptr_np, seeds, smask):

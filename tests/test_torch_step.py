@@ -312,6 +312,7 @@ def test_port_imports_nothing_of_jax():
         "import bliss_gnn_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import bench_torch, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'bliss_gnn_tpu')]\n"
         "n = sum(m.startswith('bliss_gnn_tpu_torch.') for m in sys.modules)\n"

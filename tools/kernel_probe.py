@@ -58,6 +58,9 @@ KERNEL is one of:
     k6  K6 (``spmm``) at F = 256 and 41 on ``chip_smoke.py``'s
         Reddit-shaped graph (232,965 nodes, 114.8M edges; its arrays are
         kept in ``build/`` after the first run).
+    k6-602  K6 at ``bench_torch.py``'s headline shape (F = 602 f32 with
+        edge weights) on that graph, beside it unweighted, padded to 608
+        columns and at F = 256 f32 weighted.
     k7  K7 (``gat_attention``) at (H, O) = (4, 256) and (1, 41) on that
         graph.
     k4-repeats  K4 on the inputs of ``tests/test_torch_cuda.py``'s
@@ -110,7 +113,10 @@ FRONTIER_CAPS = (3_279_616, 1_291_648, 243_456)
 
 def smoke_module():
     """``chip_smoke.py`` of the checkout this script lies in, imported as
-    a module for its graph and timing functions."""
+    a module for its graph and timing functions. Its ``bench_torch`` is
+    found after the path's entries, so the package stays the path's."""
+    if str(ROOT) not in sys.path:
+        sys.path.append(str(ROOT))
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -667,6 +673,31 @@ def probe_k6(smoke, dev, fg):
     return rec
 
 
+def probe_k6_602(smoke, dev, fg):
+    """K6 at ``bench_torch.py``'s headline shape (x [N, 602] f32 from
+    ``headline_inputs``, weighted) beside the same call unweighted, the
+    same rows padded to 608 columns (rows of whole 128-byte lines), and
+    the first 256 columns weighted."""
+    import bliss_gnn_tpu_torch.ops.spmm as k6
+    from bench_torch import headline_inputs
+
+    w_np, x_np = headline_inputs(fg.n, fg.n_edges)
+    w, x = torch.from_numpy(w_np).to(dev), torch.from_numpy(x_np).to(dev)
+    del w_np, x_np
+    rec = {}
+    for name, xs, ws in (("f602_weighted", x, w), ("f602_unweighted", x, None),
+                         ("f608_weighted", torch.nn.functional.pad(x, (0, 6)),
+                          w),
+                         ("f256_weighted", x[:, :256].contiguous(), w)):
+        ld, cols, launches = k6.spmm_plan(fg.n, xs.shape[1], xs.dtype)
+        rec[name] = {"padded_cols": ld, "slice_cols": cols,
+                     "kernel_launches_per_call": launches,
+                     **large_times(smoke, lambda: k6.spmm(xs, fg.ip, fg.src,
+                                                          ws), 3)}
+        del xs
+    return {"spmm[F=602,f32,weighted] variants": rec}
+
+
 def hub_csc(gen, dev, n, hub):
     """``tests/test_torch_cuda.py``'s ``_csc``: in-degrees 0-39, every
     97th row empty, row 5 a hub, srcs uniform, 128 zeros past the end."""
@@ -779,7 +810,7 @@ def probe_k7(smoke, dev, fg):
 def main():
     kernels = sys.argv[1:]
     known = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k4-repeats",
-             "k6-hub", "gat-step")
+             "k6-hub", "k6-602", "gat-step")
     if not kernels or any(k not in known for k in kernels):
         sys.exit(f"usage: kernel_probe.py KERNEL [KERNEL ...], KERNEL in "
                  f"{', '.join(known)}")
@@ -794,8 +825,8 @@ def main():
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip()}
-    fg = (FullGraph(smoke, dev) if {"k1", "k3", "k5", "k6", "k7", "gat-step"}
-          & set(kernels) else None)
+    fg = (FullGraph(smoke, dev) if {"k1", "k3", "k5", "k6", "k6-602", "k7",
+                                    "gat-step"} & set(kernels) else None)
     sites = (call_sites(smoke, dev, fg) if {"k1", "k3", "k5"} & set(kernels)
              else None)
     for name in kernels:
@@ -817,6 +848,8 @@ def main():
             rec["exp3_apply_test_inputs"] = probe_k4_repeats(smoke, dev)
         elif name == "k6":
             rec.update(probe_k6(smoke, dev, fg))
+        elif name == "k6-602":
+            rec.update(probe_k6_602(smoke, dev, fg))
         else:
             rec.update(probe_k7(smoke, dev, fg))
     print(json.dumps(rec), flush=True)
