@@ -49,10 +49,7 @@ each rate is the best of 3 calls after a warm-up.
 import argparse
 import contextlib
 import dataclasses
-import hashlib
-import inspect
 import json
-import math
 import os
 import shutil
 import sys
@@ -62,60 +59,36 @@ import numpy as np
 import torch
 
 from bliss_gnn_tpu_torch._device import resolve_device
+from harness_torch import (
+    BATCH,
+    CACHE,
+    FANOUTS,
+    HIDDEN,
+    MULTICARD_CFG,
+    N_CLASSES,
+    N_EDGES,
+    N_FEATS,
+    N_NODES,
+    ROOT,
+    build_graph,
+    fresh_state,
+    graph_from_csc,
+    headline_inputs,
+    kernel_wrappers,
+    multicard_phases,
+    multicard_scaling,
+    reset_counts,
+    roofline_ms,
+    save_atomic,
+    source_tag,
+    spmm_cost,
+    switches,
+    sync,
+    time_to_val_f1,
+)
 
-N_NODES = 232_965
-N_RAND_EDGES = 114_615_892  # directed edges; one self-loop per node is added
-N_EDGES = N_RAND_EDGES + N_NODES
-N_FEATS = 602
-N_CLASSES = 41
-HIDDEN = 256
-BATCH = 256
-FANOUTS = (4096, 2048, 1024)
-GAT_HEADS = (4, 1)  # per hidden layer, at the output
 BASELINE_EDGES = 16_000_000  # the plain path's dst prefix
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
-TTVF1_K, TTVF1_KV = 8, 4  # train steps a chain, validation batches
 DP_RANKS = 8  # the ranks of bench.py's communication accounting
-ROOT = os.path.dirname(os.path.abspath(__file__))
-CACHE = os.path.join(ROOT, ".bench_cache", "torch")
-
-# the keys of each section, as bench.py names them (step_eager_ms is the
-# port's own: the step before capture)
-KEYS = {
-    "headline": ("metric", "value", "unit", "vs_baseline", "spmm_sol_frac",
-                 "spmm_hidden_edges_per_s_M"),
-    "sbm": ("spmm_sbm_edges_per_s_M", "spmm_sbm_coverage",
-            "spmm_sbm_sol_frac"),
-    "scaling": ("dp_weak_scaling_pct", "dp_weak_scaling_devices"),
-    "gat": ("gat_edges_per_s_M",),
-    "step": ("step_ms", "step_eager_ms", "sampling_ms", "gat_step_ms",
-             "gat_sampling_ms", "dp_comm_bytes_per_step",
-             "dp_predicted_scaling_pct_8"),
-    "ttf1": ("time_to_val_f1_90_s", "ttvf1_steps", "ttvf1_final_val_f1"),
-    "ablation": ("ttvf1_frozen_bandit_steps", "ttvf1_frozen_reached",
-                 "ttvf1_frozen_final_val_f1"),
-}
-
-
-def switches(env, scale):
-    """Which sections run, by ``bench.py``'s switches and defaults."""
-    full = "1" if scale == 1.0 else "0"
-    on = {"headline": True}
-    for sec, var, default in (("sbm", "SBM", full), ("scaling", "SCALING", full),
-                              ("gat", "GAT", "1"), ("step", "STEP", "1"),
-                              ("ttf1", "TTF1", "1")):
-        on[sec] = env.get(f"BLISS_BENCH_{var}", default) != "0"
-    on["ablation"] = on["ttf1"] and env.get("BLISS_BENCH_ABLATION", "1") != "0"
-    return on
-
-
-def expected_keys(on, scaling_measured):
-    """The result line's keys for the sections ``on``; the scaling keys
-    only where they were measured (four cards)."""
-    return {k for sec, keys in KEYS.items()
-            if on[sec] and (sec != "scaling" or scaling_measured)
-            for k in keys}
 
 
 def emit_note(name, obj):
@@ -150,129 +123,6 @@ def stdout_to_stderr():
 
 
 # -- graphs -----------------------------------------------------------------
-
-def reddit_shaped_csc(n_nodes=N_NODES, n_rand_edges=N_RAND_EDGES, seed=0):
-    """The power-law graph of ``bench.py`` (degree sequence capped at 21k,
-    hub degrees on random node ids, uniform srcs, one self-loop per node),
-    built straight into CSC order: each dst's random in-edges in draw order,
-    then its self-loop. Returns (indptr int64 [N+1], csc_src int32 [E])."""
-    rng = np.random.default_rng(seed)
-    e_rand = n_rand_edges
-    ranks = np.arange(1, n_nodes + 1, dtype=np.float64)
-    wgt = ranks ** -0.8
-    deg = np.minimum(wgt / wgt.sum() * e_rand, 21_000).astype(np.int64)
-    deg[deg < 1] = 1
-    while deg.sum() < e_rand:
-        deficit = e_rand - deg.sum()
-        deg = np.minimum(deg + np.minimum(deg, max(deficit // len(deg), 1)),
-                         21_000)
-    extra = deg.sum() - e_rand
-    for i in range(n_nodes - 1, -1, -1):  # trim from the tail
-        if extra <= 0:
-            break
-        cut = min(extra, deg[i] - 1)
-        deg[i] -= cut
-        extra -= cut
-    node_of_rank = rng.permutation(n_nodes)
-    src_rand = rng.integers(0, n_nodes, size=int(deg.sum()))  # rank order
-    deg_node = np.empty(n_nodes, np.int64)
-    deg_node[node_of_rank] = deg
-    rank_off = np.cumsum(deg) - deg  # offset of each rank's draws
-    off_node = np.empty(n_nodes, np.int64)
-    off_node[node_of_rank] = rank_off
-    indptr = np.zeros(n_nodes + 1, np.int64)
-    np.cumsum(deg_node + 1, out=indptr[1:])
-    n_edges = int(indptr[-1])
-    csc_src = np.empty(n_edges, np.int32)
-    loops = indptr[1:] - 1
-    is_rand = np.ones(n_edges, bool)
-    is_rand[loops] = False
-    start_node = np.cumsum(deg_node) - deg_node  # among random edges
-    take = (np.repeat(off_node - start_node, deg_node)
-            + np.arange(int(deg.sum()), dtype=np.int64))
-    csc_src[is_rand] = src_rand[take]
-    csc_src[loops] = np.arange(n_nodes, dtype=np.int32)
-    return indptr, csc_src
-
-
-def build_graph(n_nodes=N_NODES, n_edges=N_EDGES, cache=None):
-    """``bench.py``'s graph at ``n_nodes`` nodes and ``n_edges`` edges
-    (self-loops included), cached under ``cache`` (default ``CACHE``):
-    (indptr int64, csc_src int32)."""
-    cache = cache or CACHE
-    os.makedirs(cache, exist_ok=True)
-    path = os.path.join(cache, f"reddit_synth_{source_tag(reddit_shaped_csc)}"
-                        f"_{n_nodes}_{n_edges}.npz")
-    if os.path.exists(path):
-        d = np.load(path)
-        return d["indptr"], d["src"]
-    indptr, csc_src = reddit_shaped_csc(n_nodes, n_edges - n_nodes)
-    save_atomic(path, np.savez, indptr=indptr, src=csc_src)
-    return indptr, csc_src
-
-
-def source_tag(*fns):
-    """A short hash of the source of ``fns``, the code that makes a cached
-    file: it goes into the file's name, so a file made by code that has
-    since changed is not read back."""
-    h = hashlib.sha256()
-    for fn in fns:
-        h.update(inspect.getsource(fn).encode())
-    return h.hexdigest()[:12]
-
-
-def save_atomic(path, save, *args, **kw):
-    """``save(tmp, ...)`` then a rename onto ``path``: a run cut short
-    leaves no half-written cache file behind."""
-    tmp = f"{path}.{os.getpid()}.tmp{os.path.splitext(path)[1]}"
-    save(tmp, *args, **kw)
-    os.replace(tmp, path)
-
-
-def sync(torch, dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
-def out_indptr(torch, csc_src, n_nodes):
-    """CSR row pointer (int32 [n_nodes + 1]) of the edges ``csc_src``: the
-    out-degrees' prefix sum, all GCN's norm reads of the CSR."""
-    deg = torch.bincount(csc_src.long(), minlength=n_nodes)
-    indptr = torch.zeros(n_nodes + 1, dtype=torch.int32,
-                         device=csc_src.device)
-    indptr[1:] = torch.cumsum(deg, 0)
-    return indptr
-
-
-def graph_from_csc(torch, dev, indptr_np, csc_src_np, n_feats, n_classes):
-    """A ``DeviceGraph`` of a CSC on ``dev``: weights 1/in-degree (bf16),
-    random bf16 features and labels from seed 0 (the same on every card);
-    the samplers walk the CSC only, and of the CSR GCN's norm reads the
-    out-degrees. ``csc_src_np`` may be a memmap."""
-    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
-
-    n_nodes = int(indptr_np.shape[0]) - 1
-    n_edges = int(csc_src_np.shape[0])
-    gen = torch.Generator(device=dev).manual_seed(0)
-    indptr = torch.from_numpy(indptr_np.astype(np.int32)).to(dev)
-    csc_src = torch.zeros(n_edges + EDGE_PAD, dtype=torch.int32, device=dev)
-    csc_src[:n_edges] = torch.from_numpy(np.array(csc_src_np)).to(dev)
-    deg = (indptr[1:] - indptr[:-1]).long()
-    w = torch.zeros(n_edges + EDGE_PAD, dtype=torch.bfloat16, device=dev)
-    w[:n_edges] = (1.0 / deg.clamp(min=1).float()).repeat_interleave(
-        deg, output_size=n_edges).to(torch.bfloat16)
-    dummy = torch.zeros(1, dtype=torch.int32, device=dev)
-    graph = DeviceGraph(
-        csc_indptr=indptr, csc_src=csc_src,
-        csr_indptr=out_indptr(torch, csc_src[:n_edges], n_nodes),
-        csr_dst=dummy, csr_eid=dummy,
-        ndata={"features": torch.randn((n_nodes, n_feats), generator=gen,
-                                       device=dev, dtype=torch.bfloat16),
-               "labels": torch.randint(0, n_classes, (n_nodes,),
-                                       generator=gen, device=dev)},
-        edata={"w": w}, n_nodes=n_nodes, n_edges=n_edges)
-    sync(torch, dev)
-    return graph
 
 
 def sbm_csc(n_nodes, n_edges, cache=None):
@@ -336,10 +186,10 @@ def sbm_csc(n_nodes, n_edges, cache=None):
 
 def call_s(fn, dev):
     """Seconds of one call of ``fn``, a device synchronise on each side."""
-    sync(torch, dev)
+    sync(dev)
     t0 = time.perf_counter()
     fn()
-    sync(torch, dev)
+    sync(dev)
     return time.perf_counter() - t0
 
 
@@ -349,53 +199,9 @@ def best_s(fn, dev, reps=3):
     return min(call_s(fn, dev) for _ in range(reps))
 
 
-def roofline_ms(nbytes, flops):
-    """(the least ms the card could take, "bytes" or "operations"): the
-    larger of the bytes over the HBM rate and the f32 operations over the
-    f32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def spmm_cost(n_rows, n_edges, f, itemsize, weighted):
-    """K6's compulsory (bytes, f32 operations) on a CSC of ``n_rows`` dst
-    rows (and as many src rows): x read once, the row pointer, the srcs
-    and the weights read once, the f32 out written once; an add per edge
-    and column, and a multiply too when weighted."""
-    nbytes = (n_rows * f * itemsize + (n_rows + 1) * 4 + n_edges * 4
-              + (n_edges * 4 if weighted else 0) + n_rows * f * 4)
-    return nbytes, n_edges * f * (2 if weighted else 1)
-
-
 def spmm_bound_ms(n_rows, n_edges, f, itemsize, weighted):
     """K6's roofline bound in ms (``spmm_cost`` through ``roofline_ms``)."""
     return roofline_ms(*spmm_cost(n_rows, n_edges, f, itemsize, weighted))[0]
-
-
-def kernel_wrappers():
-    """Every kernel wrapper by name (their launch counts)."""
-    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
-    from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
-    from bliss_gnn_tpu_torch.ops.gather import lut_gather
-    from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add
-    from bliss_gnn_tpu_torch.ops.scatter import scatter_add
-    from bliss_gnn_tpu_torch.ops.segsum import segment_sum
-    from bliss_gnn_tpu_torch.ops.spmm import spmm
-
-    return {"scatter_add": scatter_add, "lut_gather": lut_gather,
-            "segment_sum": segment_sum, "exp3_apply": exp3_apply,
-            "row_scatter_add": row_scatter_add, "spmm": spmm,
-            "gat_attention": gat_attention}
-
-
-def reset_counts(wrappers):
-    """Sets every wrapper's launch count, and its counts by shape where it
-    keeps them (K1, K3, K5, K7's partial outputs), to 0."""
-    for fn in wrappers.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_shape"):
-            fn.launches_by_shape = {}
 
 
 @contextlib.contextmanager
@@ -408,14 +214,6 @@ def counted(launches, section):
 
 
 # -- sections ---------------------------------------------------------------
-
-def headline_inputs(n_nodes, n_edges):
-    """The headline's edge weights (``default_rng(1)``) and rows x [N, 602]
-    (``default_rng(2)``), f32 numpy."""
-    w = np.random.default_rng(1).random(n_edges).astype(np.float32)
-    x = np.random.default_rng(2).normal(size=(n_nodes, N_FEATS)).astype(
-        np.float32)
-    return w, x
 
 
 def bench_spmm(dev, indptr, csc_src, launches, log):
@@ -499,27 +297,6 @@ def bench_gat(dev, indptr, csc_src, log):
     return {"gat_edges_per_s_M": n_edges / t / 1e6}
 
 
-MAIN_DIMS = dict(n_feats=N_FEATS, hidden=HIDDEN, n_classes=N_CLASSES,
-                 gat_heads=GAT_HEADS)
-
-
-def fresh_state(torch, dev, graph, cfg, exp3, generator, seed=0,
-                dims=MAIN_DIMS):
-    """A training state of ``cfg.model`` at ``dims`` (the main path's by
-    default): weights from ``seed``, Adam capturable on the card."""
-    from bliss_gnn_tpu_torch.models.gnn import build_model
-    from bliss_gnn_tpu_torch.train.steps import TrainState, make_optimizer
-
-    model = build_model(cfg.model, dims["n_feats"], dims["hidden"],
-                        dims["n_classes"], len(cfg.fanouts),
-                        num_in_heads=dims["gat_heads"][0],
-                        num_out_heads=dims["gat_heads"][1], device=dev,
-                        seed=seed)
-    opt, sched = make_optimizer(model.parameters(), 2e-3, 100,
-                                capturable=dev.type == "cuda")
-    return TrainState(model, opt, sched, exp3, generator)
-
-
 class Overflow:
     """The largest overflow counters seen in the metrics of a run."""
 
@@ -546,7 +323,7 @@ def step_ms(dev, graph, cfg, plan, seeds, smask, eager):
         make_train_step,
     )
 
-    state = fresh_state(torch, dev, graph, cfg, init_exp3_weights(
+    state = fresh_state(dev, graph, cfg, init_exp3_weights(
         len(cfg.fanouts), graph.n_edges, device=dev),
         torch.Generator(device=dev).manual_seed(3), seed=2)
     over, eager_ms = Overflow(), None
@@ -555,10 +332,10 @@ def step_ms(dev, graph, cfg, plan, seeds, smask, eager):
         nonlocal state
         ts = []
         for _ in range(n):
-            sync(torch, dev)
+            sync(dev)
             t0 = time.perf_counter()
             state, m = fn(state)
-            sync(torch, dev)
+            sync(dev)
             ts.append((time.perf_counter() - t0) * 1e3)
             over(m)
         return min(ts)
@@ -623,14 +400,14 @@ def dp_comm(dev, graph, cfg, plan, seeds, smask, replayed_ms):
 
     mesh = make_mesh(1, device=dev)
     try:
-        state = fresh_state(torch, dev, graph, cfg, init_exp3_weights(
+        state = fresh_state(dev, graph, cfg, init_exp3_weights(
             len(cfg.fanouts), graph.n_edges, device=dev),
             mesh.generator(3), seed=2)
         step = make_dp_train_step(mesh, graph, cfg, plan, False)
         state, _ = step(state, seeds, smask)  # makes Adam's state
         with commstats.recording() as rec:
             state, _ = step(state, seeds, smask)
-            sync(torch, dev)
+            sync(dev)
     finally:
         mesh.close()
     summ = commstats.comm_summary(at_ranks(rec.entries, DP_RANKS), DP_RANKS)
@@ -653,7 +430,7 @@ def bench_step(dev, indptr, csc_src, log):
         sample_blocks,
     )
 
-    graph = graph_from_csc(torch, dev, indptr, csc_src, N_FEATS, N_CLASSES)
+    graph = graph_from_csc(dev, indptr, csc_src, N_FEATS, N_CLASSES)
     n_nodes, n_edges = graph.n_nodes, graph.n_edges
     deg = np.diff(indptr)
     bs = min(BATCH, n_nodes)
@@ -703,8 +480,6 @@ def bench_dp_scaling(dev, indptr, csc_src, log):
         print(f"[bench_torch] dp scaling skipped: {cards} card(s) visible, "
               "the scaling groups need 4", file=sys.stderr, flush=True)
         return {}
-    import chip_smoke
-
     torch.cuda.empty_cache()  # the ranks share card 0 with this process
     workdir = os.path.join(ROOT, "build", "bench_torch_multicard")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -712,115 +487,15 @@ def bench_dp_scaling(dev, indptr, csc_src, log):
     try:
         np.save(os.path.join(workdir, "indptr.npy"), indptr)
         np.save(os.path.join(workdir, "csc_src.npy"), csc_src)
-        runs = chip_smoke.multicard_phases(torch, chip_smoke.MULTICARD_CFG,
+        runs = multicard_phases(MULTICARD_CFG,
                                            workdir, "cuda")
-        pct = chip_smoke.multicard_scaling(torch, runs, "cuda")["dp"][
+        pct = multicard_scaling(runs, "cuda")["dp"][
             "dp_weak_scaling_pct"]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     s = max(pct)
     log(f"dp weak scaling: {pct[s]:.1f}% at {s} cards")
     return {"dp_weak_scaling_pct": pct[s], "dp_weak_scaling_devices": s}
-
-
-def time_to_val_f1(torch, dev, target=0.90, max_chains=25, freeze=False,
-                   seed_offset=0):
-    """``bench.py``'s time-to-validation-F1 protocol through the port:
-    synth-pubmed-hard, SAGE-256 x3, poisson-bandit, fan-outs 256/128/64,
-    batch 1024, Adam 2e-3; chains of TTVF1_K train steps (on the card one
-    captured step replayed) and, after each, validation micro-F1 on a fixed
-    set of TTVF1_KV batches with a fixed eval seed, until it reaches
-    ``target`` or ``max_chains`` chains ran. The train seconds exclude the
-    first chain (the capture) and the evaluations; the first chain is
-    counted at the mean of the others. ``freeze``: the bandit ablation,
-    sampling from the arm weights but never updating them.
-    ``seed_offset``: moves the weights' seed (1) and the draws' (2) by
-    1000 times it."""
-    from bliss_gnn_tpu_torch.graph.datasets import load_dataset
-    from bliss_gnn_tpu_torch.graph.structure import (
-        DeviceGraph,
-        Graph,
-        normalized_edata,
-    )
-    from bliss_gnn_tpu_torch.models.gnn import build_model
-    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
-    from bliss_gnn_tpu_torch.sampling.samplers import (
-        SamplerConfig,
-        init_exp3_weights,
-    )
-    from bliss_gnn_tpu_torch.train.metrics import f1_compute
-    from bliss_gnn_tpu_torch.train.steps import (
-        TrainState,
-        make_multi_eval_step,
-        make_multi_train_step,
-        make_optimizer,
-    )
-
-    g, n_classes, ml = load_dataset("synth-pubmed-hard")
-    g = Graph.canonicalize(g)
-    g.edata["w"] = normalized_edata(g)
-    dg = DeviceGraph.from_graph(g, device=dev)
-    K, Kv, bs = TTVF1_K, TTVF1_KV, 1024
-    cfg = SamplerConfig(kind="poisson-bandit", fanouts=(256, 128, 64),
-                        exp3_freeze=freeze)
-    plan = CapacityPlan.build(bs, cfg.fanouts, g.n_nodes, g.n_edges,
-                              kind=cfg.kind)
-    model = build_model("sage", int(g.ndata["features"].shape[1]), 256,
-                        n_classes, 3, device=dev, seed=1 + 1000 * seed_offset)
-    rng = np.random.default_rng(0)
-    train_ids = np.where(g.ndata["train_mask"])[0]
-    val_ids = np.where(g.ndata["val_mask"])[0]
-    rng.choice(train_ids, bs)  # the reference's initialisation batch
-    opt, sched = make_optimizer(model.parameters(), 2e-3,
-                                max(1, len(train_ids) // bs),
-                                capturable=dev.type == "cuda")
-    state = TrainState(model, opt, sched,
-                       init_exp3_weights(3, g.n_edges, device=dev),
-                       torch.Generator(device=dev).manual_seed(
-                           2 + 1000 * seed_offset))
-    multi = make_multi_train_step(dg, cfg, plan, ml, K, device=dev)
-    eval_multi = make_multi_eval_step(dg, cfg, plan, ml, device=dev)
-    val_seeds = torch.from_numpy(
-        rng.choice(val_ids, (Kv, bs)).astype(np.int32)).to(dev)
-    val_mask = torch.ones((Kv, bs), dtype=torch.bool, device=dev)
-    eval_gen = torch.Generator(device=dev)
-
-    def val_f1():
-        f1, _, _ = eval_multi(state, eval_gen.manual_seed(7), val_seeds,
-                              val_mask)
-        return float(f1_compute(f1, ml))
-
-    def chain():
-        s = torch.from_numpy(rng.choice(train_ids, (K, bs)).astype(
-            np.int32)).to(dev)
-        t0 = time.perf_counter()
-        _, m = multi(state, s, torch.ones((K, bs), dtype=torch.bool,
-                                          device=dev))
-        sync(torch, dev)
-        return time.perf_counter() - t0, m
-
-    _, m = chain()  # warm-ups and the capture
-    curve = [val_f1()]
-    losses = m["train_loss"].tolist()
-    steps, train_s = K, 0.0
-    reached = curve[-1] >= target
-    for _ in range(max_chains - 1):
-        if reached:
-            break
-        dt, m = chain()
-        train_s += dt
-        steps += K
-        losses += m["train_loss"].tolist()
-        curve.append(val_f1())
-        reached = curve[-1] >= target
-    if steps > K:
-        train_s += train_s / (steps / K - 1)
-    elif reached:
-        train_s, _ = chain()
-    return {"steps": steps, "reached": reached, "train_seconds": train_s,
-            "val_f1_curve": curve, "final_val_f1": curve[-1],
-            "loss_first_last": [losses[0], losses[-1]],
-            "finite": all(math.isfinite(x) for x in losses)}
 
 
 def ttvf1_record(res, freeze):
@@ -876,12 +551,12 @@ def main(argv=None):
                 result.update(bench_step(dev, indptr, csc_src, log))
         if on["ttf1"]:
             with counted(launches, "ttvf1"):
-                res = time_to_val_f1(torch, dev)
+                res = time_to_val_f1(dev)
             log(f"ttvf1 live: {res['steps']} steps, reached "
                 f"{res['reached']}, val F1 {res['final_val_f1']:.3f}")
             result.update(ttvf1_record(res, False))
             if on["ablation"]:
-                res = time_to_val_f1(torch, dev, freeze=True)
+                res = time_to_val_f1(dev, freeze=True)
                 log(f"ttvf1 frozen: {res['steps']} steps, reached "
                     f"{res['reached']}")
                 result.update(ttvf1_record(res, True))

@@ -53,7 +53,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                    "bliss_exp3_apply_f32": [_P, _P, _P, _LL, _I, _P],
                    "bliss_exp3_apply_runs": [_P, _P, _P, _P, _LL, _I, _P],
                    "bliss_exp3_apply_runs_f32": [_P, _P, _P, _P, _LL, _I,
-                                                 _P]},
+                                                 _P],
+                   "bliss_exp3_apply_groups": [_P, _P, _P, _P, _LL, _I, _I,
+                                               _P],
+                   "bliss_exp3_apply_groups_f32": [_P, _P, _P, _P, _LL, _I,
+                                                   _I, _P]},
     "row_scatter": {
         "bliss_row_scatter_tiles": [_P, _I, _P, _P, _LL, _I, _P, _I, _P, _I,
                                     _P, _P, _LL, _I, _P],

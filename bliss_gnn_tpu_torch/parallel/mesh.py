@@ -21,6 +21,15 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+# Imported before any group of the port exists: its functions take
+# ``group=group.WORLD`` as a default argument, evaluated at first import.
+# Imported later (the first ``torch.optim.Adam`` does, through
+# ``torch._dynamo``), they would hold the live group, so
+# ``destroy_process_group`` would leave it and its gloo worker and
+# transport threads running into interpreter exit, where one of them
+# still finishing a work aborts the process (``terminate called without
+# an active exception``).
+import torch.distributed.nn  # noqa: F401
 
 from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.parallel import commstats

@@ -138,6 +138,10 @@ def _rank_entry(rank: int, fn: Callable, world: int, store_path: str,
     try:
         result = fn(*args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+        # every rank done with its collectives before any rank closes its
+        # connections; a rank that raised skips it (run_ranks then stops
+        # the others and raises its traceback)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

@@ -158,9 +158,9 @@ class ShardedStorage(StepStorage):
         return ShardedExp3(exp3, self.mesh, self.epr, self.n_layers)
 
     def apply_deltas(self, exp3, deltas, normalize: bool,
-                     distinct: bool = True) -> None:
+                     max_repeats: int = 1) -> None:
         apply_exp3_deltas_sharded(exp3, deltas, self.mesh.rank, self.epr,
-                                  self.n_layers, distinct=distinct)
+                                  self.n_layers, max_repeats=max_repeats)
         if normalize:
             normalize_exp3_sharded(exp3, self.n_layers, self.epr, self.mesh)
 

@@ -585,15 +585,15 @@ def exp3_delta_slots(deltas: Sequence[Tuple[torch.Tensor, torch.Tensor]],
 def apply_exp3_deltas(exp3_weights: torch.Tensor,
                       deltas: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                       normalize: bool = True,
-                      distinct: bool = True) -> torch.Tensor:
+                      max_repeats: int = 1) -> torch.Tensor:
     """w[eid] *= exp(dr) IN PLACE (K4), then optionally L1-normalise each
-    layer row. Zero exponents are no-op slots (index = limit). ``distinct``
-    False for lists that can repeat an edge (every DP rank's deltas
-    gathered): K4's repeats route, the same bits on every replica. Returns
-    the state."""
+    layer row. Zero exponents are no-op slots (index = limit).
+    ``max_repeats`` S > 1 for S DP ranks' deltas gathered (an edge at most
+    once a rank): K4's repeats route, the same bits on every replica.
+    Returns the state."""
     flat_idx, mult, limit = exp3_delta_slots(deltas, exp3_weights.shape[1])
     exp3_apply(exp3_weights.view(-1), flat_idx, mult, limit,
-               distinct=distinct)
+               max_repeats=max_repeats)
     if normalize:
         normalize_exp3_weights(exp3_weights)
     return exp3_weights

@@ -78,12 +78,12 @@ class StepStorage:
         return all_gather_deltas(deltas, mesh)
 
     def apply_deltas(self, exp3, deltas, normalize: bool,
-                     distinct: bool = True) -> None:
-        """``distinct`` False when ``deltas`` are several ranks' lists,
-        which can repeat an edge: K4's repeats route keeps every replica
+                     max_repeats: int = 1) -> None:
+        """``max_repeats`` S when ``deltas`` are S ranks' lists, which can
+        repeat an edge once a rank: K4's repeats route keeps every replica
         of the state on the same bits."""
         apply_exp3_deltas(exp3, deltas, normalize=normalize,
-                          distinct=distinct)
+                          max_repeats=max_repeats)
 
 
 _DEFAULT_STORAGE = StepStorage()
@@ -302,7 +302,7 @@ def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
                                       aux["embed_norms"], aux["a_ijs"])
             deltas = storage.sync_deltas(deltas, mesh)
             storage.apply_deltas(state.exp3_weights, deltas, exp3_normalize,
-                                 distinct=mesh is None or mesh.size == 1)
+                                 max_repeats=1 if mesh is None else mesh.size)
         f1 = f1_update(F1State.zero(x.device), logits.detach(), labels,
                        dst_mask, multilabel)
         return {

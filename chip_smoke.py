@@ -96,15 +96,18 @@ add K3, K4, K5, K6 and K7 at f32. The small steps are also held against
 the CPU at f32, and ``cli_small`` runs ``--precision highest``.
 
 The K4 rows add its repeats route (the gathered deltas of data-parallel
-ranks, which repeat an edge) at four ranks' shape; its launches on one
-card are ``dp2``'s.
+ranks, which repeat an edge: a group-by, ``max_repeats=4``) at four
+ranks' shape, bit for bit the CPU's plain version and the sorted route it
+replaced (``old_route_*``: timed beside it), with one profiled call's
+device work by kernel (only its memset and two kernels); its launches on
+one card are ``dp2``'s.
 
 Last, phase ``bench_torch``: ``python3 bench_torch.py`` (the reference
 benchmark's keys measured through the port) in a subprocess with its
 default switches but the full SBM section, its line checked for the keys
 ``bench.py`` prints on one card; the kernel rows add the two shapes it
 gives K6 and K7 (F = 602 f32 with edge weights; (1, 256)), with its
-launches. The main path's graph is ``bench_torch.build_graph``'s, cached
+launches. The main path's graph is ``harness_torch.build_graph``'s, cached
 in ``.bench_cache/torch/``, so the subprocess reads it back.
 
 ``python3 chip_smoke.py --cards 4`` runs only the parallel layer across
@@ -149,26 +152,43 @@ import time
 
 import numpy as np
 
-from bench_torch import (  # the configuration and helpers both files run
+from harness_torch import (
     BATCH,
+    BlockRecorder,
     FANOUTS,
     GAT_HEADS,
     HIDDEN,
+    LOCKSTEP_STEPS,
+    MULTICARD_CFG,
+    MULTICARD_SIZES,
     N_CLASSES,
     N_FEATS,
     N_NODES,
+    SHARDED_TOLERANCE,
+    TIMED_STEPS,
     TTVF1_K,
     TTVF1_KV,
+    WARMUP_STEPS,
+    bf16_ulp,
     build_graph,
+    emit,
     expected_keys,
+    f32_ulp,
+    fail,
     fresh_state,
     graph_from_csc,
     headline_inputs,
-    kernel_wrappers,
+    host_view,
+    load_train_state,
+    multicard_phases,
+    multicard_scaling,
     out_indptr,
+    parallel_step_run,
     reddit_shaped_csc,
     reset_counts,
     roofline_ms,
+    same_blocks,
+    sharded_inference_records,
     spmm_cost,
     switches,
     sync,
@@ -176,18 +196,7 @@ from bench_torch import (  # the configuration and helpers both files run
 )
 
 PREFIX_EDGES = 4_000_000  # the CSC prefix the inference checks run on
-WARMUP_STEPS, TIMED_STEPS = 3, 10
-LOCKSTEP_STEPS = 3  # replayed steps held against eager twins, each path
 BF16_ULP = 2.0 ** -7
-
-
-def emit(obj):
-    print(json.dumps(obj), flush=True)
-
-
-def fail(msg):
-    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
-    sys.exit(1)
 
 
 def time_ms(fn, reps, torch, warmup=2):
@@ -235,6 +244,23 @@ def device_time_ms(fn, torch, reps=20, replays=10):
     return a.elapsed_time(b) / (reps * replays)
 
 
+def device_breakdown(fn, torch, calls=5):
+    """Device microseconds a call of ``fn`` by kernel (and memset), from
+    ``torch.profiler`` over ``calls`` calls after one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / calls
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")}
+
+
 def host_us(fn, torch, calls=1000):
     """Host time of one call of ``fn`` in microseconds: ``time.perf_counter``
     around ``calls`` calls with no sync between them. Python's cyclic
@@ -257,12 +283,12 @@ def host_us(fn, torch, calls=1000):
 
 def main_graph(torch, dev):
     """The main path's graph on ``dev`` (``graph_from_csc`` of the
-    Reddit-shaped CSC, ``bench_torch.build_graph``'s: cached, so the
+    Reddit-shaped CSC, ``harness_torch.build_graph``'s: cached, so the
     ``bench_torch`` phase reads it back). Returns (graph, the CSC indptr in
     host memory, seconds)."""
     t0 = time.perf_counter()
     indptr_np, csc_src_np = build_graph()
-    graph = graph_from_csc(torch, dev, indptr_np, csc_src_np, N_FEATS,
+    graph = graph_from_csc(dev, indptr_np, csc_src_np, N_FEATS,
                            N_CLASSES)
     del csc_src_np
     return graph, indptr_np, time.perf_counter() - t0
@@ -770,35 +796,8 @@ def profile_steps(torch, run, step_ms, smi_line, model="sage", n=3,
         fail(f"profile ({model}, {mode}): no device time recorded")
 
 
-def load_train_state(torch, dst, src):
-    """Copies ``src``'s training state into ``dst`` (built alike, its Adam
-    state made by a step already): parameters, Adam's moments, step counts
-    and rate, the schedule's place, the arm weights and the generator."""
-    with torch.no_grad():
-        for p, q in zip(dst.model.parameters(), src.model.parameters()):
-            p.copy_(q)
-            for k, v in src.optimizer.state[q].items():
-                dst.optimizer.state[p][k].copy_(v)
-        if src.exp3_weights is not None:
-            dst.exp3_weights.copy_(src.exp3_weights)
-    dst.scheduler.load_state_dict(src.scheduler.state_dict())
-    dst.generator.set_state(src.generator.get_state())
-    dst.step = src.step
-
-
 LOCKSTEP_TOLERANCE = {"loss": 2.0 ** -7, "update": 2.0 ** -4,
                       "exp3": 2.0 ** -6}
-# the one-rank DP and sharded steps, each held to the nearer of two fused
-# twins from one state: the same blocks; loss and update equal up to the
-# unsorted K1/K3 routes' atomic order, which parts the twins themselves.
-# Over two smoke runs and six runs of tools/sharded_gate_probe.py on the
-# H100 a fused step parted from its fused twin (or from its own replay) by
-# up to 2.5e-4 of the update's norm and 1.9e-6 of the loss, the sharded
-# step by up to 2.4e-4 from both twins, and in run BL one DP replay by
-# 8.5e-5 from both (the DP step's bound was 1e-4 then, below that floor).
-# So both steps at 5x the floor on the update, 50x on the loss, the arm
-# weights within one bf16 ulp at any value (2^-7; 0.0066 seen)
-SHARDED_TOLERANCE = {"loss": 1e-4, "update": 1.25e-3, "exp3": 2.0 ** -7}
 
 
 def lockstep(torch, state, multi, twin, eager_step, seeds, smask, label,
@@ -814,7 +813,7 @@ def lockstep(torch, state, multi, twin, eager_step, seeds, smask, label,
     s1, m1 = seeds[None], smask[None]
     lock = []
     for _ in range(n):
-        load_train_state(torch, twin, state)
+        load_train_state(twin, state)
         pre = [p.detach().clone() for p in state.model.parameters()]
         twin, me = eager_step(twin, seeds, smask)
         state, mr = multi(state, s1, m1)
@@ -1378,7 +1377,7 @@ def csc_prefix(torch, graph, indptr_np):
     indptr[k:] = e_pre
     cut = dataclasses.replace(
         graph, csc_indptr=indptr, n_edges=e_pre,
-        csr_indptr=out_indptr(torch, graph.csc_src[:e_pre], graph.n_nodes))
+        csr_indptr=out_indptr(graph.csc_src[:e_pre], graph.n_nodes))
     return cut, k, e_pre
 
 
@@ -1787,18 +1786,6 @@ def k5_row(torch, dev, label, data, ids, s, nv, ordered, launches):
     return r
 
 
-def bf16_ulp(torch, x):
-    """One bf16 ulp at each value of ``x``."""
-    _, e = torch.frexp(x.float())  # |x| in [2^(e-1), 2^e)
-    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
-
-
-def f32_ulp(torch, x):
-    """One f32 ulp at each value of the f32 tensor ``x``."""
-    _, e = torch.frexp(x)  # |x| in [2^(e-1), 2^e)
-    return torch.ldexp(torch.ones_like(x), e - 24)
-
-
 def route_launches(by_shape, route, f=None):
     """Launches of one route of K1 or K3 over the main path, all shapes (of
     K3's, those of row width ``f``)."""
@@ -2068,7 +2055,7 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
         if not torch.isin(changed, uniq).all():
             fail(f"exp3_apply ({dt}) changed entries it was not given")
         a, b = st_k[uniq].float(), st_p[uniq].float()
-        ulp = torch.maximum(ulp_of(torch, a), ulp_of(torch, b))
+        ulp = torch.maximum(ulp_of(a), ulp_of(b))
         dup_err = (a - b).abs()
         dup_ratio = (dup_err / ((cnt - 1).clamp(min=1) * ulp)).max().item()
         if ((cnt == 1) & (dup_err > 0)).any() or dup_ratio > 1.0:
@@ -2104,38 +2091,58 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
 
     # K4's repeats route at S = 4's shape: four DP ranks' sampled deltas
     # gathered (hub edges repeat up to 4 times); the same bits on two
-    # calls, within one bf16 ulp of the plain version on the card.
-    # ``launches`` is its count on the one card's path (dp2's DP steps at
-    # S = 2, filled in after that phase)
+    # calls, bit for bit the CPU's plain version and the sorted route it
+    # replaced (timed beside it), one profiled call with no device work
+    # but the route's memset and two kernels. ``launches`` is its count on
+    # the one card's path (dp2's DP steps at S = 2, filled in after that
+    # phase)
+    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply_sorted_runs
+
     idx, mult, limit_g, max_rep = sites["k4_gathered"]
     st0 = (torch.rand(limit_g, generator=g, device=dev) + 0.5).to(
         torch.bfloat16)
-    st_k, st_k2, st_p = st0.clone(), st0.clone(), st0.clone()
-    k4[0](st_k, idx, mult, limit_g, distinct=False)
-    k4[0](st_k2, idx, mult, limit_g, distinct=False)
+    st_k, st_k2, st_o, st_p = (st0.clone() for _ in range(4))
+    k4[0](st_k, idx, mult, limit_g, max_repeats=4)
+    k4[0](st_k2, idx, mult, limit_g, max_repeats=4)
+    exp3_apply_sorted_runs(st_o, idx, mult, limit_g)
     k4[1](st_p, idx, mult, limit_g)
+    st_c = st0.cpu()
+    k4[1](st_c, idx.cpu(), mult.cpu(), limit_g)
     live = idx[idx < limit_g].long()
     uniq = torch.unique(live)
     a, b = st_k[uniq].float(), st_p[uniq].float()
-    ulps = ((a - b).abs() / torch.maximum(bf16_ulp(torch, a),
-                                         bf16_ulp(torch, b))).max().item()
+    ulps = ((a - b).abs() / torch.maximum(bf16_ulp(a),
+                                         bf16_ulp(b))).max().item()
     err = (a - b).abs().max().item()
-    if not torch.equal(st_k, st_k2) or ulps > 1.0:
-        fail(f"exp3_apply repeats route: two calls equal "
-             f"{torch.equal(st_k, st_k2)}, {ulps} ulps off the plain "
-             f"version")
+    same = {"two_calls": torch.equal(st_k, st_k2),
+            "cpu_plain": torch.equal(st_k.cpu(), st_c),
+            "sorted_route": torch.equal(st_k, st_o)}
+    if not all(same.values()) or ulps > 1.0:
+        fail(f"exp3_apply repeats route: bitwise {same}, {ulps} ulps off "
+             f"the plain version on the card")
     n_upd, u_g = int(uniq.numel()), int(idx.numel())
     mult_v = mult[idx < limit_g].to(torch.bfloat16)
 
     def repeats():
-        k4[0](st_k, idx, mult, limit_g, distinct=False)
+        k4[0](st_k, idx, mult, limit_g, max_repeats=4)
 
+    def sorted_runs():
+        exp3_apply_sorted_runs(st_o, idx, mult, limit_g)
+
+    # the profiler sees nothing on the card but the route's memset and
+    # kernels (no sort); a profile that saw no device work is recorded
+    device_us = device_breakdown(repeats, torch)
+    foreign = [k for k in device_us
+               if "exp3_group" not in k and "memset" not in k.lower()]
+    if foreign:
+        fail(f"exp3_apply repeats route: profiled device work {device_us} "
+             f"(only its memset and kernels expected)")
     rows.append(kernel_row(
         "exp3_apply[repeats,S=4]", None, "exp3_apply.cu",
         "bliss_gnn_tpu/ops/exp3_pallas.py:62", err,
-        "the same bits on every call; one bf16 ulp of the plain version "
-        "on the card (bit for bit the CPU's)",
-        time_ms(repeats, 20, torch),
+        "the same bits on every call, bit for bit the CPU's plain version "
+        "and the sorted route; one bf16 ulp of the plain version on the "
+        "card", time_ms(repeats, 20, torch),
         time_ms(lambda: k4[1](st_p, idx, mult, limit_g), 5, torch),
         time_ms(lambda: st_p.scatter_reduce_(0, live, mult_v, "prod"), 20,
                 torch),
@@ -2144,14 +2151,19 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
         library_device_ms=device_time_ms(
             lambda: st_p.scatter_reduce_(0, live, mult_v, "prod"), torch),
         host_us=host_us(repeats, torch),
-        launches_from="dp2: rank 0's DP steps at S = 2 on this card",
+        old_route_ms=time_ms(sorted_runs, 20, torch),
+        old_route_device_ms=device_time_ms(sorted_runs, torch),
+        old_route_host_us=host_us(sorted_runs, torch),
+        profiled_device_us=device_us,
+        launches_from="dp2: rank 0's DP steps at S = 2 on this card (two "
+                      "kernels a step)",
         shape=f"{u_g} update slots (4 ranks x {u_g // 4}; "
               f"{int(live.numel())} valid, {n_upd} entries, an index up to "
               f"{max_rep} times) into {limit_g} bf16",
-        max_ulps=ulps, repeat_bitwise=True))
-    del st0, st_k, st_k2, st_p
+        max_ulps=ulps, repeat_bitwise=True, **{f"bitwise_{k}": v
+                                                for k, v in same.items()}))
+    del st0, st_k, st_k2, st_o, st_p, st_c
     return rows
-
 
 
 # -- precision: f32 compute, f32 arm weights, bf16 parameters ------------------
@@ -2197,7 +2209,7 @@ def twin_checks(torch, graph, cfg, plan, seeds, smask, seed, prec, n_eager,
         for _ in range(TIMED_STEPS):
             t0 = time.perf_counter()
             state, _ = multi(state, s1, m1)
-            sync(torch, dev)
+            sync(dev)
             single.append((time.perf_counter() - t0) * 1e3)
         out["replayed_step_ms"] = statistics.median(single)
         out["replayed_step_ms_all"] = single
@@ -2237,7 +2249,7 @@ def precision_phase(torch, train, graph, indptr_np, cfg, plan, gplan, seeds,
     # the default precision's eager steps in this phase, just before the
     # f32 ones: eager times drift over the script's run (PERF.md §7)
     *_, default_times, _, _ = train(plan, seed=0, widen=True)
-    sync(torch, dev)
+    sync(dev)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
     state, step, times, log, final = train(plan, seed=0, widen=True, on=g32,
@@ -2415,10 +2427,10 @@ def trainer_phase(torch, dev, host_graph, n_classes, wrappers, smi_line,
             torch.cuda.reset_peak_memory_stats()
 
     def timed(name, fn):
-        sync(torch, dev)
+        sync(dev)
         t0 = time.perf_counter()
         out = fn()
-        sync(torch, dev)
+        sync(dev)
         timing[name].append(time.perf_counter() - t0)
         return out
 
@@ -2457,13 +2469,13 @@ def trainer_phase(torch, dev, host_graph, n_classes, wrappers, smi_line,
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tr.fit()
-    sync(torch, dev)
+    sync(dev)
     fit_s = time.perf_counter() - t0
     memory(plans[-1])
     tr.restore_best()
     t0 = time.perf_counter()
     res = tr.final_eval()
-    sync(torch, dev)
+    sync(dev)
     final_s = time.perf_counter() - t0
     kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply",
                "spmm")
@@ -2510,7 +2522,7 @@ def trainer_phase(torch, dev, host_graph, n_classes, wrappers, smi_line,
     ckpt_bytes = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
     t0 = time.perf_counter()
     tr.load_checkpoint()
-    sync(torch, dev)
+    sync(dev)
     load_s = time.perf_counter() - t0
     params_equal = all(torch.equal(p.detach().cpu(), best["params"][n])
                        for n, p in tr.state.model.named_parameters())
@@ -2606,7 +2618,7 @@ def cli_phase(torch, dev, wrappers, smi_line, workdir):
         reset_counts(wrappers)
         t0 = time.perf_counter()
         res = cli.main(argv)
-        sync(torch, dev)
+        sync(dev)
         secs = time.perf_counter() - t0
         launches = {k: v.launches for k, v in wrappers.items()}
         run_dir = os.path.join(logdir, os.listdir(logdir)[0], "version_0")
@@ -2640,14 +2652,14 @@ def ttvf1_phase(torch, dev, wrappers, smi_line):
     its first reading."""
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    live = time_to_val_f1(torch, dev)
+    live = time_to_val_f1(dev)
     live_s = time.perf_counter() - t0
     launches = {k: wrappers[k].launches for k in
                 ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")}
     cap = (math.ceil(1.3 * live["steps"] / TTVF1_K) + 1 if live["reached"]
            else 25)
     t0 = time.perf_counter()
-    frozen = time_to_val_f1(torch, dev, max_chains=cap, freeze=True)
+    frozen = time_to_val_f1(dev, max_chains=cap, freeze=True)
     frozen_s = time.perf_counter() - t0
     ratio = frozen["steps"] / live["steps"] if live["reached"] else None
     emit({"phase": "ttvf1", "target": 0.90, "chain_steps": TTVF1_K,
@@ -2675,10 +2687,10 @@ UVA_STEPS, UVA_TIMED = 20, 10
 
 def _seconds(torch, dev, fn):
     """(fn's result, its seconds to a sync)."""
-    sync(torch, dev)
+    sync(dev)
     t0 = time.perf_counter()
     out = fn()
-    sync(torch, dev)
+    sync(dev)
     return out, time.perf_counter() - t0
 
 
@@ -2777,7 +2789,7 @@ def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
     tol, lock = LOCKSTEP_TOLERANCE, []
     for _ in range(LOCKSTEP_STEPS):
         seeds = draw()
-        load_train_state(torch, twin, state)
+        load_train_state(twin, state)
         g_twin = torch.Generator(device=dev)
         g_twin.set_state(twin.generator.get_state())
         with torch.no_grad():
@@ -3280,281 +3292,6 @@ def write_ondisk_fixtures(root):
 # (phase 5b), dp2 (phase 9)
 # ---------------------------------------------------------------------------
 
-def step_errors(torch, twin, state, pre, loss_twin, loss_state, exp3_of):
-    """The errors of ``state``'s step against ``twin``'s from the same
-    state (``pre`` the parameters before): the loss relative to max(|loss|,
-    1), the parameter update's error relative to the twin's update norm
-    (and by parameter, for those that differ), the largest relative
-    arm-weight error (``exp3_of`` maps a state to its canonical arm
-    weights)."""
-    d_t = torch.cat([(p.detach() - q).flatten().float() for p, q in
-                     zip(twin.model.parameters(), pre)])
-    d_s = torch.cat([(p.detach() - q).flatten().float() for p, q in
-                     zip(state.model.parameters(), pre)])
-    rec = {"loss_twin": loss_twin, "loss": loss_state,
-           "loss_err": abs(loss_state - loss_twin) / max(abs(loss_twin), 1.0),
-           "update_norm": float(d_t.norm()),
-           "update_err": float((d_s - d_t).norm()
-                               / d_t.norm().clamp(min=1e-30))}
-    # where the two parted: the parameters whose updates differ, each
-    # with its error relative to the whole update's norm
-    rec["parted_params"] = {
-        n: float((p.detach() - q.detach()).float().norm()
-                 / d_t.norm().clamp(min=1e-30))
-        for (n, p), q in zip(state.model.named_parameters(),
-                             twin.model.parameters())
-        if not torch.equal(p, q)}
-    if state.exp3_weights is not None:
-        w_t, w_s = exp3_of(twin).float(), exp3_of(state).float()
-        rec["exp3_err"] = float(((w_s - w_t).abs()
-                                 / w_t.abs().clamp(min=1e-30)).max())
-    return rec
-
-
-def nearer_twin(r1, r2, tol):
-    """The record of the twin a parallel step lies nearer to, in units of
-    ``tol``, marked with which twin it was and the other's errors."""
-    tol = tol or SHARDED_TOLERANCE  # ungated runs: scored on this scale
-
-    def score(r):
-        return max(r["loss_err"] / tol["loss"], r["update_err"] / tol["update"],
-                   r.get("exp3_err", 0.0) / tol["exp3"])
-
-    near, far, which = (r1, r2, 1) if score(r1) <= score(r2) else (r2, r1, 2)
-    return {**near, "twin": which,
-            "other_twin": {k: far[k] for k in ("loss_err", "update_err",
-                                                "exp3_err") if k in far}}
-
-
-def within(recs, tol):
-    return all(r["loss_err"] <= tol["loss"]
-               and r["update_err"] <= tol["update"]
-               and r.get("exp3_err", 0.0) <= tol["exp3"]
-               and r["update_norm"] > 0 for r in recs)
-
-
-def load_state_into(torch, dst, src, exp3_of_src):
-    """``load_train_state`` with the arm weights mapped by ``exp3_of_src``
-    (a sharded state's shard to the canonical layout, or back)."""
-    exp3 = src.exp3_weights
-    src.exp3_weights = exp3_of_src(src)
-    try:
-        load_train_state(torch, dst, src)
-    finally:
-        src.exp3_weights = exp3
-
-
-class BlockRecorder:
-    """Records the blocks of every ``sample_blocks`` call of the step bodies
-    (``train/steps.py``) while it is open."""
-
-    def __init__(self, steps_mod):
-        self.steps, self.calls = steps_mod, []
-
-    def __enter__(self):
-        self.orig = self.steps.sample_blocks
-
-        def rec(*args, **kw):
-            blocks, stats = self.orig(*args, **kw)
-            self.calls.append([(b.src_gids.clone(), b.e_dst.clone(),
-                                b.e_mask.clone(), b.eid.clone())
-                               for b in blocks])
-            return blocks, stats
-
-        self.steps.sample_blocks = rec
-        return self
-
-    def __exit__(self, *exc):
-        self.steps.sample_blocks = self.orig
-
-
-def same_blocks(torch, a, b):
-    return all(torch.equal(x, y) for ba, bb in zip(a, b)
-               for x, y in zip(ba, bb))
-
-
-STEP_KERNELS = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")
-
-
-def parallel_step_run(torch, label, state, step, multi, fused, twin, twin2,
-                      seeds, smask, wrappers, mesh, exp3_of, tol,
-                      counts=None, kernels=STEP_KERNELS, audit=None,
-                      twin_name="fused"):
-    """The counted eager steps of a parallel step (``step``), one recorded
-    step's collectives, eager steps against the fused step from one state
-    (blocks recorded and compared; and, as the floor, a second fused twin
-    against the first: the unsorted K1 and K3 routes add with atomics in
-    the order of the run, so one step from one state can part in the last
-    bits), then the chained step (``multi``, captured under NCCL): single
-    replays and a chain, and replays against the fused step from one
-    state. Each step is held to the nearer of the two fused twins
-    (``nearer_twin``), gated at ``tol`` (None: recorded, not gated) with
-    blocks (eager) and counts (replayed) equal; ``bitwise`` marks the steps
-    that agree to the bit. ``fused`` is any eager step of the twins'
-    states (``twin_name`` in the keys): across cards the DP step itself.
-    ``counts``: (eager steps, timed replays, steps against the twins),
-    default the main path's (13, 10, 3). ``audit`` (``RankAudit``) checks
-    the state after every step, outside the timed spans, and holds K4
-    against its plain version around the untimed eager steps. Returns the
-    phase's numbers and the state."""
-    from bliss_gnn_tpu_torch.parallel import commstats
-    from bliss_gnn_tpu_torch.train import steps as steps_mod
-    from bliss_gnn_tpu_torch.train.steps import CAPTURE_WARMUP_STEPS
-
-    dev = seeds.device
-    n_steps, n_timed, n_lock = counts or (WARMUP_STEPS + TIMED_STEPS,
-                                          TIMED_STEPS, LOCKSTEP_STEPS)
-    warm = WARMUP_STEPS if n_steps > WARMUP_STEPS else 0
-    audit = audit or RankAudit(torch, None)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    reset_counts(wrappers)
-    times, losses = [], []
-    for _ in range(n_steps):
-        t0 = time.perf_counter()
-        state, m = step(state, seeds, smask)
-        sync(torch, dev)
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(m["train_loss"]))
-        audit.after(state, "eager")
-    launches = {k: wrappers[k].launches for k in kernels}
-    edges = sum(int(m[k]) for k in m if k.startswith("num_edges/"))
-    with commstats.recording() as rec:
-        state, m = step(state, seeds, smask)
-        sync(torch, dev)
-    comm = commstats.comm_summary(rec.entries, mesh.size)
-    audit.after(state, "eager")
-    # the twins' eager step in the same phase (the mesh's process group
-    # alive), for a like-for-like eager comparison
-    fused_times = []
-    for _ in range(n_timed):
-        t0 = time.perf_counter()
-        twin, _ = fused(twin, seeds, smask)
-        sync(torch, dev)
-        fused_times.append((time.perf_counter() - t0) * 1e3)
-
-    eager, floor = [], []
-    for _ in range(n_lock):
-        load_state_into(torch, twin, state, exp3_of)
-        load_state_into(torch, twin2, state, exp3_of)
-        pre = [p.detach().clone() for p in state.model.parameters()]
-        with BlockRecorder(steps_mod) as br:
-            twin, mt = fused(twin, seeds, smask)
-            with audit.plain_shadow():
-                state, ms = step(state, seeds, smask)
-        audit.after(state, "eager")
-        twin2, m2 = fused(twin2, seeds, smask)
-        f = step_errors(torch, twin, twin2, pre, float(mt["train_loss"]),
-                        float(m2["train_loss"]), exp3_of)
-        f["bitwise"] = (f["loss_err"] == 0 and f["update_err"] == 0
-                        and f.get("exp3_err", 0.0) == 0)
-        floor.append(f)
-        r = nearer_twin(
-            step_errors(torch, twin, state, pre, float(mt["train_loss"]),
-                        float(ms["train_loss"]), exp3_of),
-            step_errors(torch, twin2, state, pre, float(m2["train_loss"]),
-                        float(ms["train_loss"]), exp3_of), tol)
-        r["blocks_equal"] = same_blocks(torch, br.calls[0], br.calls[1])
-        r["bitwise"] = (r["loss_err"] == 0 and r["update_err"] == 0
-                        and r.get("exp3_err", 0.0) == 0)
-        eager.append(r)
-        del pre
-
-    s1, m1 = seeds[None], smask[None]
-    for _ in range(CAPTURE_WARMUP_STEPS + 1):  # warm-ups, then the capture
-        state, m = multi(state, s1, m1)
-        audit.after(state, "replayed")
-    sync(torch, dev)
-    single = []
-    for _ in range(n_timed):
-        t0 = time.perf_counter()
-        state, m = multi(state, s1, m1)
-        sync(torch, dev)
-        single.append((time.perf_counter() - t0) * 1e3)
-        audit.after(state, "replayed")
-    sk, mk = seeds.expand(n_timed, -1), smask.expand(n_timed, -1)
-    t0 = time.perf_counter()
-    state, m = multi(state, sk, mk)
-    sync(torch, dev)
-    chained = (time.perf_counter() - t0) * 1e3 / n_timed
-    audit.after(state, "chain")
-    replayed = []
-    for _ in range(n_lock):
-        load_state_into(torch, twin, state, exp3_of)
-        load_state_into(torch, twin2, state, exp3_of)
-        pre = [p.detach().clone() for p in state.model.parameters()]
-        twin, mt = fused(twin, seeds, smask)
-        twin2, m2 = fused(twin2, seeds, smask)
-        state, mr = multi(state, s1, m1)
-        audit.after(state, "replayed")
-        loss_r = float(mr["train_loss"][0])
-        r = nearer_twin(
-            step_errors(torch, twin, state, pre, float(mt["train_loss"]),
-                        loss_r, exp3_of),
-            step_errors(torch, twin2, state, pre, float(m2["train_loss"]),
-                        loss_r, exp3_of), tol)
-        r["counts_equal"] = all(int(mt[k]) == int(mr[k][0]) for k in mt
-                                if k.startswith(("num_nodes", "num_edges")))
-        r["bitwise"] = (r["loss_err"] == 0 and r["update_err"] == 0
-                        and r.get("exp3_err", 0.0) == 0)
-        replayed.append(r)
-        del pre
-    tn = twin_name
-    out = {f"{label}_step_ms": statistics.median(times[warm:]),
-           f"{label}_step_ms_all": times[warm:],
-           f"{label}_replayed_step_ms": statistics.median(single),
-           f"{label}_replayed_step_ms_all": single,
-           f"{label}_chained_step_ms": chained,
-           f"{tn}_step_ms_same_phase": statistics.median(fused_times),
-           f"{tn}_step_ms_same_phase_all": fused_times,
-           "loss": losses, "launches": launches,
-           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
-           "sampled_edges_per_step": edges,
-           "collectives_per_step": comm["per_kind"],
-           "collective_bytes_per_step": comm["total_out_bytes"],
-           "collectives_count_per_step": comm["n_collectives"],
-           "moved_bytes_per_step": comm["moved_bytes_per_device"],
-           "backend": mesh.backend, "ranks": mesh.size,
-           "captured": mesh.capturable,
-           f"eager_vs_{tn}": eager, f"replayed_vs_{tn}": replayed,
-           f"{tn}_vs_{tn}": floor,
-           f"bitwise_vs_{tn}": sum(r["bitwise"] for r in eager + replayed),
-           f"compared_vs_{tn}": len(eager + replayed),
-           "tolerance": tol, **audit.summary()}
-    if dev.type == "cuda":
-        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
-    bad = [r for r in eager if not r["blocks_equal"]]
-    bad += [r for r in replayed if not r["counts_equal"]]
-    if tol is not None and (bad or not within(eager + replayed, tol)):
-        fail(f"{label}: differs from the {tn} step from one state: {out}")
-    # the plain versions count nothing: kernels exist on the card alone
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing and dev.type == "cuda":
-        fail(f"{label}: kernels not launched: {missing}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"{label}: non-finite loss {losses}")
-    audit.gate(label)
-    return out, state
-
-
-def host_view(torch, graph, indptr_np):
-    """The device graph as the host graph ``ShardedDeviceGraph.build``
-    reads (its CSC, weights, features in f32, labels)."""
-    import types
-
-    n, e = graph.n_nodes, graph.n_edges
-    csc_src = graph.csc_src[:e].cpu().numpy()
-    return types.SimpleNamespace(
-        csc_indptr=np.asarray(indptr_np), csc_src=csc_src,
-        edata={"w": graph.edata["w"][:e].float().cpu().numpy()},
-        ndata={"features": graph.ndata["features"].float().cpu().numpy(),
-               "labels": graph.ndata["labels"].cpu().numpy()},
-        n_nodes=n, n_edges=e,
-        in_degrees=lambda: np.diff(np.asarray(indptr_np)),
-        out_degrees=lambda: np.bincount(csc_src, minlength=n))
-
 
 def parallel_paths(torch, graph, indptr_np, cfg, plan, seeds, smask,
                    wrappers, smi_line, fused_replayed_ms):
@@ -3585,18 +3322,18 @@ def parallel_paths(torch, graph, indptr_np, cfg, plan, seeds, smask,
     fused = make_train_step(graph, cfg, plan, False, device=dev)
 
     def new_twin():
-        twin = fresh_state(torch, dev, graph, cfg,
+        twin = fresh_state(dev, graph, cfg,
                            init_exp3_weights(L, E, device=dev),
                            torch.Generator(device=dev).manual_seed(0))
         twin, _ = fused(twin, seeds, smask)  # makes Adam's state
         return twin
 
     # dp_path
-    state = fresh_state(torch, dev, graph, cfg,
+    state = fresh_state(dev, graph, cfg,
                         init_exp3_weights(L, E, device=dev),
                         mesh.generator(0))
     out, state = parallel_step_run(
-        torch, "dp", state,
+        "dp", state,
         make_dp_train_step(mesh, graph, cfg, plan, False,
                            exp3_normalize=False),
         make_dp_multi_train_step(mesh, graph, cfg, plan, False,
@@ -3612,7 +3349,7 @@ def parallel_paths(torch, graph, indptr_np, cfg, plan, seeds, smask,
 
     # sharded_path
     t0 = time.perf_counter()
-    hv = host_view(torch, graph, indptr_np)
+    hv = host_view(graph, indptr_np)
     sg = ShardedDeviceGraph.build(hv, mesh, feature_dtype=torch.bfloat16)
     build_s = time.perf_counter() - t0
 
@@ -3620,10 +3357,10 @@ def parallel_paths(torch, graph, indptr_np, cfg, plan, seeds, smask,
         w = s.exp3_weights
         return unshard_exp3(w[None], L, E) if w.dim() == 1 else w
 
-    state = fresh_state(torch, dev, graph, cfg, init_exp3_shard(L, E, mesh),
+    state = fresh_state(dev, graph, cfg, init_exp3_shard(L, E, mesh),
                         mesh.generator(0))
     out, state = parallel_step_run(
-        torch, "sharded", state,
+        "sharded", state,
         make_sharded_train_step(mesh, sg, cfg, plan, False),
         make_sharded_multi_train_step(mesh, sg, cfg, plan, False),
         fused, new_twin(), new_twin(), seeds, smask, wrappers, mesh,
@@ -3648,84 +3385,10 @@ def sharded_inference_phase(torch, mesh, hv, graph, models, wrappers,
     its partial outputs on the whole CSC), each printed. Returns K7's
     launches with partial outputs by kernel-row name."""
     records, partial_launches = sharded_inference_records(
-        torch, mesh, hv, graph, models, wrappers)
+        mesh, hv, graph, models, wrappers)
     for rec in records:
         emit({"phase": "sharded_inference", **rec, "nvidia_smi": smi_line})
     return partial_launches
-
-
-def sharded_inference_records(torch, mesh, hv, graph, models, wrappers,
-                              n_layers=len(FANOUTS)):
-    """``layerwise_inference_sharded`` of each model of ``models`` ("sage",
-    "gat") over ``mesh`` against ``layerwise_inference`` on this rank's
-    device, every row within 1e-2 x max|logit|; K6 launched on every
-    bucket of every layer (SAGE), K7 with its partial outputs once a bucket
-    and layer (GATv2), counted by shape at the launch site
-    (``gat_attention.launches_by_shape``). Two passes a model: the first
-    also sets up the ring (NCCL connects a pair of ranks at its first
-    send), the second is the one timed, counted and checked. Fails
-    otherwise. Returns the records and K7's launches with partial outputs
-    by kernel-row name."""
-    from bliss_gnn_tpu_torch.models.inference import (
-        layerwise_inference,
-        layerwise_inference_sharded,
-    )
-
-    dev = mesh.device
-    partial_launches, records = {}, []
-    for name, model in models.items():
-        model.eval()
-        first = {}
-        t0 = time.perf_counter()
-        layerwise_inference_sharded(name, model, hv, mesh, n_layers,
-                                    timings=first)
-        sync(torch, dev)
-        first = {f"first_pass_{k}": v for k, v in first.items()}
-        first["first_pass_seconds"] = time.perf_counter() - t0
-        reset_counts(wrappers)
-        timings = {}
-        t0 = time.perf_counter()
-        got = layerwise_inference_sharded(name, model, hv, mesh, n_layers,
-                                          timings=timings)
-        sync(torch, dev)
-        secs = time.perf_counter() - t0
-        launches = {k: wrappers[k].launches
-                    for k in ("spmm", "gat_attention")}
-        want = layerwise_inference(name, model, graph, n_layers)
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        finite = bool(torch.isfinite(got).all().item())
-        del got, want
-        buckets = n_layers * mesh.size
-        if name == "gat":
-            by = dict(wrappers["gat_attention"].launches_by_shape)
-            for l, conv in enumerate(model.layers):
-                shape = f"partials H={conv.num_heads} O={conv.out_feats}"
-                key = (f"gat_attention[H={conv.num_heads},"
-                       f"O={conv.out_feats},partials]")
-                partial_launches[key] = by.get(shape, 0)
-            if sum(by.values()) != buckets and dev.type == "cuda":
-                fail(f"sharded_inference: {by} K7 launches with partial "
-                     f"outputs for {n_layers} layers x {mesh.size} "
-                     f"bucket(s)")
-            launches["gat_attention_partials"] = by
-        rec = {"model": name, "seconds": secs, **timings, **first,
-               "launches": launches, "ranks": mesh.size,
-               "buckets_per_layer": mesh.size,
-               "max_abs_err": err, "max_abs_logit": scale, "finite": finite,
-               "tolerance": "1e-2 x max|layerwise_inference logit|"}
-        records.append(rec)
-        if not finite or err > 1e-2 * scale:
-            fail(f"sharded_inference {name}: {err} > 1e-2 x {scale}")
-        kname = "gat_attention" if name == "gat" else "spmm"
-        # K6 launches at least once a bucket and layer (once per L2 column
-        # slice); the plain versions count nothing
-        if launches[kname] < buckets and dev.type == "cuda":
-            fail(f"sharded_inference {name}: {kname} launched "
-                 f"{launches[kname]} times for {buckets} buckets")
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-    return records, partial_launches
 
 
 DP2_CFG = dict(dataset="synth-pubmed", fanouts=(256, 128, 64), hidden=256,
@@ -3807,10 +3470,10 @@ def dp2_worker(device):
         with BlockRecorder(steps_mod) as br:
             for i, seeds in enumerate(batches):
                 with commstats.recording() as rec:
-                    sync(torch, dev)
+                    sync(dev)
                     t0 = time.perf_counter()
                     st, m = step(st, seeds, smask)
-                    sync(torch, dev)
+                    sync(dev)
                     times.append((time.perf_counter() - t0) * 1e3)
                 losses.append(float(m["train_loss"]))
                 counts.append([int(m[f"num_edges/{l}"]) for l in range(L)])
@@ -3834,10 +3497,10 @@ def dp2_worker(device):
         model.eval()
         spmm.launches = gat_attention.launches = 0
         gat_attention.launches_by_shape = {}
-        sync(torch, dev)
+        sync(dev)
         t0 = time.perf_counter()
         got = layerwise_inference_sharded(name, model, g, mesh, 2)
-        sync(torch, dev)
+        sync(dev)
         secs = time.perf_counter() - t0
         launches = {"spmm": spmm.launches,
                     "gat_attention": gat_attention.launches,
@@ -3879,7 +3542,7 @@ def dp2_phase(torch, smi_line, workdir, device="cuda"):
         problems.append(f"sharded arm weights off the DP ones by {exp3_err}")
     if a["runs"]["dp"]["num_edges"] != a["runs"]["sharded"]["num_edges"]:
         problems.append("sharded and DP blocks differ")
-    blocks_equal = [[same_blocks(torch, x, y) for x, y in zip(
+    blocks_equal = [[same_blocks(x, y) for x, y in zip(
         o["runs"]["dp"]["blocks"], o["runs"]["sharded"]["blocks"])]
         for o in outs]
     if not all(all(r) for r in blocks_equal):
@@ -3908,13 +3571,14 @@ def dp2_phase(torch, smi_line, workdir, device="cuda"):
             problems.append("K7 did not run once a bucket and layer")
         if o["inference"]["sage"]["launches"]["spmm"] < 2 * 2:
             problems.append("K6 did not run on every bucket")
-    # at S = 2 the DP step's gathered deltas take K4's repeats route
+    # at S = 2 the DP step's gathered deltas take K4's repeats route: its
+    # two kernels once a step
     k4_repeats = sum(v for k, v in
                      a["runs"]["dp"]["exp3_apply_by_route"].items()
-                     if k.startswith("repeats "))
-    if device == "cuda" and k4_repeats != DP2_CFG["steps"]:
-        problems.append(f"K4's repeats route launched {k4_repeats} times in "
-                        f"{DP2_CFG['steps']} DP steps")
+                     if k.startswith("repeats ") and k.endswith(" S=2"))
+    if device == "cuda" and k4_repeats != 2 * DP2_CFG["steps"]:
+        problems.append(f"K4's repeats route launched {k4_repeats} kernels "
+                        f"in {DP2_CFG['steps']} DP steps (two a step)")
 
     logdir = os.path.join(workdir, "dp2_cli")
     t0 = time.perf_counter()
@@ -4106,457 +3770,6 @@ def bench_torch_phase(here, smi_line, rows):
 # multicard_inference, multicard_cli, multicard_scaling)
 # ---------------------------------------------------------------------------
 
-MULTICARD_SIZES = (1, 2, 4)
-# the main path's configuration at a local batch of BATCH seeds a rank
-# (weak scaling); counts: (eager steps, timed replays, steps against twins)
-MULTICARD_CFG = dict(
-    n_feats=N_FEATS, hidden=HIDDEN, n_classes=N_CLASSES, gat_heads=GAT_HEADS,
-    fanouts=FANOUTS, batch=BATCH, pilot_steps=WARMUP_STEPS + TIMED_STEPS,
-    counts=(WARMUP_STEPS + TIMED_STEPS, TIMED_STEPS, LOCKSTEP_STEPS),
-    gat_counts=(3, 3, 3), gate=True)
-# every step across cards, held to the nearer of two eager DP twins from
-# one state (both step kinds: the sharded step serves the DP step's rows).
-# The floor, two eager DP twins from one state, on four H100s (PERF.md):
-# tools/multicard_gate_probe.py at S = 4 (5 comparisons of each step kind)
-# and one --cards 4 run (3 a kind at S = 1, 2, 4) gave at most 4.57e-4 of
-# the update's norm (S = 4, sharded comparisons; 3.6e-4 at S = 2 and 3.5e-4
-# at S = 1) and 1.69e-5 of the loss (S = 1). So the update at 5x that
-# floor and the loss at 50x, as SHARDED_TOLERANCE at one rank (a later
-# probe run saw a DP step 8.5e-4 from both twins, the twins 2.5e-4 apart);
-# the arm weights within one bf16 ulp at any value (2^-7: 0.00775 seen
-# while the sharded step took K4's CAS route, 0 since the repeats route)
-MULTICARD_TOLERANCE = {"loss": 8.5e-4, "update": 2.3e-3, "exp3": 2.0 ** -7}
-
-
-class RankAudit:
-    """Checks a parallel state across the mesh's ranks: after every step
-    (:meth:`after`), its parameters and Adam state, and with ``exp3`` its
-    arm weights, bit-equal on every rank (an all-reduce gives every rank
-    the same bits, and K4's repeats route keeps the replicated arm weights
-    so); around untimed eager steps (:meth:`plain_shadow`), K4's update
-    held against ``exp3_apply_plain`` on the same gathered list, within one
-    ulp of the state's dtype. With no mesh it checks nothing."""
-
-    CHUNK = 1 << 25  # elements a rank all-gathers at a time
-
-    def __init__(self, torch, mesh, exp3=False):
-        self.torch, self.mesh, self.exp3 = torch, mesh, exp3
-        self.checks, self.unequal, self.plain = 0, [], []
-
-    def _same(self, x):
-        t = self.torch
-        bits = {t.bfloat16: t.int16, t.float32: t.int32}[x.dtype]
-        x = x.detach().reshape(-1)
-        for chunk in x.split(self.CHUNK):
-            rows = self.mesh.all_gather(chunk).view(bits)
-            if not bool((rows == rows[0]).all()):
-                return False
-        return True
-
-    def after(self, state, where):
-        if self.mesh is None:
-            return
-        t = self.torch
-        opt = state.optimizer
-        flat = t.cat([v.detach().reshape(-1).float()
-                      for p in state.model.parameters()
-                      for v in (p, *(opt.state[p][k]
-                                     for k in sorted(opt.state[p])))])
-        same = {"params_adam": self._same(flat)}
-        if self.exp3:
-            same["exp3"] = self._same(state.exp3_weights)
-        self.checks += 1
-        if not all(same.values()):
-            self.unequal.append({"where": where, "step": state.step, **same})
-
-    def plain_shadow(self):
-        import contextlib
-
-        if self.mesh is None or not self.exp3:
-            return contextlib.nullcontext()
-        return self._shadow()
-
-    def _shadow(self):
-        import contextlib
-
-        from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply_plain
-        from bliss_gnn_tpu_torch.sampling.samplers import (
-            exp3_delta_slots,
-            normalize_exp3_weights,
-        )
-        from bliss_gnn_tpu_torch.train import steps as steps_mod
-
-        t, audit = self.torch, self
-        storage = steps_mod._DEFAULT_STORAGE
-        apply = storage.apply_deltas
-
-        def shadowed(exp3, deltas, normalize, distinct=True):
-            ref = exp3.clone()
-            apply(exp3, deltas, normalize, distinct=distinct)
-            idx, mult, limit = exp3_delta_slots(deltas, exp3.shape[1])
-            exp3_apply_plain(ref.view(-1), idx, mult, limit)
-            if normalize:
-                normalize_exp3_weights(ref)
-            live = idx[(idx >= 0) & (idx < limit)].long()
-            uniq, cnt = t.unique(live, return_counts=True)
-            a, b = exp3.view(-1), ref.view(-1)
-            changed = t.nonzero(a != b).squeeze(1)
-            x, y = a[uniq].float(), b[uniq].float()
-            ulp_of = f32_ulp if exp3.dtype == t.float32 else bf16_ulp
-            ulp = t.maximum(ulp_of(t, x), ulp_of(t, y))
-            audit.plain.append({
-                "distinct": distinct, "slots": int(idx.numel()),
-                "live_slots": int(live.numel()),
-                "entries": int(uniq.numel()),
-                "max_repeats": int(cnt.max().item()) if cnt.numel() else 0,
-                "repeated_entries": int((cnt > 1).sum().item()),
-                "max_ulps": float(((x - y).abs() / ulp).max().item())
-                if cnt.numel() else 0.0,
-                "bitwise": bool(t.equal(a, b)),
-                "untouched_equal": bool(t.isin(changed, uniq).all().item())})
-            del ref
-
-        @contextlib.contextmanager
-        def ctx():
-            storage.apply_deltas = shadowed
-            try:
-                yield
-            finally:
-                del storage.apply_deltas
-
-        return ctx()
-
-    def summary(self):
-        if self.mesh is None:
-            return {}
-        return {"replica_checks": self.checks,
-                "replicas_unequal": self.unequal,
-                "k4_vs_plain": self.plain}
-
-    def gate(self, label):
-        if self.unequal:
-            fail(f"{label}: state differs across ranks: {self.unequal}")
-        bad = [r for r in self.plain
-               if r["max_ulps"] > 1.0 or not r["untouched_equal"]]
-        if bad:
-            fail(f"{label}: K4 off exp3_apply_plain by more than one ulp on "
-                 f"the gathered list: {bad}")
-
-
-def card_identity(torch, dev):
-    """This rank's card: its index, name, uuid and PCI bus id (in
-    ``nvidia-smi``'s format), so the parent can tell the cards apart."""
-    if dev.type != "cuda":
-        return {"device": str(dev)}
-    p = torch.cuda.get_device_properties(dev)
-    bus = getattr(p, "pci_bus_id", None)
-    pci = (f"{getattr(p, 'pci_domain_id', 0):08X}:{bus:02X}:"
-           f"{getattr(p, 'pci_device_id', 0):02X}.0" if bus is not None
-           else None)
-    uuid = str(getattr(p, "uuid", ""))
-    smi = subprocess.run(
-        ["nvidia-smi", f"--id=GPU-{uuid}",
-         "--query-gpu=name,power.limit,pci.bus_id",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    return {"device": str(dev), "name": p.name, "uuid": uuid,
-            "pci_bus_id": pci, "nvidia_smi": smi.stdout.strip()
-            or smi.stderr.strip()}
-
-
-def tensor_bytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def pilot_plan(torch, graph, scfg, cfg, indptr_np, seeds, smask):
-    """The main path's plan: a pilot of ``pilot_steps`` fused steps at the
-    a-priori caps, the refit from its maxima, then as many counted steps
-    from fresh weights, widened 1.5x after an overflow. Returns the final
-    plan and the pilot's numbers."""
-    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
-    from bliss_gnn_tpu_torch.sampling.samplers import init_exp3_weights
-    from bliss_gnn_tpu_torch.train.steps import make_train_step
-
-    dev = seeds.device
-    L, n_steps = len(scfg.fanouts), cfg["pilot_steps"]
-    deg_np = np.diff(indptr_np)
-    plan = CapacityPlan.build(cfg["batch"], scfg.fanouts, graph.n_nodes,
-                              graph.n_edges, kind=scfg.kind,
-                              deg_std=float(deg_np.std()),
-                              max_degree=int(deg_np.max()))
-
-    def run(step_plan, seed, widen):
-        st = fresh_state(torch, dev, graph, scfg,
-                         init_exp3_weights(L, graph.n_edges, device=dev),
-                         torch.Generator(device=dev).manual_seed(seed),
-                         seed=seed, dims=cfg)
-        step = make_train_step(graph, scfg, step_plan, False, device=dev)
-        log, widened = [], 0
-        for _ in range(n_steps):
-            st, m = step(st, seeds, smask)
-            log.append(m)
-            over = {k for l in range(L)
-                    for k in ("frontier_overflow", "block_edge_overflow")
-                    if int(m[f"layer{l}/{k}"]) > 0}
-            if widen and over:
-                step_plan = step_plan.widen(
-                    1.5, frontier="frontier_overflow" in over)
-                step = make_train_step(graph, scfg, step_plan, False,
-                                       device=dev)
-                widened += 1
-        return log, step_plan, widened
-
-    pilot, _, _ = run(plan, 1, False)
-    fr = [max(int(m[f"layer{l}/frontier_edges"]) for m in pilot)
-          for l in range(L)]
-    be = [max(int(m[f"layer{l}/n_block_edges_true"]) for m in pilot)
-          for l in range(L)]
-    tight = plan.refit(fr, be, max_degree=int(deg_np.max()))
-    _, final, widened = run(tight, 0, True)
-    return final, {"pilot_steps": n_steps, "pilot_frontier_edges": fr,
-                   "pilot_block_edges": be, "widened": widened,
-                   "frontier_caps": final.frontier_caps,
-                   "block_e_caps": final.block_e_caps}
-
-
-def multicard_worker(cfg, graph_dir, device, plan, last):
-    """One rank of a group of S (one rank a card under NCCL; gloo ranks on
-    the CPU to rehearse): the graph from ``graph_dir`` on its card, the
-    plan (``pilot_plan`` on rank 0 when ``plan`` is None, broadcast), then
-    the DP step and the range-sharded step of SAGE (``parallel_step_run``:
-    eager steps, the captured chained step, each against two eager DP
-    twins from one state; every step audited across the ranks), and, in
-    the ``last`` group, GATv2 through the DP step and the ring inference
-    of both trained models. Returns this rank's numbers."""
-    import torch
-    import torch.distributed as dist
-
-    from bliss_gnn_tpu_torch.parallel.dp import (
-        make_dp_multi_train_step,
-        make_dp_train_step,
-    )
-    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
-    from bliss_gnn_tpu_torch.parallel.shardedstep import (
-        ShardedDeviceGraph,
-        init_exp3_shard,
-        make_sharded_multi_train_step,
-        make_sharded_train_step,
-        unshard_exp3,
-    )
-    from bliss_gnn_tpu_torch.sampling.samplers import (
-        SamplerConfig,
-        init_exp3_weights,
-    )
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    mesh = make_mesh(None, device=device)
-    dev, S, L = mesh.device, mesh.size, len(cfg["fanouts"])
-    tol = MULTICARD_TOLERANCE if cfg["gate"] else None
-    wrappers = kernel_wrappers()
-    out = {"rank": mesh.rank, "ranks": S, "backend": mesh.backend,
-           "pid": os.getpid(), **card_identity(torch, dev)}
-    t0 = time.perf_counter()
-    indptr_np = np.load(os.path.join(graph_dir, "indptr.npy"))
-    graph = graph_from_csc(
-        torch, dev, indptr_np,
-        np.load(os.path.join(graph_dir, "csc_src.npy"), mmap_mode="r"),
-        cfg["n_feats"], cfg["n_classes"])
-    out["graph_seconds"] = time.perf_counter() - t0
-    t_start = time.perf_counter()
-
-    def note(stage):  # progress on stderr, one line a rank and stage
-        print(f"[multicard S={S} rank {mesh.rank}] {stage} at "
-              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
-              flush=True)
-
-    E = graph.n_edges
-    # every rank made the same graph (features and labels from one seed)
-    digest = torch.stack([graph.ndata["features"].sum(dtype=torch.float64),
-                          graph.ndata["labels"].sum(dtype=torch.float64),
-                          graph.csc_src.sum(dtype=torch.float64)])
-    if not bool((mesh.all_gather(digest) == digest).all()):
-        fail(f"rank {mesh.rank}: the ranks' graphs differ")
-    scfg = SamplerConfig(kind="poisson-bandit", fanouts=tuple(cfg["fanouts"]))
-    B = cfg["batch"]
-    seeds_np = np.random.default_rng(0).integers(
-        0, graph.n_nodes, max(MULTICARD_SIZES) * B).astype(np.int32)
-    seeds = torch.from_numpy(seeds_np[:S * B]).to(dev)
-    smask = torch.ones(S * B, dtype=torch.bool, device=dev)
-    if plan is None:
-        box = [pilot_plan(torch, graph, scfg, cfg, indptr_np, seeds[:B],
-                          smask[:B]) if mesh.rank == 0 else None]
-        dist.broadcast_object_list(box, src=0)
-        plan, out["pilot"] = box[0]
-    out["plan"] = plan
-    note("plan")
-    if last and dev.type == "cuda":
-        mesh.barrier()  # every rank holds its card: who is on which card
-        apps = subprocess.run(
-            ["nvidia-smi", "--query-compute-apps=pid,gpu_bus_id",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-        out["compute_apps"] = apps.stdout.strip().splitlines()
-        mesh.barrier()
-
-    def state(c, exp3, seed=0):
-        return fresh_state(torch, dev, graph, c, exp3, mesh.generator(seed),
-                           dims=cfg)
-
-    def dp_run(c, label, counts, kernels=STEP_KERNELS):
-        step = make_dp_train_step(mesh, graph, c, plan, False,
-                                  exp3_normalize=False)
-        multi = make_dp_multi_train_step(mesh, graph, c, plan, False,
-                                         exp3_normalize=False)
-
-        def twin():
-            tw = state(c, init_exp3_weights(L, E, device=dev))
-            tw, _ = step(tw, seeds, smask)  # makes Adam's state
-            return tw
-
-        st = state(c, init_exp3_weights(L, E, device=dev))
-        res, st = parallel_step_run(
-            torch, label, st, step, multi, step, twin(), twin(), seeds,
-            smask, wrappers, mesh, lambda s: s.exp3_weights, tol,
-            counts=counts, kernels=kernels,
-            audit=RankAudit(torch, mesh, exp3=True), twin_name="dp")
-        return res, st.model, step
-
-    out["dp"], sage_model, dp_step = dp_run(scfg, "dp", cfg["counts"])
-    # what the DP step holds on a rank: the replicated graph and arm
-    # weights [L, E + EDGE_PAD] (bf16)
-    out["dp"]["storage_bytes"] = tensor_bytes(
-        graph.csc_indptr, graph.csc_src, graph.csr_indptr,
-        *graph.ndata.values(), *graph.edata.values()) + (
-            L * graph.csc_src.numel() * 2)
-    note("dp")
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    hv = host_view(torch, graph, indptr_np)
-    sg = ShardedDeviceGraph.build(hv, mesh, feature_dtype=torch.bfloat16)
-    build_s = time.perf_counter() - t0
-
-    def exp3_of(s):
-        w = s.exp3_weights
-        return unshard_exp3(mesh.all_gather(w), L, E) if w.dim() == 1 else w
-
-    def dp_twin():
-        tw = state(scfg, init_exp3_weights(L, E, device=dev))
-        tw, _ = dp_step(tw, seeds, smask)
-        return tw
-
-    res, st = parallel_step_run(
-        torch, "sharded", state(scfg, init_exp3_shard(L, E, mesh)),
-        make_sharded_train_step(mesh, sg, scfg, plan, False),
-        make_sharded_multi_train_step(mesh, sg, scfg, plan, False),
-        dp_step, dp_twin(), dp_twin(), seeds, smask, wrappers, mesh, exp3_of,
-        tol, counts=cfg["counts"], audit=RankAudit(torch, mesh),
-        twin_name="dp")
-    out["sharded"] = dict(
-        res, build_seconds=build_s, epr=sg.epr, npr=sg.npr,
-        storage_bytes=tensor_bytes(  # this rank's shards and arm weights
-            sg.csc_indptr, sg.csc_src_sh, sg.w_sh, sg.features_sh,
-            sg.labels_sh) + (L * sg.epr + 1) * 2,
-        row_gather_collectives_per_step={
-            k: v for k, v in res["collectives_per_step"].items()
-            if k in ("all_gather", "reduce_scatter")})
-    del st, sg
-    note("sharded")
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    if last:
-        gcfg = dataclasses.replace(scfg, model="gat")
-        out["gat"], gat_model, _ = dp_run(
-            gcfg, "gat", cfg["gat_counts"],
-            STEP_KERNELS + ("row_scatter_add",))
-        note("gat")
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-        out["inference"], out["k7_partials"] = sharded_inference_records(
-            torch, mesh, hv, graph, {"sage": sage_model, "gat": gat_model},
-            wrappers, n_layers=L)
-        note("inference")
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    return out
-
-
-def multicard_phases(torch, cfg, graph_dir, device, sizes=MULTICARD_SIZES):
-    """The groups of ``sizes`` ranks, a new spawn each (``run_ranks``, one
-    rank a card under NCCL), each running ``multicard_worker``; the plan
-    of the first group is handed to the others. Prints ``multicard_dp``,
-    ``multicard_sharded`` per group and, for the largest,
-    ``multicard_gat`` and ``multicard_inference``; fails on a gate held
-    across the ranks (the backend, one card a rank). Returns each group's
-    ranks' numbers by S."""
-    from bliss_gnn_tpu_torch.parallel.multihost import run_ranks
-
-    runs, plan = {}, None
-    for S in sizes:
-        t0 = time.perf_counter()
-        threads = max(1, (os.cpu_count() or 1) // S)
-        ranks = run_ranks(multicard_worker, S,
-                          (cfg, graph_dir, device, plan, S == sizes[-1]),
-                          device=device,
-                          workdir=os.path.join(graph_dir, f"ranks{S}"),
-                          threads=threads)
-        spawn_s = time.perf_counter() - t0
-        plan = plan or ranks[0]["plan"]
-        want = "nccl" if device == "cuda" else "gloo"
-        cards = [r.get("uuid") or r["device"] for r in ranks]
-        if any(r["backend"] != want for r in ranks) or (
-                device == "cuda" and len(set(cards)) != S):
-            got = [(r["backend"], r["device"]) for r in ranks]
-            fail(f"multicard S = {S}: ranks {got}: want {want}, one card a "
-                 f"rank")
-        apps = check_one_process_a_card(ranks) if device == "cuda" else {}
-        ident = [{k: r.get(k) for k in ("rank", "device", "name", "uuid",
-                                        "pci_bus_id", "nvidia_smi", "pid")}
-                 for r in ranks]
-        for kind in ("dp", "sharded"):
-            emit({"phase": f"multicard_{kind}", "ranks": S,
-                  "backend": ranks[0]["backend"], "cards": ident,
-                  "group_seconds": spawn_s,
-                  "graph_seconds": [r["graph_seconds"] for r in ranks],
-                  "pilot": ranks[0].get("pilot"), **apps,
-                  "by_rank": [r[kind] for r in ranks]})
-        if S == sizes[-1]:
-            emit({"phase": "multicard_gat", "ranks": S,
-                  "by_rank": [r["gat"] for r in ranks]})
-            emit({"phase": "multicard_inference", "ranks": S,
-                  "by_rank": [{"rank": r["rank"], "models": r["inference"],
-                               "k7_partials": r["k7_partials"]}
-                              for r in ranks]})
-        runs[S] = ranks
-    return runs
-
-
-def bus_key(pci):
-    """A PCI bus id without its domain, lower case ("18:00.0"): the part
-    ``nvidia-smi`` and CUDA's device properties print alike."""
-    return ":".join((pci or "").strip().lower().split(":")[-2:])
-
-
-def check_one_process_a_card(ranks):
-    """``nvidia-smi``'s compute processes while every rank of the group held
-    its card: where the ranks' pids show, each on its own card and no card
-    with two; where they do not (a PID namespace), recorded as not
-    visible."""
-    apps = ranks[0].get("compute_apps") or []
-    seen = {}
-    for line in apps:
-        pid, _, bus = (x.strip() for x in line.partition(","))
-        seen.setdefault(pid, []).append(bus_key(bus))
-    mine = {str(r["pid"]): bus_key(r.get("pci_bus_id")) for r in ranks}
-    visible = {p: seen[p] for p in mine if p in seen}
-    if visible and (set(visible) != set(mine) or any(
-            v != [mine[p]] for p, v in visible.items())):
-        fail(f"multicard: not one rank process a card: {apps} {mine}")
-    return {"compute_apps": apps,
-            "rank_pids_visible": bool(visible)}
-
 
 def multicard_cli(torch, workdir, device, n):
     """``cli.main`` on synth-pubmed as ``dp2`` runs it, with ``--dp n`` and
@@ -4588,62 +3801,6 @@ def multicard_cli(torch, workdir, device, n):
             fail(f"multicard_cli {' '.join(argv)}: {res}, {ckpts}")
     emit({"phase": "multicard_cli", "ranks": n, "runs": recs})
     return recs
-
-
-def multicard_scaling(torch, runs, device):
-    """``multicard_scaling``: for the DP and the sharded step, the replayed
-    and chained step ms (the slowest rank's), ``dp_weak_scaling_pct`` =
-    replayed_step_ms(S = 1) / replayed_step_ms(S) x 100 (``bench.py``'s
-    key), sampled edges a second over all ranks, collectives, bytes, the
-    graph and arm weights a rank holds and peak memory a rank; each rank's
-    card (``nvidia-smi`` by its uuid) and NCCL's version."""
-    sizes = sorted(runs)
-    out = {"phase": "multicard_scaling", "sizes": sizes}
-    for kind in ("dp", "sharded"):
-        rep = {S: max(r[kind][f"{kind}_replayed_step_ms"] for r in runs[S])
-               for S in sizes}
-        chained = {S: max(r[kind][f"{kind}_chained_step_ms"]
-                          for r in runs[S]) for S in sizes}
-        eager = {S: max(r[kind][f"{kind}_step_ms"] for r in runs[S])
-                 for S in sizes}
-        edges = {S: runs[S][0][kind]["sampled_edges_per_step"]
-                 for S in sizes}
-        out[kind] = {
-            "replayed_step_ms": rep, "chained_step_ms": chained,
-            "eager_step_ms": eager,
-            "dp_weak_scaling_pct": {S: rep[sizes[0]] / rep[S] * 100.0
-                                    for S in sizes[1:]},
-            "chained_weak_scaling_pct": {
-                S: chained[sizes[0]] / chained[S] * 100.0
-                for S in sizes[1:]},
-            "sampled_edges_per_s": {S: edges[S] / (rep[S] / 1e3)
-                                    for S in sizes},
-            "collectives_per_step_per_rank": {
-                S: runs[S][0][kind]["collectives_count_per_step"]
-                for S in sizes},
-            "collective_bytes_per_step_per_rank": {
-                S: runs[S][0][kind]["collective_bytes_per_step"]
-                for S in sizes},
-            "moved_bytes_per_step_per_rank": {
-                S: runs[S][0][kind]["moved_bytes_per_step"] for S in sizes},
-            "storage_bytes_per_rank": {
-                S: runs[S][0][kind]["storage_bytes"] for S in sizes},
-            "peak_memory_bytes_per_rank": {
-                S: [r[kind].get("peak_memory_bytes") for r in runs[S]]
-                for S in sizes}}
-    out["cards"] = [{k: r.get(k) for k in ("rank", "device", "uuid",
-                                           "pci_bus_id", "nvidia_smi")}
-                    for r in runs[sizes[-1]]]
-    out["nccl"] = (".".join(str(v) for v in torch.cuda.nccl.version())
-                   if device == "cuda" else None)
-    emit(out)
-    vals = [v for kind in ("dp", "sharded")
-            for k in ("replayed_step_ms", "dp_weak_scaling_pct",
-                      "sampled_edges_per_s")
-            for v in out[kind][k].values()]
-    if not all(math.isfinite(v) and v > 0 for v in vals):
-        fail(f"multicard_scaling: {out}")
-    return out
 
 
 def multicard_main(torch, here, n_cards):
@@ -4684,9 +3841,9 @@ def multicard_main(torch, here, n_cards):
           "n_edges": int(csc_src_np.shape[0]),
           "seconds": time.perf_counter() - t0})
     del csc_src_np
-    runs = multicard_phases(torch, MULTICARD_CFG, workdir, "cuda", sizes)
+    runs = multicard_phases(MULTICARD_CFG, workdir, "cuda", sizes)
     multicard_cli(torch, workdir, "cuda", n_cards)
-    multicard_scaling(torch, runs, "cuda")
+    multicard_scaling(runs, "cuda")
     shutil.rmtree(os.path.join(here, "build", "chip_smoke_runs"),
                   ignore_errors=True)
     emit({"ok": True, "device": {"platform": "gpu",

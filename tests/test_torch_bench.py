@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import bench_torch
+import harness_torch
 from bliss_gnn_tpu.ops.fullgraph import full_spmm_sum as jax_full_spmm_sum
 from bliss_gnn_tpu_torch.ops.spmm import spmm
 
@@ -87,33 +88,67 @@ def returned_keys(fns, name, follow=True):
     return keys
 
 
+def _imports(path):
+    """The top-level modules ``path`` imports: by ``import`` statements
+    anywhere in it, and by ``importlib.import_module``/``__import__`` of
+    a constant name."""
+    mods = set()
+    for n in ast.walk(ast.parse(open(path).read())):
+        if isinstance(n, ast.Import):
+            mods |= {a.name.split(".")[0] for a in n.names}
+        elif isinstance(n, ast.ImportFrom) and n.module:
+            mods.add(n.module.split(".")[0])
+        elif (isinstance(n, ast.Call) and getattr(
+                n.func, "attr", getattr(n.func, "id", None)) in (
+                    "import_module", "__import__") and n.args
+              and isinstance(n.args[0], ast.Constant)):
+            mods.add(str(n.args[0].value).split(".")[0])
+    return mods
+
+
+@pytest.mark.parametrize("script,other", [
+    ("chip_smoke.py", {"bench_torch"}),
+    ("bench_torch.py", {"chip_smoke"}),
+    ("harness_torch.py", {"bench_torch", "chip_smoke"}),
+])
+def test_scripts_do_not_import_each_other(script, other):
+    """``chip_smoke.py`` and ``bench_torch.py`` share their harness through
+    ``harness_torch.py``, which imports neither; neither imports the
+    other."""
+    mods = _imports(os.path.join(ROOT, script))
+    assert not mods & other, mods & other
+    assert ("harness_torch" in mods) == (script != "harness_torch.py")
+    assert not mods & {"jax", "jaxlib", "flax", "optax", "bliss_gnn_tpu"}
+
+
 def test_graph_bit_equal_to_bench_build_graph(monkeypatch, tmp_path):
     bench = load_bench(monkeypatch, tmp_path)
     want_ip, want_src = bench.build_graph()
     cache = str(tmp_path / "torch")
     for _ in range(2):  # generated, then read back from the cache
-        ip, src = bench_torch.build_graph(bench.N_NODES, bench.N_EDGES,
-                                          cache=cache)
+        ip, src = harness_torch.build_graph(bench.N_NODES, bench.N_EDGES,
+                                            cache=cache)
         assert (len(ip) - 1, len(src)) == (232, 114_848)
         assert ip.dtype == np.int64 and src.dtype == np.int32
         assert np.array_equal(ip, want_ip)
         assert np.array_equal(src, want_src)
-    tag = bench_torch.source_tag(bench_torch.reddit_shaped_csc)
+    tag = harness_torch.source_tag(harness_torch.reddit_shaped_csc)
     assert os.listdir(cache) == [f"reddit_synth_{tag}_232_114848.npz"]
 
 
 def test_graph_cache_is_not_read_back_after_its_generator_changes(
         monkeypatch, tmp_path):
     cache = str(tmp_path)
-    ip, src = bench_torch.build_graph(232, 114_848, cache=cache)
+    ip, src = harness_torch.build_graph(232, 114_848, cache=cache)
     made = []
 
     def changed_generator(n_nodes, n_rand_edges):
         made.append((n_nodes, n_rand_edges))
         return ip, src[::-1].copy()
 
-    monkeypatch.setattr(bench_torch, "reddit_shaped_csc", changed_generator)
-    _, got = bench_torch.build_graph(232, 114_848, cache=cache)
+    monkeypatch.setattr(harness_torch, "reddit_shaped_csc",
+                        changed_generator)
+    _, got = harness_torch.build_graph(232, 114_848, cache=cache)
     assert made == [(232, 114_848 - 232)]
     assert np.array_equal(got, src[::-1])
     assert len(os.listdir(cache)) == 2
@@ -121,10 +156,10 @@ def test_graph_cache_is_not_read_back_after_its_generator_changes(
 
 def test_headline_spmm_plain_path_matches_jax(monkeypatch, tmp_path):
     bench = load_bench(monkeypatch, tmp_path)
-    indptr, src = bench_torch.build_graph(bench.N_NODES, bench.N_EDGES,
-                                          cache=str(tmp_path / "torch"))
+    indptr, src = harness_torch.build_graph(bench.N_NODES, bench.N_EDGES,
+                                            cache=str(tmp_path / "torch"))
     n, e = len(indptr) - 1, len(src)
-    w, x = bench_torch.headline_inputs(n, e)
+    w, x = harness_torch.headline_inputs(n, e)
     assert x.shape == (n, 602) and x.dtype == w.dtype == np.float32
     got = spmm(torch.from_numpy(x), torch.from_numpy(indptr.astype(np.int32)),
                torch.from_numpy(src), torch.from_numpy(w)).numpy()
@@ -137,7 +172,7 @@ def test_headline_spmm_plain_path_matches_jax(monkeypatch, tmp_path):
 
 def test_section_keys_are_bench_py_keys():
     fns = bench_functions()
-    keys = bench_torch.KEYS
+    keys = harness_torch.KEYS
     assert set(keys["headline"]) == returned_keys(fns, "main", follow=False)
     assert set(keys["sbm"]) == returned_keys(fns, "_bench_sbm_spmm")
     assert set(keys["scaling"]) == returned_keys(fns, "_bench_dp_scaling")
@@ -163,7 +198,7 @@ def test_section_keys_are_bench_py_keys():
      {"sbm", "scaling", "step", "ttf1"}),
 ])
 def test_switches_and_defaults_are_bench_py_s(scale, env, on):
-    got = bench_torch.switches(env, scale)
+    got = harness_torch.switches(env, scale)
     assert {k for k, v in got.items() if v} == on | {"headline"}
 
 
@@ -172,7 +207,7 @@ def test_step_only_line_has_bench_py_keys(monkeypatch, tmp_path, capfd):
         monkeypatch.setenv(f"BLISS_BENCH_{var}", "0")
     monkeypatch.setenv("BLISS_BENCH_STEP", "1")
     monkeypatch.setenv("BLISS_BENCH_SCALE", STEP_SCALE)
-    monkeypatch.setattr(bench_torch, "CACHE", str(tmp_path))
+    monkeypatch.setattr(harness_torch, "CACHE", str(tmp_path))
     bench_torch.main(["--platform", "cpu"])
     out, err = capfd.readouterr()
     lines = out.strip().splitlines()
@@ -200,7 +235,7 @@ def test_ttvf1_null_rule(reached):
     res = {"steps": 200, "reached": reached, "train_seconds": 1.5,
            "final_val_f1": 0.897}
     live = bench_torch.ttvf1_record(res, freeze=False)
-    assert set(live) == set(bench_torch.KEYS["ttf1"])
+    assert set(live) == set(harness_torch.KEYS["ttf1"])
     assert live["time_to_val_f1_90_s"] == (1.5 if reached else None)
     assert live["ttvf1_steps"] == (200 if reached else None)
     assert live["ttvf1_final_val_f1"] == 0.897
@@ -213,13 +248,13 @@ def test_ttvf1_null_rule(reached):
 
 
 def test_spmm_sol_frac_bound_uses_the_h100_rates():
-    assert bench_torch.HBM_BYTES_PER_S == 3.35e12
-    assert bench_torch.F32_FLOPS == 67e12
+    assert harness_torch.HBM_BYTES_PER_S == 3.35e12
+    assert harness_torch.F32_FLOPS == 67e12
     # Reddit's shape at F = 602 f32, weighted: operations bind
     n, e, f = 232_965, 114_848_857, 602
     nbytes = n * f * 4 + (n + 1) * 4 + e * 4 + e * 4 + n * f * 4
-    assert bench_torch.spmm_cost(n, e, f, 4, True) == (nbytes, 2 * e * f)
-    ms, by = bench_torch.roofline_ms(nbytes, 2 * e * f)
+    assert harness_torch.spmm_cost(n, e, f, 4, True) == (nbytes, 2 * e * f)
+    ms, by = harness_torch.roofline_ms(nbytes, 2 * e * f)
     assert by == "operations" and ms == pytest.approx(2 * e * f / 67e12 * 1e3)
     assert bench_torch.spmm_bound_ms(n, e, f, 4, True) == ms
     # a sparse shape at F = 4 bf16: bytes bind, at 3.35 TB/s

@@ -5,7 +5,12 @@ run them on one with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 import pytest
 import torch
 
-from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply, exp3_apply_plain
+from bliss_gnn_tpu_torch.ops.exp3 import (
+    exp3_apply,
+    exp3_apply_plain,
+    exp3_apply_sorted_runs,
+    group_table_log2,
+)
 from bliss_gnn_tpu_torch.ops.gat_attention import (
     gat_attention,
     gat_attention_plain,
@@ -391,9 +396,10 @@ def test_exp3_apply_repeats_route_same_bits_every_call(dev, gen, dtype):
     deltas of a DP step at S = 4 do), with no-op slots: the same bits on
     20 calls (the card's slot order does not reach the result), bit for
     bit the CPU's sequential ``exp3_apply_plain`` (the same products in
-    list order, one rounding), within one ulp of the plain version on the
-    card, untouched entries unchanged; launched once a call, counted on
-    its route."""
+    list order, one rounding) and the sorted route it replaced, within
+    one ulp of the plain version on the card, untouched entries
+    unchanged; two launches a call (insert, apply), counted on its
+    route."""
     limit, per = 1 << 20, 60_000
     pool = torch.randperm(limit, generator=gen, device=dev)[:90_000]
     lists = [pool[torch.randperm(pool.shape[0], generator=gen,
@@ -409,20 +415,23 @@ def test_exp3_apply_repeats_route_same_bits_every_call(dev, gen, dtype):
     assert int(cnt.max()) == 4 and int((cnt == 1).sum()) > 0
     launches = exp3_apply.launches
     key = (f"repeats {'f32' if dtype == torch.float32 else 'bf16'} "
-           f"{idx.shape[0]}")
+           f"{idx.shape[0]} S=4")
     before = exp3_apply.launches_by_shape.get(key, 0)
     outs = []
     for _ in range(20):
         got = state.clone()
-        exp3_apply(got, idx, mult, limit, distinct=False)
+        exp3_apply(got, idx, mult, limit, max_repeats=4)
         outs.append(got)
-    assert exp3_apply.launches == launches + 20
-    assert exp3_apply.launches_by_shape[key] == before + 20
+    assert exp3_apply.launches == launches + 40
+    assert exp3_apply.launches_by_shape[key] == before + 40
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
     got = outs[0]
     cpu = state.cpu()
     exp3_apply_plain(cpu, idx.cpu(), mult.cpu(), limit)
     assert torch.equal(got.cpu(), cpu)
+    old = state.clone()
+    exp3_apply_sorted_runs(old, idx, mult, limit)
+    assert torch.equal(got, old)
     ref = state.clone()
     exp3_apply_plain(ref, idx, mult, limit)
     ulp_of = _f32_ulp if dtype == torch.float32 else _bf16_ulp
@@ -432,6 +441,119 @@ def test_exp3_apply_repeats_route_same_bits_every_call(dev, gen, dtype):
     untouched = torch.ones(limit, dtype=torch.bool, device=dev)
     untouched[uniq] = False
     assert torch.equal(got[untouched], state[untouched])
+
+
+def _hash_mul():
+    """The group-by route's hash multiplier, read from its kernel source."""
+    import pathlib
+    import re
+
+    import bliss_gnn_tpu_torch
+
+    src = (pathlib.Path(bliss_gnn_tpu_torch.__file__).parent / "csrc"
+           / "exp3_apply.cu").read_text()
+    return int(re.search(r"kHashMul = (0x[0-9A-Fa-f]+)u", src).group(1), 16)
+
+
+def _group_case(gen, dev, case, s, per=3000, limit=1 << 20):
+    """(flat indices, limit) of ``s`` ranks' lists of ``per`` slots, each
+    rank's live indices distinct, laid out rank by rank as the gathered
+    deltas are. ``case``: ``every_rank`` (1,000 indices in every rank),
+    ``one_rank`` (each index in one rank only), ``noops`` (``every_rank``
+    with a no-op after every slot, -1 and ``limit`` in turn, each repeated
+    thousands of times), ``empty``, ``all_noops``,
+    ``collide`` (2,000 indices in every rank, all hashing to the table's
+    first 16 slots: one probe run of 2,000 slots, the table's worst
+    case)."""
+    if case == "empty":
+        return torch.empty(0, dtype=torch.int32, device=dev), limit
+    if case == "collide":
+        per, limit = 2000, 1 << 24
+        log2_t = group_table_log2(s * per)
+        k = torch.arange(limit, dtype=torch.int64)
+        slot = ((k * _hash_mul()) & 0xFFFFFFFF) >> (32 - log2_t)
+        keys = k[slot < 16][:per]  # 2^24 * 16 / T >= 4,096 candidates
+        assert keys.numel() == per
+        lists = [keys[torch.randperm(per)].to(dev) for _ in range(s)]
+    elif case == "one_rank":
+        keys = torch.randperm(limit, generator=gen, device=dev)[:s * per]
+        lists = list(keys.view(s, per))
+    else:
+        pool = torch.randperm(limit, generator=gen, device=dev)[:4 * per]
+        common = pool[:1000]
+        lists = [torch.cat([common, pool[1000:][torch.randperm(
+            3 * per, generator=gen, device=dev)[:per - 1000]]])[
+            torch.randperm(per, generator=gen, device=dev)]
+            for _ in range(s)]
+    idx = torch.cat(lists).to(torch.int32)
+    if case == "noops":
+        noop = torch.full_like(idx, -1)
+        noop[1::2] = limit
+        idx = torch.stack([idx, noop], 1).reshape(-1)
+    if case == "all_noops":
+        idx[::2] = -1
+        idx[1::2] = limit
+    return idx, limit
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [2, 4, 8, 16])
+@pytest.mark.parametrize("case", ["every_rank", "one_rank", "noops",
+                                  "empty", "all_noops", "collide"])
+def test_exp3_apply_group_route_cases(dev, gen, case, s, dtype):
+    """The group-by route at S ranks: bit for bit the CPU's
+    ``exp3_apply_plain`` and the sorted route it replaced, on every case of
+    ``_group_case``; entries outside the list untouched; two launches a
+    call, also on an empty list. At S = 16 an index's 16 slots overflow
+    the kernel's 8 registers and take its list-walk path."""
+    idx, limit = _group_case(gen, dev, case, s)
+    live = idx[(idx >= 0) & (idx < limit)].long()
+    if live.numel():
+        most = int(torch.unique(live, return_counts=True)[1].max())
+        assert most == (s if case in ("every_rank", "noops") else
+                        s if case == "collide" else 1)
+    mult = torch.exp(torch.rand(idx.shape[0], generator=gen, device=dev)
+                     * 0.5 - 0.25)
+    state = (torch.rand(limit, generator=gen, device=dev) + 0.5).to(dtype)
+    got, old = state.clone(), state.clone()
+    launches = exp3_apply.launches
+    exp3_apply(got, idx, mult, limit, max_repeats=s)
+    assert exp3_apply.launches == launches + 2
+    exp3_apply_sorted_runs(old, idx, mult, limit)
+    cpu = state.cpu()
+    exp3_apply_plain(cpu, idx.cpu(), mult.cpu(), limit)
+    assert torch.equal(got.cpu(), cpu)
+    assert torch.equal(got, old)
+    untouched = torch.ones(limit, dtype=torch.bool, device=dev)
+    untouched[live] = False
+    assert torch.equal(got[untouched], state[untouched])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_exp3_apply_group_route_replays_in_a_cuda_graph(dev, gen, dtype):
+    """The group-by route captured in a CUDA graph (its scratch from the
+    graph's pool, its memset and two launches recorded, no host sync)
+    replays to the eager call's bits, on every replay."""
+    idx, limit = _group_case(gen, dev, "noops", 4)
+    mult = torch.exp(torch.rand(idx.shape[0], generator=gen, device=dev)
+                     * 0.5 - 0.25)
+    state = (torch.rand(limit, generator=gen, device=dev) + 0.5).to(dtype)
+    want = state.clone()
+    exp3_apply(want, idx, mult, limit, max_repeats=4)
+    st = state.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        exp3_apply(st, idx, mult, limit, max_repeats=4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        exp3_apply(st, idx, mult, limit, max_repeats=4)
+    for _ in range(3):
+        st.copy_(state)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(st, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

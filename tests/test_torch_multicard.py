@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import chip_smoke
+import harness_torch
 from bliss_gnn_tpu_torch.parallel import mesh as pmesh
 from bliss_gnn_tpu_torch.parallel import multihost
 
@@ -101,8 +102,8 @@ def multicard_runs(tmp_path_factory):
     indptr, src = _small_csc()
     np.save(d / "indptr.npy", indptr)
     np.save(d / "csc_src.npy", src)
-    runs = chip_smoke.multicard_phases(torch, SMALL_CFG, str(d), "cpu")
-    return runs, chip_smoke.multicard_scaling(torch, runs, "cpu")
+    runs = harness_torch.multicard_phases(SMALL_CFG, str(d), "cpu")
+    return runs, harness_torch.multicard_scaling(runs, "cpu")
 
 
 def test_multicard_groups_run_gloo_ranks(multicard_runs):
@@ -138,7 +139,7 @@ def test_multicard_k4_against_plain_on_the_gathered_list(multicard_runs):
             assert len(plain) == SMALL_CFG["counts"][2]
             for p in plain:
                 assert p["bitwise"] and p["max_ulps"] == 0.0
-                assert p["distinct"] == (S == 1)
+                assert p["bound"] == S and p["max_repeats"] <= S
                 assert p["slots"] == S * (p["slots"] // S)
 
 

@@ -247,6 +247,45 @@ def test_multiprocess_distributed_shard_graph(launches):
         assert a["tree"]["b"][0].tolist() == [2 * r, 2 * r + 1]
 
 
+def _teardown_worker():
+    """A ``batch_isend_irecv`` ring (``Mesh.ppermute``) and the first Adam
+    after the group exists, as a trainer rank runs them; at interpreter
+    exit, after ``run_ranks``' teardown, the group must be held by nothing
+    but this check, else the rank exits 3: a group left alive keeps gloo's
+    threads running into exit, where the rank can abort."""
+    import atexit
+
+    import torch.distributed as dist
+
+    from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(None, device="cpu")
+    x = torch.arange(4.0) + 10 * mesh.rank
+    for _ in range(mesh.size + 1):
+        x = mesh.ppermute(x)
+    torch.optim.Adam([torch.nn.Parameter(torch.ones(2))])
+    world = [dist.group.WORLD]
+
+    def held():
+        # the list's reference and getrefcount's own argument
+        if sys.getrefcount(world[0]) > 2:
+            os._exit(3)
+
+    atexit.register(held)
+    return x
+
+
+def test_gloo_teardown_releases_the_group(tmp_path):
+    """``run_ranks``' teardown leaves no reference to the process group
+    (so ``destroy_process_group`` joins gloo's threads) after a ring and an
+    optimizer built inside the rank; each rank got its left neighbour's
+    tensor."""
+    out = multihost.run_ranks(_teardown_worker, 2, device="cpu",
+                              workdir=str(tmp_path))
+    for r, x in enumerate(out):
+        assert torch.equal(x, torch.arange(4.0) + 10 * ((r + 1) % 2))
+
+
 def test_cli_dp_starts_its_own_ranks(tmp_path):
     """``cli.main(["--dp", "2", ...])`` with no group running starts two
     ranks itself and returns rank 0's final F1s (graph sharding on)."""

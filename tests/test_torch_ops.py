@@ -309,6 +309,67 @@ def test_exp3_apply_matches_streaming_kernel(dup):
     np.testing.assert_allclose(_bf16_np(flat), want, rtol=BF16_ULP)
 
 
+def _ranks_list(rng, n_ranks, limit, per=150):
+    """``n_ranks`` distinct lists of ``per`` indices gathered rank by rank,
+    as the DP step's all-gathered deltas: index ``limit // 2`` in every
+    rank, so it repeats ``n_ranks`` times; every 9th slot a no-op."""
+    common = limit // 2
+    pool = np.setdiff1d(np.arange(limit), [common])
+    idx = np.concatenate([np.concatenate([
+        [common], rng.choice(pool[:600], per - 1, replace=False)])
+        for _ in range(n_ranks)]).astype(np.int32)
+    idx[1::9] = limit
+    return idx, common
+
+
+@pytest.mark.parametrize("max_repeats", [2, 4, 8])
+def test_exp3_apply_repeats_promise_accepts_s_copies(max_repeats):
+    """The repeats route (``max_repeats`` S) on S ranks' gathered lists, an
+    index in every rank: taken on a CPU tensor and within the streaming
+    kernel's m - 1 bf16 ulps of it (the kernel rounds after each of an
+    index's m updates; the port once, after the product)."""
+    rng = np.random.default_rng(12)
+    limit = TILE_ROWS * 128
+    state = (rng.random(limit) + 0.5).astype(np.float32)
+    idx, _ = _ranks_list(rng, max_repeats, limit)
+    mult = (rng.random(idx.shape[0]) * 0.5 + 0.75).astype(np.float32)
+    want, n_over = exp3_apply_streaming(
+        jnp.asarray(state.reshape(1, TILE_ROWS, 128), jnp.bfloat16),
+        jnp.asarray(idx), jnp.asarray(mult), interpret=True)
+    assert int(n_over) == 0
+    flat = _t(state).to(torch.bfloat16)
+    exp3_apply(flat, _t(idx), _t(mult), limit, max_repeats=max_repeats)
+    want = np.asarray(want.astype(jnp.float32)).reshape(-1)
+    np.testing.assert_allclose(_bf16_np(flat), want,
+                               rtol=(max_repeats - 1) * BF16_ULP)
+
+
+@pytest.mark.parametrize("max_repeats", [1, 2, 4])
+def test_exp3_apply_repeats_promise_raises_on_s_plus_one(max_repeats):
+    """One more live copy of an index than ``max_repeats`` promises raises
+    on a CPU tensor and leaves the state untouched; no-op slots (-1 and
+    ``limit``) repeat freely. ``max_repeats`` 1 (the CAS route) promises
+    nothing: its repeats compose within m - 1 ulps."""
+    rng = np.random.default_rng(13)
+    limit = 4096
+    idx, common = _ranks_list(rng, max_repeats, limit)
+    idx = np.concatenate([idx, [-1, -1, limit, limit]]).astype(np.int32)
+    state = torch.ones(limit, dtype=torch.bfloat16)
+    mult = torch.full((idx.shape[0] + 1,), 1.5)
+    exp3_apply(state, _t(idx), mult[:-1], limit, max_repeats=max_repeats)
+    assert float(state[common]) == 1.5 ** max_repeats
+    more = _t(np.concatenate([idx, [common]]).astype(np.int32))
+    before = state.clone()
+    if max_repeats == 1:
+        exp3_apply(state, more, mult, limit, max_repeats=1)
+        assert float(state[common]) == 1.5 ** 3  # once, then twice more
+        return
+    with pytest.raises(ValueError, match=f"repeats {max_repeats + 1} "
+                       f"times, over max_repeats={max_repeats}"):
+        exp3_apply(state, more, mult, limit, max_repeats=max_repeats)
+    assert torch.equal(state, before)
+
+
 # -- segment layer ----------------------------------------------------------
 
 

@@ -309,7 +309,7 @@ def test_delta_formula_runs_and_differs():
 @pytest.mark.slow
 def test_frozen_bandit_needs_more_steps():
     """``bench.py``'s time-to-val-F1 protocol through the port
-    (``chip_smoke.time_to_val_f1``), live bandit then frozen (sampling from
+    (``harness_torch.time_to_val_f1``), live bandit then frozen (sampling from
     the arm weights, never updating them): the frozen arm needs at least
     1.3x the live arm's steps to val micro-F1 0.90, and is capped just past
     that bound. Marked slow: on one CPU thread the live arm alone runs up
@@ -318,15 +318,15 @@ def test_frozen_bandit_needs_more_steps():
     reference package at other seeds), so whether the live arm reaches it
     depends on the draws."""
     sys.path.insert(0, ROOT)
-    import chip_smoke
+    import harness_torch
 
     cpu = torch.device("cpu")
-    live = chip_smoke.time_to_val_f1(torch, cpu, max_chains=25)
+    live = harness_torch.time_to_val_f1(cpu, max_chains=25)
     assert live["reached"], f"live bandit never reached target: {live}"
-    K = chip_smoke.TTVF1_K
+    K = harness_torch.TTVF1_K
     cap = math.ceil(1.3 * live["steps"] / K) + 1
-    frozen = chip_smoke.time_to_val_f1(torch, cpu, max_chains=cap,
-                                       freeze=True)
+    frozen = harness_torch.time_to_val_f1(cpu, max_chains=cap,
+                                          freeze=True)
     if frozen["reached"]:
         assert frozen["steps"] >= 1.3 * live["steps"], (live, frozen)
     else:

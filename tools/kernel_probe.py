@@ -72,6 +72,11 @@ KERNEL is one of:
         order with one bf16 rounding after each, as the kernel does in
         whatever order the card takes them, and counts the entries for
         which some order lands more than 2^-7 from the plain version.
+        Then the repeats route at the DP step's S = 4 size (four ranks'
+        lists of one step's caps gathered; ``repeats_routes``): ``ms``,
+        ``device_ms`` and ``host_us`` of the checkout's route, and of the
+        sorted route it replaced where the checkout keeps it, with their
+        bits compared.
 
 The K1/K3/K5 inputs come from one ``sample_blocks`` step on the final plan of
 chip_smoke.py's runs (the caps below) with fresh arm weights, cached in
@@ -113,8 +118,8 @@ FRONTIER_CAPS = (3_279_616, 1_291_648, 243_456)
 
 def smoke_module():
     """``chip_smoke.py`` of the checkout this script lies in, imported as
-    a module for its graph and timing functions. Its ``bench_torch`` is
-    found after the path's entries, so the package stays the path's."""
+    a module for its graph and timing functions. Its ``harness_torch``
+    is found after the path's entries, so the package stays the path's."""
     if str(ROOT) not in sys.path:
         sys.path.append(str(ROOT))
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -266,6 +271,7 @@ def probe_k4_repeats(smoke, dev, calls=200):
         order_fail[k] = f"{int(worst.sum())} of {entries.numel()}"
         order_gap[k] = int(gmax.round().max())
     return {
+        "repeats_routes": repeats_routes(smoke, dev),
         "entries_by_times_updated": {str(k): int(c) for k, c in
                                      enumerate(hist.tolist()) if k > 0},
         "calls": calls, "calls_failing_the_test": fail_calls,
@@ -278,6 +284,58 @@ def probe_k4_repeats(smoke, dev, calls=200):
         "max_ulp_gap_any_order_by_m": {str(k): v for k, v in
                                        order_gap.items()},
     }
+
+
+def repeats_routes(smoke, dev, n_ranks=4):
+    """K4's repeats route at the DP step's S = 4 size: four ranks' lists
+    of one step's caps (each rank's live ids distinct, 30% no-op), drawn
+    from a shared pool so that an id repeats up to 4 times, gathered layer
+    by layer in rank order. Times the checkout's repeats route (the
+    group-by with ``max_repeats``; a tree without it: ``distinct=False``,
+    the sorted route) and, where the checkout keeps it, the sorted route
+    beside it, with their bits compared."""
+    from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
+    from bliss_gnn_tpu_torch.ops import exp3 as k4
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    span = N_EDGES + EDGE_PAD
+    limit = len(BLOCK_E_CAPS) * span
+    parts = []
+    for l, c in enumerate(BLOCK_E_CAPS):
+        pool = torch.randperm(N_EDGES, generator=g, device=dev)[:2 * c]
+        for _ in range(n_ranks):
+            ids = pool[torch.randperm(2 * c, generator=g, device=dev)[:c]]
+            ids = torch.where(torch.rand(c, generator=g, device=dev) < 0.3,
+                              limit - l * span, ids)
+            parts.append(ids + l * span)
+    idx = torch.cat(parts).to(torch.int32)
+    u = idx.numel()
+    mult = torch.exp(torch.rand(u, generator=g, device=dev) * 0.5)
+    state0 = (torch.rand(limit, generator=g, device=dev) + 0.5).to(
+        torch.bfloat16)
+    live = idx[idx < limit].long()
+    cnt = torch.unique(live, return_counts=True)[1]
+    if "max_repeats" in inspect.signature(k4.exp3_apply).parameters:
+        kw = {"max_repeats": n_ranks}
+    else:
+        kw = {"distinct": False}
+    st = state0.clone()
+    out = {"slots": u, "valid": int(live.numel()),
+           "entries": int(cnt.numel()), "max_repeats": int(cnt.max()),
+           "route": kw, "repeats_route": small_times(
+               smoke, lambda: k4.exp3_apply(st, idx, mult, limit, **kw)),
+           "repeats_route_device_us": smoke.device_breakdown(
+               lambda: k4.exp3_apply(st, idx, mult, limit, **kw), torch)}
+    if hasattr(k4, "exp3_apply_sorted_runs"):
+        a, b = state0.clone(), state0.clone()
+        k4.exp3_apply(a, idx, mult, limit, **kw)
+        k4.exp3_apply_sorted_runs(b, idx, mult, limit)
+        out["bitwise_equal_to_sorted_route"] = torch.equal(a, b)
+        out["sorted_route"] = small_times(
+            smoke, lambda: k4.exp3_apply_sorted_runs(st, idx, mult, limit))
+        out["sorted_route_device_us"] = smoke.device_breakdown(
+            lambda: k4.exp3_apply_sorted_runs(st, idx, mult, limit), torch)
+    return out
 
 
 def graph_arrays(smoke):
@@ -570,7 +628,7 @@ def probe_gat_step(smoke, dev, fg, n=3):
         deg, output_size=fg.n_edges).to(torch.bfloat16)
     graph = DeviceGraph(
         csc_indptr=fg.ip, csc_src=fg.src,
-        csr_indptr=smoke.out_indptr(torch, fg.src[:fg.n_edges], fg.n),
+        csr_indptr=smoke.out_indptr(fg.src[:fg.n_edges], fg.n),
         csr_dst=fg.ip[:1], csr_eid=fg.ip[:1],
         ndata={"features": torch.randn((fg.n, smoke.N_FEATS), generator=gen,
                                        device=dev, dtype=torch.bfloat16),

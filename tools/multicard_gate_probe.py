@@ -30,7 +30,7 @@ sys.path.insert(0, ROOT)
 def main():
     import torch
 
-    import chip_smoke as cs
+    import harness_torch as hs
     from bliss_gnn_tpu_torch.ops import _build
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
@@ -40,13 +40,13 @@ def main():
     workdir = os.path.join(ROOT, "build", "multicard_probe")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    indptr, csc_src = cs.reddit_shaped_csc()
-    cs.np.save(os.path.join(workdir, "indptr.npy"), indptr)
-    cs.np.save(os.path.join(workdir, "csc_src.npy"), csc_src)
+    indptr, csc_src = hs.reddit_shaped_csc()
+    hs.np.save(os.path.join(workdir, "indptr.npy"), indptr)
+    hs.np.save(os.path.join(workdir, "csc_src.npy"), csc_src)
     del csc_src
-    cfg = dict(cs.MULTICARD_CFG, counts=(3, 2, n), gat_counts=(1, 1, 1),
+    cfg = dict(hs.MULTICARD_CFG, counts=(3, 2, n), gat_counts=(1, 1, 1),
                gate=False)
-    runs = cs.multicard_phases(torch, cfg, workdir, "cuda", sizes=(4,))
+    runs = hs.multicard_phases(cfg, workdir, "cuda", sizes=(4,))
     worst = {}
     for r in runs[4]:
         for kind in ("dp", "sharded", "gat"):

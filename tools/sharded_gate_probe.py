@@ -86,12 +86,12 @@ def main():
     del pilot, step, log
 
     mesh = make_mesh(1, device=dev)
-    sg = ShardedDeviceGraph.build(cs.host_view(torch, graph, indptr_np),
+    sg = ShardedDeviceGraph.build(cs.host_view(graph, indptr_np),
                                   mesh, feature_dtype=torch.bfloat16)
     fused = make_train_step(graph, cfg, plan, False, device=dev)
 
     def new_twin():
-        twin = cs.fresh_state(torch, dev, graph, cfg,
+        twin = cs.fresh_state(dev, graph, cfg,
                               init_exp3_weights(L, E, device=dev),
                               torch.Generator(device=dev).manual_seed(0))
         twin, _ = fused(twin, seeds, smask)
@@ -103,11 +103,11 @@ def main():
 
     no_gate = {"loss": math.inf, "update": math.inf, "exp3": math.inf}
     for run in range(n_runs):
-        state = cs.fresh_state(torch, dev, graph, cfg,
+        state = cs.fresh_state(dev, graph, cfg,
                                init_exp3_shard(L, E, mesh),
                                mesh.generator(0))
         out, state = cs.parallel_step_run(
-            torch, "sharded", state,
+            "sharded", state,
             make_sharded_train_step(mesh, sg, cfg, plan, False),
             make_sharded_multi_train_step(mesh, sg, cfg, plan, False),
             fused, new_twin(), new_twin(), seeds, smask, wrappers, mesh,

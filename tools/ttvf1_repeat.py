@@ -53,7 +53,7 @@ def main():
         return
     import torch
 
-    import chip_smoke
+    import harness_torch
 
     cuda = torch.cuda.is_available()
     if seeds is None and not cuda:
@@ -63,7 +63,7 @@ def main():
     runs = seeds if seeds is not None else [0] * (int(plain[0]) if plain
                                                   else 5)
     for i, s in enumerate(runs):
-        r = chip_smoke.time_to_val_f1(torch, dev, freeze=frozen,
+        r = harness_torch.time_to_val_f1(dev, freeze=frozen,
                                       seed_offset=s)
         print(json.dumps({"package": "torch", "device": str(dev), "run": i,
                           "seed_offset": s, "frozen": frozen, **r}),
