@@ -38,6 +38,7 @@ from bliss_gnn_tpu_torch.train.steps import (
     _make_step_body,
     chain_eval,
     chain_train,
+    replays,
 )
 
 
@@ -67,7 +68,8 @@ def step_over(mesh, body: Callable) -> Callable:
 
 def multi_over(mesh, body: Callable, n_steps: Optional[int]) -> Callable:
     """K steps of a per-rank body per call on [K, S * B] batches."""
-    multi = chain_train(body, mesh.device, n_steps, capture=mesh.capturable)
+    multi = chain_train(body, mesh.device, n_steps,
+                        capture=replays(mesh.device, mesh))
 
     def run(state: TrainState, seeds: torch.Tensor,
             seeds_mask: torch.Tensor, draws=None):
@@ -87,7 +89,8 @@ def eval_over(mesh, body: Callable) -> Callable:
 
 
 def multi_eval_over(mesh, body: Callable) -> Callable:
-    multi = chain_eval(body, mesh.device, capture=mesh.capturable)
+    multi = chain_eval(body, mesh.device,
+                       capture=replays(mesh.device, mesh))
 
     def run(state: TrainState, generator, seeds: torch.Tensor,
             seeds_mask: torch.Tensor, draws=None):

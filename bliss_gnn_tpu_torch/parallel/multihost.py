@@ -14,6 +14,7 @@
 """
 from __future__ import annotations
 
+import gc
 import os
 import tempfile
 from typing import Any, Callable, List, Optional, Sequence
@@ -138,6 +139,10 @@ def _rank_entry(rank: int, fn: Callable, world: int, store_path: str,
     try:
         result = fn(*args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+        # what ``fn`` left in reference cycles goes now, while the group
+        # lives: a captured CUDA graph holding its NCCL collectives must
+        # not outlive it
+        gc.collect()
         # every rank done with its collectives before any rank closes its
         # connections; a rank that raised skips it (run_ranks then stops
         # the others and raises its traceback)

@@ -122,11 +122,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "to <run_dir>/profile")
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="chain K fused steps per call (on the card: "
-                        "replays of one captured CUDA graph)")
+                        "replays of one captured CUDA graph after the "
+                        "pilot steps, K = 1 too)")
     p.add_argument("--eval-steps-per-call", type=int, default=8,
                    help="chain K sampled-validation batches per dispatch "
-                        "(exactly equal metrics to the per-batch loop; "
-                        "1 disables)")
+                        "(exactly equal metrics to the per-batch loop; on "
+                        "the card replayed, K = 1 too; on the CPU 1 "
+                        "disables)")
     p.add_argument("--platform", type=str, default="",
                    help="empty (or cuda) = the CUDA card, which must "
                         "exist; cpu = the plain PyTorch path")

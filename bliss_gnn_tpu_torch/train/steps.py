@@ -10,7 +10,8 @@ a plain loop on the CPU; on the card the step is captured once as a
 ``torch.cuda.CUDAGraph`` after eager warm-up steps and replayed once per
 batch, the counterpart of the reference's one ``lax.scan`` dispatch. For
 features left in host memory, :func:`make_uva_steps` splits the step
-around the host's feature fetch.
+around the host's feature fetch; on the card each half is captured and
+replayed the same way, the fetch between the replays.
 
 The bodies take a ``mesh`` (``parallel/mesh.py``) for seed-batch data
 parallelism, the per-rank half of ``parallel/dp.py``: each rank samples
@@ -47,7 +48,7 @@ import torch.nn.functional as F
 
 from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.graph.structure import DeviceGraph
-from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+from bliss_gnn_tpu_torch.sampling.block import Block, CapacityPlan
 from bliss_gnn_tpu_torch.sampling.samplers import (
     SamplerConfig,
     apply_exp3_deltas,
@@ -450,7 +451,8 @@ def make_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
 
 def make_uva_steps(graph: DeviceGraph, sampler_cfg: SamplerConfig,
                    plan: CapacityPlan, multilabel: bool, device="cuda",
-                   mesh=None, storage: Optional[StepStorage] = None
+                   mesh=None, storage: Optional[StepStorage] = None,
+                   capture: Optional[bool] = None
                    ) -> Tuple[Callable, Callable, Callable]:
     """The step split at the host boundary for host-resident features
     (the counterpart of the JAX ``make_uva_steps``; ``graph/featurecache.py``
@@ -470,29 +472,105 @@ def make_uva_steps(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     caller passes the slice) and fetches its own rows; the sampler stats,
     the metrics and the eval sums come back reduced, as in the fused DP
     step. ``storage`` serves labels and arm weights from range shards
-    (``parallel/shardedstep.py``: graph sharding with UVA)."""
-    _resolve(graph, device)
+    (``parallel/shardedstep.py``: graph sharding with UVA).
+
+    With ``capture`` (the default on the card, unless ``mesh`` runs gloo:
+    the counterpart of the reference's three ``jax.jit`` programs) each
+    half is a CUDA graph captured after ``CAPTURE_WARMUP_STEPS`` eager
+    calls and replayed (:class:`_Replay`): the train sample, the
+    validation sample (a ``generator`` given), the train half and the eval
+    half each their own graph, so that alternating them recaptures
+    nothing; a new state, generator or draws setting starts that half
+    over. The train half needs a capturable Adam. A replay returns the
+    graph's own tensors: read the blocks (the host fetch) and the metrics
+    before the next call of the same half overwrites them. The train and
+    eval halves copy the blocks and ``x`` into their own inputs. Without
+    ``capture`` (and always on the CPU) the halves run eagerly."""
+    dev = _resolve(graph, device)
+    if capture is None:
+        capture = replays(dev, mesh)
     storage = storage or _DEFAULT_STORAGE
     train_body = _make_train_fn(graph, sampler_cfg, multilabel, mesh, storage)
+    eval_body = _make_eval_fn(graph, multilabel, mesh, storage)
+    graphs = {role: _Replay()
+              for role in ("sample", "sample_eval", "train", "eval")}
+
+    def run(role: str, bound: tuple, generator, fn: Callable, inputs):
+        if not capture:
+            return fn(*inputs)
+        return graphs[role].run(bound, generator, fn, inputs)
 
     def sample_fn(state: TrainState, seeds: torch.Tensor,
                   seeds_mask: torch.Tensor,
                   draws: Optional[Sequence[torch.Tensor]] = None,
                   generator: Optional[torch.Generator] = None):
         gen = state.generator if generator is None else generator
-        blocks, stats = sample_blocks(
-            graph, sampler_cfg, plan, gen, seeds, seeds_mask,
-            storage.exp3_view(state.exp3_weights), draws=draws)
-        return blocks, reduce_metrics(stats, mesh, mean_keys=())
+
+        def sample(seeds, seeds_mask, *draws):
+            blocks, stats = sample_blocks(
+                graph, sampler_cfg, plan, gen, seeds, seeds_mask,
+                storage.exp3_view(state.exp3_weights),
+                draws=list(draws) or None)
+            return blocks, reduce_metrics(stats, mesh, mean_keys=())
+
+        return run("sample" if generator is None else "sample_eval",
+                   (state, gen, draws is not None), gen, sample,
+                   (seeds, seeds_mask, *(draws or ())))
 
     def train_fn(state: TrainState, blocks, x: torch.Tensor):
-        metrics = reduce_metrics(train_body(state, blocks, x), mesh)
+        if capture:
+            _require_capturable(state)
+
+        def train(x, *tensors):
+            return reduce_metrics(
+                train_body(state, _with_block_tensors(blocks, tensors), x),
+                mesh)
+
+        metrics = run("train", (state, state.generator), state.generator,
+                      train, (x, *_block_tensors(blocks)))
         state.scheduler.step()
         state.step += 1
         return state, metrics
 
-    return sample_fn, train_fn, _make_eval_fn(graph, multilabel, mesh,
-                                              storage)
+    def eval_fn(state: TrainState, blocks, x: torch.Tensor):
+        def evaluate(x, *tensors):
+            return eval_body(state, _with_block_tensors(blocks, tensors), x)
+
+        return run("eval", (state,), None, evaluate,
+                   (x, *_block_tensors(blocks)))
+
+    return sample_fn, train_fn, eval_fn
+
+
+_BLOCK_TENSORS = tuple(f.name for f in dataclasses.fields(Block)
+                       if f.name != "n_dst_cap")
+
+
+def _block_tensors(blocks) -> List[torch.Tensor]:
+    """Every tensor of ``blocks``, block by block, field by field."""
+    return [t for b in blocks for t in (getattr(b, f) for f in _BLOCK_TENSORS)
+            if t is not None]
+
+
+def _with_block_tensors(blocks, tensors) -> list:
+    """``blocks`` with their tensors replaced, in ``_block_tensors``'
+    order, by ``tensors``."""
+    it = iter(tensors)
+    return [dataclasses.replace(b, **{f: next(it) for f in _BLOCK_TENSORS
+                                      if getattr(b, f) is not None})
+            for b in blocks]
+
+
+def replays(dev: torch.device, mesh=None) -> bool:
+    """Whether steps on ``dev`` replay captured CUDA graphs: on the card,
+    unless ``mesh``'s collectives run on the host (gloo)."""
+    return dev.type == "cuda" and (mesh is None or mesh.capturable)
+
+
+def _require_capturable(state: TrainState) -> None:
+    if not state.optimizer.param_groups[0].get("capturable"):
+        raise ValueError("a replayed train step runs Adam in a CUDA graph: "
+                         "make_optimizer(capturable=True)")
 
 
 # eager steps before capture: after them the lazy state (Adam's moments,
@@ -610,10 +688,8 @@ def chain_train(body: Callable, dev: torch.device,
     def multi(state: TrainState, seeds: torch.Tensor,
               seeds_mask: torch.Tensor, draws=None):
         k = _check_chain(seeds, seeds_mask, draws, n_steps)
-        if (capture
-                and not state.optimizer.param_groups[0].get("capturable")):
-            raise ValueError("the chained step on the card replays Adam in a "
-                             "CUDA graph: make_optimizer(capturable=True)")
+        if capture:
+            _require_capturable(state)
 
         def packed(seeds, seeds_mask, *draws):
             vec, layout["train"] = _pack(
@@ -659,7 +735,7 @@ def make_multi_train_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     no host sync; the metrics stay on the card."""
     dev = _resolve(graph, device)
     return chain_train(_make_step_body(graph, sampler_cfg, plan, multilabel),
-                       dev, n_steps, capture=dev.type == "cuda")
+                       dev, n_steps, capture=replays(dev))
 
 
 def chain_eval(body: Callable, dev: torch.device, capture: bool
@@ -707,4 +783,4 @@ def make_multi_eval_step(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     as in :func:`make_multi_train_step`."""
     dev = _resolve(graph, device)
     return chain_eval(_make_eval_body(graph, sampler_cfg, plan, multilabel),
-                      dev, capture=dev.type == "cuda")
+                      dev, capture=replays(dev))

@@ -6,10 +6,12 @@
 - per-step training with EMA'd sampled node and edge counts, iteration and
   forward/backward timers and train micro-F1; the first ``refit_after``
   steps eager, then chains of ``steps_per_call`` (on the card one captured
-  step replayed per batch);
+  step replayed per batch, a chain of one included, and an epoch's or the
+  run's last batches as a shorter chain);
 - capacity refit from the pilot steps' maxima, widened 1.5x after an
   overflow;
-- sampled validation each epoch, in chains of ``eval_steps_per_call``;
+- sampled validation each epoch, in chains of ``eval_steps_per_call`` (on
+  the card the epoch's last batches as a shorter chain);
 - Adam with a staircase decay, the deferred EXP3 row renormalisation;
 - checkpoint of the best state, restore and resume, early stopping, the
   vertex-limit batch controller;
@@ -17,9 +19,10 @@
   GCN, K7 for GATv2 on the card);
 - with ``use_uva``, features left in host memory behind a device
   ``FeatureCache`` of ``cache_size`` rows: split steps around the host
-  fetch, run eagerly (no chained or captured steps), ``cache_miss`` logged
-  each step, and the final eval chunked from host memory
-  (``layerwise_inference_uva``);
+  fetch (no chains; on the card, after the pilot steps, each half replays
+  its captured CUDA graph and the fetch runs between them),
+  ``cache_miss`` logged each step, and the final eval chunked from host
+  memory (``layerwise_inference_uva``);
 - with ``dp`` (0: every rank the launcher placed) seed-batch data
   parallelism over a mesh of ranks (``parallel/dp.py``): the batch is
   global, rounded to a multiple of dp, and the plan holds the local batch;
@@ -47,11 +50,13 @@ which K4's 32-bit route updates on the card).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
 import time
 import warnings
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -101,6 +106,7 @@ from bliss_gnn_tpu_torch.train.steps import (
     make_optimizer,
     make_train_step,
     make_uva_steps,
+    replays,
 )
 from bliss_gnn_tpu_torch.utils.logging import MetricLogger, next_version_dir
 
@@ -164,9 +170,10 @@ class TrainConfig:
     use_uva: bool = False
     cache_size: int = 0
     # train steps per chained call (on the card: replays of one captured
-    # step); 1 runs every step eagerly
+    # step, a chain of one included); on the CPU 1 runs every step alone
     steps_per_call: int = 1
-    # validation batches per chained call; 1 runs each eagerly
+    # validation batches per chained call (on the card replayed, 1 too); on
+    # the CPU 1 runs each alone
     eval_steps_per_call: int = 8
     # the reference's choice of TPU layout for the final eval; every value
     # runs K6 (SAGE, GCN) or K7 (GATv2) on the card here
@@ -243,6 +250,8 @@ class Trainer:
                 self.mesh = make_mesh(n, device=self.device)
                 self.dp = n
                 self.device = self.mesh.device
+        # steps replayed from captured CUDA graphs
+        self._replays = replays(self.device, self.mesh)
         if cfg.shard_graph and self.dp <= 1:
             raise ValueError(
                 "--shard-graph partitions the graph over the dp ranks; it "
@@ -418,36 +427,54 @@ class Trainer:
         self._rebuild_steps()
 
     def _rebuild_steps(self):
-        """The step functions for the current ``self.plan``. The chained
+        """The step functions for the current ``self.plan``. The replayed
         steps are dropped first: each holds a captured CUDA graph and its
-        memory pool, which the caching allocator then releases."""
+        memory pool, which the caching allocator then releases. The
+        chained steps are built for chains of more than one step, and on
+        the card for every length (one captured step serves them all)."""
         cfg = self.cfg
         self._save_hparams()
         self.multi_step = self.multi_eval = None
+        self._uva_fns = self._uva_eager = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         args = (self.graph, self.sampler_cfg, self.plan, self.multilabel)
         mesh, sg = self.mesh, self.sharded_graph
+        chain = cfg.steps_per_call > 1 or self._replays
+        chain_eval = cfg.eval_steps_per_call > 1 or self._replays
         if self.feature_cache is not None:
-            # the host fetch sits inside the step: no chains, no capture
+            # the host fetch sits between the halves: no chains; on the
+            # card the halves replay after the pilot steps
             storage = None
             graph = self.graph
             if sg is not None:
                 graph = pss._LocalView(sg)
                 storage = pss.sharded_storage(sg, cfg.num_layers)
-            self._uva_fns = make_uva_steps(
-                graph, self.sampler_cfg, self.plan, self.multilabel,
-                device=self.device, mesh=mesh, storage=storage)
-            self.train_step = self._uva_train_step
-            self.eval_step = self._uva_eval_step
+
+            def halves(capture=None):
+                return make_uva_steps(
+                    graph, self.sampler_cfg, self.plan, self.multilabel,
+                    device=self.device, mesh=mesh, storage=storage,
+                    capture=capture)
+
+            self._uva_eager = halves(False)
+            self._uva_fns = halves() if self._replays else self._uva_eager
+            # bound to a weak proxy: a trainer holding its own bound methods
+            # would outlive its last reference in a cycle, and its captured
+            # graphs with it, past the end of the group whose NCCL
+            # collectives they hold
+            me = weakref.proxy(self)
+            self.train_step = functools.partial(type(self)._uva_train_step,
+                                                me)
+            self.eval_step = functools.partial(type(self)._uva_eval_step, me)
             return
         if sg is not None:
             sargs = (mesh, sg, self.sampler_cfg, self.plan, self.multilabel)
             self.train_step = pss.make_sharded_train_step(*sargs)
             self.eval_step = pss.make_sharded_eval_step(*sargs)
-            if cfg.steps_per_call > 1:
+            if chain:
                 self.multi_step = pss.make_sharded_multi_train_step(*sargs)
-            if cfg.eval_steps_per_call > 1:
+            if chain_eval:
                 self.multi_eval = pss.make_sharded_multi_eval_step(*sargs)
             return
         if mesh is not None:
@@ -455,27 +482,29 @@ class Trainer:
             self.train_step = pdp.make_dp_train_step(
                 *dargs, exp3_normalize=False)
             self.eval_step = pdp.make_dp_eval_step(*dargs)
-            if cfg.steps_per_call > 1:
+            if chain:
                 self.multi_step = pdp.make_dp_multi_train_step(
                     *dargs, exp3_normalize=False)
-            if cfg.eval_steps_per_call > 1:
+            if chain_eval:
                 self.multi_eval = pdp.make_dp_multi_eval_step(*dargs)
             return
         self.train_step = make_train_step(*args, device=self.device)
         self.eval_step = make_eval_step(*args, device=self.device)
-        if cfg.steps_per_call > 1:
+        if chain:
             # chains of any length replay the one captured step
             self.multi_step = make_multi_train_step(*args,
                                                     device=self.device)
-        if cfg.eval_steps_per_call > 1:
+        if chain_eval:
             self.multi_eval = make_multi_eval_step(*args, device=self.device)
 
     # -- host-resident features -----------------------------------------
     def _uva_train_step(self, state: TrainState, seeds: torch.Tensor,
                         smask: torch.Tensor):
-        """Sample, fetch the input rows through the cache, train; the
-        batch's miss rate is the ``cache_miss`` metric."""
-        sample_fn, train_fn, _ = self._uva_fns
+        """Sample, fetch the input rows through the cache, train (the pilot
+        and profiled steps eagerly); the batch's miss rate is the
+        ``cache_miss`` metric."""
+        sample_fn, train_fn, _ = (self._uva_eager if self._eager_steps()
+                                  else self._uva_fns)
         seeds, smask = self._local(seeds), self._local(smask)
         blocks, samp_stats = sample_fn(state, seeds, smask)
         x, miss = self.feature_cache.gather(blocks[0].src_gids,
@@ -485,6 +514,8 @@ class Trainer:
                        **_sampler_stats(samp_stats)}
 
     def _uva_eval_step(self, state: TrainState, generator, seeds, smask):
+        """Sample, fetch, evaluate: replayed on the card in the pilot and
+        profiled runs too, as the chained eval step is."""
         sample_fn, _, eval_fn = self._uva_fns
         seeds, smask = self._local(seeds), self._local(smask)
         blocks, _ = sample_fn(state, seeds, smask, generator=generator)
@@ -495,6 +526,13 @@ class Trainer:
     def _local(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's slice of a global batch (all of it on one device)."""
         return t if self.mesh is None else pdp.local_slice(self.mesh, t)
+
+    def _eager_steps(self) -> bool:
+        """Whether train steps run eagerly now: the pilot steps (the refit
+        replaces their plan a moment later) and a profiled run's. It does
+        not hold for validation, which replays whenever steps replay."""
+        return ((self.cfg.refit_after > 0 and not self._refit_done)
+                or self.cfg.profile_steps > 0)
 
     # -- epoch loops -----------------------------------------------------
     def _epoch_batches(self, rng: np.random.Generator) -> np.ndarray:
@@ -520,30 +558,29 @@ class Trainer:
             batches = self._epoch_batches(rng)
             smask = torch.ones(self.batch_size, dtype=torch.bool,
                                device=self.device)
-            K = cfg.steps_per_call if self.multi_step is not None else 1
+            K = max(1, cfg.steps_per_call)
             b = 0
             while b < batches.shape[0]:
-                # the pilot steps run unchained: the refit replaces their
-                # plan a moment later
-                pilot = cfg.refit_after > 0 and not self._refit_done
-                chain = (K > 1 and not pilot and b + K <= batches.shape[0]
-                         and self.global_step + K <= max_steps
-                         and cfg.profile_steps == 0)
+                # a full chain; on the card the last batches as a shorter one
+                k = min(K, batches.shape[0] - b, max_steps - self.global_step)
+                chain = (self.multi_step is not None
+                         and not self._eager_steps()
+                         and (k == K or self._replays))
                 if chain:
-                    seeds = self._to_device(batches[b:b + K])
-                    masks = torch.ones((K, self.batch_size),
+                    seeds = self._to_device(batches[b:b + k])
+                    masks = torch.ones((k, self.batch_size),
                                        dtype=torch.bool, device=self.device)
                     st = time.time()
                     self.state, mstack = self.multi_step(self.state, seeds,
                                                          masks)
                     mstack = _metrics_to_host(mstack, self.device, True)
-                    fb_time = (time.time() - st) / K
+                    fb_time = (time.time() - st) / k
                     for metrics in mstack:
                         self.global_step += 1
                         self._log_train_step(metrics, prev_t, fb_time)
                         prev_t = time.time()
                         self.welford.push(float(metrics["num_nodes/0"]))
-                    b += K
+                    b += k
                 else:
                     seeds = self._to_device(batches[b])
                     if cfg.profile_steps > 0 and self.global_step == 2:
@@ -679,15 +716,17 @@ class Trainer:
         acc = torch.zeros(5, dtype=torch.float32, device=dev)
         n_sum = torch.zeros((), dtype=torch.int32, device=dev)
         n_batches = -(-len(self.val_nid) // self.batch_size)
-        K = self.cfg.eval_steps_per_call
+        K = max(1, self.cfg.eval_steps_per_call)
         b = 0
         while b < n_batches:
-            if self.multi_eval is not None and b + K <= n_batches:
-                seeds, masks = self._val_batches(b, K)
+            # a full chain; on the card the last batches as a shorter one
+            k = min(K, n_batches - b)
+            if self.multi_eval is not None and (k == K or self._replays):
+                seeds, masks = self._val_batches(b, k)
                 f1, loss_n, n = self.multi_eval(
                     self.state, gen, self._to_device(seeds),
                     self._to_device(masks))
-                b += K
+                b += k
             else:
                 seeds, masks = self._val_batches(b, 1)
                 f1, loss_n, n = self.eval_step(

@@ -64,6 +64,9 @@ counts set to 0 before it and read after it:
                parameters and arm weights bit-equal to the best state) and
                3 chained steps through the trainer's captured step, each
                held against an eager twin loaded with the same state;
+    trainer_k1 the same at ``steps_per_call = 1``, the CLI's default (23
+               steps: 3 eager pilots, then chains of one replayed step),
+               its losses against an eager twin's from the same seed;
     cli_small  ``cli.main`` on synth-small, SAGE and GATv2 (2 layers,
                fan-outs 32,16, batch 64, 12 steps): the reference's metric
                series, final F1s in [0, 1] (K1-K4; K6 or K7);
@@ -73,6 +76,14 @@ counts set to 0 before it and read after it:
                live bandit then frozen: steps to the target, whether each
                arm reached it, the frozen/live ratio; both arms must learn
                (validation F1 >= 0.85, finite losses).
+
+With the features in host memory (``make_uva_steps``): after
+``call_sites``, ``uva_path`` runs the main path's configuration as eager
+split steps, then as replayed halves (the sample and the train half each a
+captured CUDA graph, the host fetch between), each held against eager
+split and fused twins from one state; after ``ttvf1``, ``uva_trainer``
+(``Trainer(use_uva=True)``, replayed after its pilot), ``uva_inference``,
+``reorder`` and ``ondisk``.
 
 Then the parallel layer (``bliss_gnn_tpu_torch/parallel``): after the
 main path, ``dp_path`` and ``sharded_path`` run its configuration through
@@ -129,7 +140,10 @@ main path's configuration with a local batch of 256 a rank:
     multicard_inference  ring inference of the trained SAGE and GATv2 at
                        S = 4 against the one-device pass on each card;
     multicard_cli      ``cli.main`` with ``--dp 4``, then ``--dp 4
-                       --shard-graph`` (checkpoint, ``final_eval``);
+                       --shard-graph``, then ``--dp 4 --use-uva`` (the
+                       replayed split halves with NCCL collectives, its
+                       losses against the ``--dp 4`` run's; checkpoint,
+                       ``final_eval``);
     multicard_scaling  replayed and chained step ms at S = 1, 2, 4, weak
                        scaling, sampled edges a second, collectives, bytes
                        and memory a rank, the cards and NCCL's version.
@@ -656,6 +670,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     trainer_phase(torch, dev, host_graph, N_CLASSES, wrappers, smi_line,
                   workdir, host_s=host_s)
+    trainer_k1_phase(torch, dev, host_graph, N_CLASSES, wrappers, smi_line,
+                     workdir)
     del host_graph
     gc.collect()
     cli_phase(torch, dev, wrappers, smi_line, workdir)
@@ -2594,6 +2610,104 @@ def trainer_phase(torch, dev, host_graph, n_classes, wrappers, smi_line,
         torch.cuda.empty_cache()
 
 
+TRAINER_K1_CFG = dict(TRAINER_CFG, num_steps=23, steps_per_call=1)
+
+
+def trainer_k1_phase(torch, dev, host_graph, n_classes, wrappers, smi_line,
+                     workdir, cfg_kw=TRAINER_K1_CFG):
+    """The CLI's default, ``steps_per_call = 1``, through ``Trainer`` on the
+    main path's configuration and ``host_graph``, checkpointing off: the
+    pilot steps eager, the refit, then every step a chain of one replayed
+    from the captured step, and a validation of chains of 8 and a shorter
+    last chain, replayed. Then an eager twin from the same seed: the same
+    trainer with every step and batch alone (``_replays`` off, as under
+    gloo). Prints the per-step ``forward_backward_time`` after the pilot
+    (median and all) beside the twin's, the pilot's, the captures of the
+    train step and of the validation, refits, widens and launches. Gates:
+    each step's loss within LOCKSTEP_TOLERANCE's loss bound (2^-7 of
+    max(|loss|, 1)) of the twin's; the train step captured once a plan
+    after the pilot (a widen makes a new one); finite losses; K1-K4
+    launched."""
+    from bliss_gnn_tpu_torch.train import steps as tsteps
+    from bliss_gnn_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+
+    def run(replays):
+        counts = {"validation": 0}
+
+        class Observed(Trainer):
+            def _rebuild_steps(self):
+                if not replays:
+                    self._replays = False
+                super()._rebuild_steps()
+
+            def _validate(self, epoch):
+                c0 = tsteps._Replay.captures
+                out = super()._validate(epoch)
+                counts["validation"] += tsteps._Replay.captures - c0
+                return out
+
+        cfg = TrainConfig(**cfg_kw, logdir=os.path.join(
+            workdir, "k1" if replays else "k1_eager"),
+            disable_checkpoint=True)
+        reset_counts(wrappers)
+        tr = Observed(cfg, graph=host_graph, n_classes=n_classes,
+                      multilabel=False, device=dev)
+        c0 = tsteps._Replay.captures
+        _, fit_s = _seconds(torch, dev, tr.fit)
+        series = read_series(tr.run_dir)
+        fb = dict(series["forward_backward_time"])
+        out = {"steps": tr.global_step, "fit_seconds": fit_s,
+               "pilot_step_ms": [fb[t] * 1e3 for t in sorted(fb)
+                                 if t <= cfg.refit_after],
+               "step_ms_all": [fb[t] * 1e3 for t in sorted(fb)
+                               if t > cfg.refit_after],
+               "losses": [v for _, v in series["train_loss"]],
+               "train_captures": (tsteps._Replay.captures - c0
+                                  - counts["validation"]),
+               "validation_captures": counts["validation"],
+               "chained": tr.multi_step is not None,
+               "refits": tr.n_refits, "widens": tr.n_widens,
+               "launches": {k: wrappers[k].launches for k in
+                            ("scatter_add", "lut_gather", "segment_sum",
+                             "exp3_apply")}}
+        out["step_ms"] = statistics.median(out["step_ms_all"])
+        del tr
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return out
+
+    replayed, eager = run(True), run(False)
+    err = [abs(a - b) / max(abs(b), 1.0)
+           for a, b in zip(replayed["losses"], eager["losses"])]
+    rec = {"phase": "trainer_k1",
+           "config": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in cfg_kw.items()},
+           "replayed": replayed, "eager": eager,
+           "step_ms": replayed["step_ms"],
+           "eager_step_ms": eager["step_ms"],
+           "captures": replayed["train_captures"]
+           + replayed["validation_captures"],
+           "loss_err": err, "loss_tolerance": LOCKSTEP_TOLERANCE["loss"],
+           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line}
+    emit(rec)
+    losses = replayed["losses"] + eager["losses"]
+    n_train = replayed["train_captures"]
+    missing = [k for k, v in replayed["launches"].items() if v <= 0]
+    if (missing or len(err) != cfg_kw["num_steps"]
+            or max(err) > LOCKSTEP_TOLERANCE["loss"]
+            or not all(math.isfinite(x) for x in losses)
+            or not (1 <= n_train <= 1 + replayed["widens"] if cuda
+                    else n_train == 0)
+            or replayed["chained"] != cuda or eager["chained"]):
+        fail(f"trainer_k1: kernels not launched {missing}, losses apart "
+             f"from the eager twin's {err}, or {n_train} captures of the "
+             f"train step")
+
+
 def cli_phase(torch, dev, wrappers, smi_line, workdir):
     """``cli.main`` as a user runs it (on the card: no ``--platform``) on
     synth-small, SAGE and GATv2, 2 layers, fan-outs 32,16, batch 64, 12
@@ -2683,6 +2797,7 @@ def ttvf1_phase(torch, dev, wrappers, smi_line):
 
 UVA_CACHE_ROWS = 65_536  # uva_path: 28% of the Reddit-shaped graph's nodes
 UVA_STEPS, UVA_TIMED = 20, 10
+UVA_REPLAY_TIMED = 8  # replayed split steps timed after the captures
 
 
 def _seconds(torch, dev, fn):
@@ -2694,30 +2809,78 @@ def _seconds(torch, dev, fn):
     return out, time.perf_counter() - t0
 
 
+def split_vs_twin(torch, pre, twin, m_twin, state, m, blocks, want_blocks):
+    """A split step of ``state`` against its twin's step from the same
+    state (``pre``: the parameters before both): the losses, the
+    parameter update's error relative to the twin's update norm, the arm
+    weights' largest relative error, whether the blocks are equal, and
+    the src slots differing of the valid ones, block by block."""
+    d_e = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                     zip(twin.model.parameters(), pre)])
+    d_u = torch.cat([(p.detach() - q).flatten().float() for p, q in
+                     zip(state.model.parameters(), pre)])
+    le, lu = float(m_twin["train_loss"]), float(m["train_loss"])
+    w_e, w_u = twin.exp3_weights.float(), state.exp3_weights.float()
+    return {
+        "loss_twin": le, "loss": lu,
+        "loss_err": abs(lu - le) / max(abs(le), 1.0),
+        "update_norm": float(d_e.norm()),
+        "update_err": float((d_u - d_e).norm()
+                            / d_e.norm().clamp(min=1e-30)),
+        "exp3_err": float(((w_u - w_e).abs()
+                           / w_e.abs().clamp(min=1e-30)).max()),
+        "blocks_equal": all(torch.equal(a.src_gids, b.src_gids)
+                            and torch.equal(a.e_src, b.e_src)
+                            and torch.equal(a.e_mask, b.e_mask)
+                            for a, b in zip(blocks, want_blocks)),
+        "src_slots_differing": [int((a.src_gids != b.src_gids).sum())
+                                for a, b in zip(blocks, want_blocks)],
+        "src_slots_valid": [int(b.src_mask.sum()) for b in want_blocks]}
+
+
+def split_twin_ok(r, tol=LOCKSTEP_TOLERANCE):
+    """``split_vs_twin``'s record within ``lockstep``'s tolerances, with at
+    most 1e-3 of a block's valid src slots differing (where the unsorted
+    importance sums' atomic order flips a draw)."""
+    return (r["loss_err"] <= tol["loss"] and r["update_err"] <= tol["update"]
+            and r["exp3_err"] <= tol["exp3"] and r["update_norm"] > 0
+            and all(d <= 1e-3 * v for d, v in
+                    zip(r["src_slots_differing"], r["src_slots_valid"])))
+
+
 def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
              smi_line, eager_step_ms, steps=UVA_STEPS, timed=UVA_TIMED,
-             cache_rows=UVA_CACHE_ROWS, hidden=HIDDEN, batch=BATCH,
-             seed=12):
+             replay_timed=UVA_REPLAY_TIMED, cache_rows=UVA_CACHE_ROWS,
+             hidden=HIDDEN, batch=BATCH, seed=12):
     """The main path's configuration with the features in host memory: the
     device graph without them, a cold ``FeatureCache`` of ``cache_rows``
-    rows over their f32 host copy, and ``steps`` split steps (sample, host
-    fetch through the cache, train: ``make_uva_steps``) on ``plan`` from
-    fresh weights, each on a batch of random seeds. Prints the medians over
-    the last ``timed`` steps of the step's ms and its sample, fetch and
-    train parts (each ended by a sync), of the miss rate and of the
-    host-to-device bytes, beside the main path's eager ``step_ms``. Then
-    the gate: LOCKSTEP_STEPS more split steps, each against an eager fused
-    step of a twin loaded with the same state, on the same batch: the
-    blocks (the fused twin's drawn again from the same generator state),
-    the loss, update and arm weights at ``lockstep``'s tolerances. A
-    block's src slots may differ only where the unsorted importance sums'
-    atomic order flips a draw: at most 1e-3 of them."""
+    rows over their f32 host copy, and ``steps`` eager split steps (sample,
+    host fetch through the cache, train: ``make_uva_steps(...,
+    capture=False)``) on ``plan`` from fresh weights, each on a batch of
+    random seeds. Prints the medians over the last ``timed`` steps of the
+    step's ms and its sample, fetch and train parts (each ended by a sync),
+    of the miss rate and of the host-to-device bytes, beside the main
+    path's eager ``step_ms``. Then the gate: LOCKSTEP_STEPS more split
+    steps, each against an eager fused step of a twin loaded with the same
+    state, on the same batch: the blocks (the fused twin's drawn again from
+    the same generator state), the loss, update and arm weights at
+    ``lockstep``'s tolerances (``split_twin_ok``).
+
+    Then the replayed halves (``make_uva_steps``' default on the card:
+    the sample and the train half each a captured CUDA graph, the fetch
+    between them) from a fresh state with a capturable Adam, the launch
+    counts set to 0 before: CAPTURE_WARMUP_STEPS eager warm-ups, the
+    captures, ``replay_timed`` timed steps, the same medians, the captures
+    (2) and the peak memory with the graphs' pools; then LOCKSTEP_STEPS
+    replayed steps, each against an eager split twin and an eager fused
+    twin loaded with the same state, at the same tolerances."""
     from bliss_gnn_tpu_torch.graph.featurecache import FeatureCache
     from bliss_gnn_tpu_torch.models.gnn import build_model
     from bliss_gnn_tpu_torch.sampling.samplers import (
         init_exp3_weights,
         sample_blocks,
     )
+    from bliss_gnn_tpu_torch.train import steps as tsteps
     from bliss_gnn_tpu_torch.train.steps import (
         TrainState,
         make_optimizer,
@@ -2726,6 +2889,7 @@ def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
     )
 
     dev = graph.device
+    cuda = dev.type == "cuda"
     t0 = time.perf_counter()
     host = graph.ndata["features"].float().cpu().numpy()
     host_copy_s = time.perf_counter() - t0
@@ -2733,17 +2897,18 @@ def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
         k: v for k, v in graph.ndata.items() if k != "features"})
     n_layers = len(cfg.fanouts)
 
-    def fresh():
+    def fresh(capturable=False):
         model = build_model(cfg.model, n_feats, hidden, n_classes, n_layers,
                             device=dev, seed=seed)
-        opt, sched = make_optimizer(model.parameters(), 2e-3, 100)
+        opt, sched = make_optimizer(model.parameters(), 2e-3, 100,
+                                    capturable=capturable)
         return TrainState(model, opt, sched,
                           init_exp3_weights(n_layers, graph.n_edges,
                                             device=dev),
                           torch.Generator(device=dev).manual_seed(seed))
 
-    sample_fn, train_fn, _ = make_uva_steps(bare, cfg, plan, False,
-                                            device=dev)
+    eager_halves = make_uva_steps(bare, cfg, plan, False, device=dev,
+                                  capture=False)
     cache = FeatureCache(host, cache_rows, device=dev)
     rng = np.random.default_rng(seed)
     smask = torch.ones(batch, dtype=torch.bool, device=dev)
@@ -2752,7 +2917,8 @@ def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
         return torch.from_numpy(rng.integers(
             0, graph.n_nodes, batch).astype(np.int32)).to(dev)
 
-    def uva_step(state, seeds, smask):
+    def uva_step(halves, state, seeds, smask):
+        sample_fn, train_fn, _ = halves
         (blocks, _), t_s = _seconds(torch, dev,
                                     lambda: sample_fn(state, seeds, smask))
         b0 = cache.bytes_fetched
@@ -2766,21 +2932,34 @@ def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
                "loss": float(m["train_loss"])}
         return out, m, blocks, rec
 
+    def medians(log, n):
+        return {k: statistics.median(r[k] for r in log[-n:])
+                for k in ("step_ms", "sample_ms", "fetch_ms", "train_ms",
+                          "miss_rate", "h2d_bytes")}
+
+    def launched():
+        return {k: wrappers[k].launches for k in
+                ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")}
+
+    def fused_blocks(twin, seeds):
+        """The blocks the fused twin's step draws, drawn again from a copy
+        of its generator."""
+        g_twin = torch.Generator(device=dev)
+        g_twin.set_state(twin.generator.get_state())
+        with torch.no_grad():
+            return sample_blocks(graph, cfg, plan, g_twin, seeds, smask,
+                                 twin.exp3_weights)[0]
+
     reset_counts(wrappers)
-    if dev.type == "cuda":
+    if cuda:
         torch.cuda.reset_peak_memory_stats()
     state, log = fresh(), []
     for _ in range(steps):
-        state, _, _, rec = uva_step(state, draw(), smask)
+        state, _, _, rec = uva_step(eager_halves, state, draw(), smask)
         log.append(rec)
-    launches = {k: wrappers[k].launches for k in
-                ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")}
-    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
-            else None)
-    tail = log[-timed:]
-    med = {k: statistics.median(r[k] for r in tail)
-           for k in ("step_ms", "sample_ms", "fetch_ms", "train_ms",
-                     "miss_rate", "h2d_bytes")}
+    launches = launched()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    med = medians(log, timed)
 
     # the gate: split steps against fused twins from one state
     eager_step = make_train_step(graph, cfg, plan, False, device=dev)
@@ -2790,37 +2969,52 @@ def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
     for _ in range(LOCKSTEP_STEPS):
         seeds = draw()
         load_train_state(twin, state)
-        g_twin = torch.Generator(device=dev)
-        g_twin.set_state(twin.generator.get_state())
-        with torch.no_grad():
-            want_blocks, _ = sample_blocks(graph, cfg, plan, g_twin, seeds,
-                                           smask, twin.exp3_weights)
+        want_blocks = fused_blocks(twin, seeds)
         pre = [p.detach().clone() for p in state.model.parameters()]
         twin, me = eager_step(twin, seeds, smask)
-        state, mu, blocks, _ = uva_step(state, seeds, smask)
-        d_e = torch.cat([(p.detach() - q).flatten().float() for p, q in
-                         zip(twin.model.parameters(), pre)])
-        d_u = torch.cat([(p.detach() - q).flatten().float() for p, q in
-                         zip(state.model.parameters(), pre)])
-        le, lu = float(me["train_loss"]), float(mu["train_loss"])
-        w_e, w_u = twin.exp3_weights.float(), state.exp3_weights.float()
-        diff = [int((a.src_gids != b.src_gids).sum())
-                for a, b in zip(blocks, want_blocks)]
-        valid = [int(b.src_mask.sum()) for b in want_blocks]
-        lock.append({
-            "loss_fused": le, "loss_uva": lu,
-            "loss_err": abs(lu - le) / max(abs(le), 1.0),
-            "update_norm": float(d_e.norm()),
-            "update_err": float((d_u - d_e).norm()
-                                / d_e.norm().clamp(min=1e-30)),
-            "exp3_err": float(((w_u - w_e).abs()
-                               / w_e.abs().clamp(min=1e-30)).max()),
-            "blocks_equal": all(torch.equal(a.src_gids, b.src_gids)
-                                and torch.equal(a.e_src, b.e_src)
-                                and torch.equal(a.e_mask, b.e_mask)
-                                for a, b in zip(blocks, want_blocks)),
-            "src_slots_differing": diff, "src_slots_valid": valid})
-        del pre, d_e, d_u, w_e, w_u, want_blocks
+        state, mu, blocks, _ = uva_step(eager_halves, state, seeds, smask)
+        lock.append(split_vs_twin(torch, pre, twin, me, state, mu, blocks,
+                                  want_blocks))
+        del pre, want_blocks
+    del state, twin
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the replayed halves
+    replayed = make_uva_steps(bare, cfg, plan, False, device=dev)
+    reset_counts(wrappers)
+    captures0 = tsteps._Replay.captures
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rstate, rlog = fresh(capturable=cuda), []
+    for _ in range(tsteps.CAPTURE_WARMUP_STEPS + 1 + replay_timed):
+        rstate, _, _, rec = uva_step(replayed, rstate, draw(), smask)
+        rlog.append(rec)
+    r_launches = launched()
+    captures = tsteps._Replay.captures - captures0
+    r_peak = torch.cuda.max_memory_allocated() if cuda else None
+    r_med = medians(rlog, replay_timed)
+    split_twin = fresh(capturable=cuda)
+    split_twin, *_ = uva_step(eager_halves, split_twin, draw(), smask)
+    fused_twin = fresh(capturable=cuda)
+    fused_twin, _ = eager_step(fused_twin, draw(), smask)
+    vs_split, vs_fused = [], []
+    for _ in range(LOCKSTEP_STEPS):
+        seeds = draw()
+        load_train_state(split_twin, rstate)
+        load_train_state(fused_twin, rstate)
+        want_blocks = fused_blocks(fused_twin, seeds)
+        pre = [p.detach().clone() for p in rstate.model.parameters()]
+        split_twin, ms, split_blocks, _ = uva_step(eager_halves, split_twin,
+                                                   seeds, smask)
+        fused_twin, mf = eager_step(fused_twin, seeds, smask)
+        rstate, mr, blocks, _ = uva_step(replayed, rstate, seeds, smask)
+        vs_split.append(split_vs_twin(torch, pre, split_twin, ms, rstate,
+                                      mr, blocks, split_blocks))
+        vs_fused.append(split_vs_twin(torch, pre, fused_twin, mf, rstate,
+                                      mr, blocks, want_blocks))
+        del pre, want_blocks, split_blocks
     rec = {"phase": "uva_path", "steps": steps, "timed_steps": timed,
            "cache_rows": cache.capacity,
            "cache_share_of_nodes": cache.capacity / graph.n_nodes,
@@ -2828,25 +3022,30 @@ def uva_path(torch, graph, cfg, plan, n_feats, n_classes, wrappers,
            "host_copy_seconds": host_copy_s,
            **{f"{k}_median": v for k, v in med.items()},
            "main_path_eager_step_ms": eager_step_ms,
-           "steps_all": log, "miss_rate_cumulative": cache.miss_rate,
-           "launches": launches, "peak_memory_bytes": peak,
+           "steps_all": log, "launches": launches,
+           "peak_memory_bytes": peak,
            "lockstep_vs_fused": lock, "lockstep_tolerance": tol,
-           "nvidia_smi": smi_line}
+           "replayed_steps": len(rlog), "replayed_timed_steps": replay_timed,
+           **{f"replayed_{k}_median": v for k, v in r_med.items()},
+           "replayed_steps_all": rlog, "replayed_launches": r_launches,
+           "captures": captures, "replayed_peak_memory_bytes": r_peak,
+           "replayed_vs_eager_split": vs_split,
+           "replayed_vs_fused": vs_fused,
+           "miss_rate_cumulative": cache.miss_rate, "nvidia_smi": smi_line}
     emit(rec)
-    bad = [r for r in lock
-           if not (r["loss_err"] <= tol["loss"]
-                   and r["update_err"] <= tol["update"]
-                   and r["exp3_err"] <= tol["exp3"] and r["update_norm"] > 0
-                   and all(d <= 1e-3 * v for d, v in
-                           zip(r["src_slots_differing"],
-                               r["src_slots_valid"])))]
-    missing = [k for k, v in launches.items() if v <= 0]
-    if bad or missing or not all(math.isfinite(r["loss"]) for r in log):
+    bad = [r for r in lock + vs_split + vs_fused if not split_twin_ok(r)]
+    missing = [k for d in (launches, r_launches) for k, v in d.items()
+               if v <= 0]
+    losses = [r["loss"] for r in log + rlog]
+    if bad or missing or not all(math.isfinite(x) for x in losses):
         fail(f"uva_path: kernels not launched {missing}, or split steps "
-             f"differ from fused steps: {lock}")
-    del state, twin, cache, host
+             f"differ from their twins: {bad}")
+    if captures != (2 if cuda else 0):
+        fail(f"uva_path: {captures} captures for the replayed halves "
+             f"(the sample and the train half: 2)")
+    del rstate, split_twin, fused_twin, cache, host
     gc.collect()
-    if dev.type == "cuda":
+    if cuda:
         torch.cuda.empty_cache()
 
 
@@ -2860,16 +3059,21 @@ def uva_trainer_phase(torch, dev, wrappers, smi_line, workdir,
                       cfg_kw=UVA_TRAINER_CFG):
     """``Trainer`` with ``use_uva`` on synth-papers100m-small (500,000
     nodes, 8M edges, 128 features, 172 classes, 1.4% labelled) loaded by
-    name, checkpointing on: ``fit`` (eager split steps; a validation at
-    each epoch's end), ``restore_best``, ``final_eval`` (chunked from host
-    memory: K6 over each chunk's CSC slice). Prints the ``cache_miss``
-    series, the step ms, the validation seconds, ``final_eval``'s seconds
-    and its host and device parts, the peak device memory. Gates: no
-    features in the device graph; K1-K4 and K6 launched; the UVA logits
-    within 1e-2 x max|logit| of ``layerwise_inference`` (K6) on the same
-    parameters, the features uploaded for this check only."""
+    name, checkpointing on: ``fit`` (eager split steps for the pilot, then
+    the replayed halves, the fetch between them; a validation at each
+    epoch's end, its halves replayed), ``restore_best``, ``final_eval``
+    (chunked from host memory: K6 over each chunk's CSC slice). Prints the
+    ``cache_miss`` series, the step ms (all, the pilot's and the replayed
+    steps'), the captures, the validation seconds, ``final_eval``'s
+    seconds and its host and device parts, the peak device memory. Gates:
+    no features in the device graph; K1-K4 and K6 launched; on the card
+    the halves captured once a plan (4 graphs: the train and validation
+    samples, the train and eval halves; a widen makes new ones); the UVA
+    logits within 1e-2 x max|logit| of ``layerwise_inference`` (K6) on
+    the same parameters, the features uploaded for this check only."""
     from bliss_gnn_tpu_torch.graph.structure import DeviceGraph
     from bliss_gnn_tpu_torch.models.inference import layerwise_inference
+    from bliss_gnn_tpu_torch.train import steps as tsteps
     from bliss_gnn_tpu_torch.train import trainer as ttrainer
 
     t_phase = time.perf_counter()
@@ -2897,7 +3101,9 @@ def uva_trainer_phase(torch, dev, wrappers, smi_line, workdir,
                                disable_checkpoint=False)
     tr, init_s = _seconds(torch, dev, lambda: Observed(cfg, device=dev))
     features_on_device = "features" in tr.graph.ndata
+    captures0 = tsteps._Replay.captures
     _, fit_s = _seconds(torch, dev, tr.fit)
+    captures = tsteps._Replay.captures - captures0
     peak_fit = torch.cuda.max_memory_allocated() if cuda else None
     tr.restore_best()
     ttrainer.layerwise_inference_uva = timed_uva
@@ -2911,6 +3117,10 @@ def uva_trainer_phase(torch, dev, wrappers, smi_line, workdir,
     peak = torch.cuda.max_memory_allocated() if cuda else None
     series = read_series(tr.run_dir)
     fb = [v * 1e3 for _, v in series["forward_backward_time"]]
+    pilot_fb = [v * 1e3 for t, v in series["forward_backward_time"]
+                if t <= cfg.refit_after]
+    replayed_fb = [v * 1e3 for t, v in series["forward_backward_time"]
+                   if t > cfg.refit_after]
     miss = [v for _, v in series.get("cache_miss", [])]
     losses = [v for _, v in series["train_loss"]]
     ckpt = tr.checkpoint_path()
@@ -2930,7 +3140,11 @@ def uva_trainer_phase(torch, dev, wrappers, smi_line, workdir,
            "train_nodes": len(tr.train_nid), "steps": tr.global_step,
            "init_seconds": init_s, "fit_seconds": fit_s,
            "step_ms": statistics.median(fb), "step_ms_all": fb,
-           "cache_miss": miss, "cache_rows": tr.feature_cache.capacity,
+           "pilot_step_ms": statistics.median(pilot_fb),
+           "replayed_step_ms": statistics.median(replayed_fb),
+           "captures": captures, "refits": tr.n_refits,
+           "widens": tr.n_widens, "cache_miss": miss,
+           "cache_rows": tr.feature_cache.capacity,
            "h2d_bytes_per_step": tr.feature_cache.bytes_fetched
            / max(tr.global_step, 1),
            "validations": len(timing["validate"]),
@@ -2950,11 +3164,13 @@ def uva_trainer_phase(torch, dev, wrappers, smi_line, workdir,
     missing = [k for k, v in launches.items() if v <= 0]
     if (missing or features_on_device or err > 1e-2 * scale
             or len(miss) != tr.global_step
+            or not (4 <= captures <= 4 * (1 + tr.n_widens) if cuda
+                    else captures == 0)
             or not all(math.isfinite(x) for x in losses)):
         fail(f"uva_trainer: kernels not launched {missing}, features on "
              f"the device {features_on_device}, logits {err} > 1e-2 x "
              f"{scale}, cache_miss logged {len(miss)} of {tr.global_step} "
-             f"steps, or a non-finite loss")
+             f"steps, {captures} captures, or a non-finite loss")
     del tr, logits, want
     gc.collect()
     if cuda:
@@ -3772,21 +3988,27 @@ def bench_torch_phase(here, smi_line, rows):
 
 
 def multicard_cli(torch, workdir, device, n):
-    """``cli.main`` on synth-pubmed as ``dp2`` runs it, with ``--dp n`` and
-    then ``--dp n --shard-graph``: the ranks start themselves, rank 0
-    writes a checkpoint, ``final_eval`` gives F1s in [0, 1]."""
+    """``cli.main`` on synth-pubmed as ``dp2`` runs it, with ``--dp n``,
+    then ``--dp n --shard-graph``, then ``--dp n --use-uva`` (under NCCL
+    the split halves replayed with their collectives, K4's repeats route
+    at S = n): the ranks start themselves, rank 0 writes a checkpoint,
+    ``final_eval`` gives F1s in [0, 1]; the UVA run's losses within
+    LOCKSTEP_TOLERANCE's loss bound of the ``--dp n`` run's, step by step
+    (the same blocks and updates but for the unsorted sums' atomic
+    order)."""
     from bliss_gnn_tpu_torch.train import cli
 
     recs = []
-    for shard in (False, True):
-        logdir = os.path.join(workdir, f"cli_dp{n}{'_shard' if shard else ''}")
+    for name, extra in (("", []), ("_shard", ["--shard-graph"]),
+                        ("_uva", ["--use-uva"])):
+        logdir = os.path.join(workdir, f"cli_dp{n}{name}")
         argv = (["--dataset", DP2_CFG["dataset"], "--model", "sage",
                  "--num-layers", "2", "--fan-out", "64,32",
                  "--batch-size", "64", "--num-steps", "6",
                  "--num-hidden", "64", "--logdir", logdir, "--dp", str(n),
                  "--steps-per-call", "2", "--refit-after", "2",
                  "--exp3-renorm-every", "2"]
-                + (["--shard-graph"] if shard else [])
+                + extra
                 + (["--platform", "cpu"] if device == "cpu" else []))
         t0 = time.perf_counter()
         res = cli.main(argv)
@@ -3795,18 +4017,28 @@ def multicard_cli(torch, workdir, device, n):
                  for f in fs if f == "best"]
         ok = bool(ckpts) and all(0.0 <= res[0][s] <= 1.0
                                  for s in ("Train", "Validation", "Test"))
+        series = read_series(os.path.dirname(os.path.dirname(ckpts[0]))
+                             ) if ckpts else {}
         recs.append({"argv": argv, "seconds": secs, "result": res[0],
-                     "checkpoint": bool(ckpts)})
+                     "checkpoint": bool(ckpts),
+                     "losses": [v for _, v in series.get("train_loss", [])],
+                     "step_ms": [v * 1e3 for _, v in series.get(
+                         "forward_backward_time", [])]})
         if not ok:
             fail(f"multicard_cli {' '.join(argv)}: {res}, {ckpts}")
-    emit({"phase": "multicard_cli", "ranks": n, "runs": recs})
+    base, uva = recs[0]["losses"], recs[-1]["losses"]
+    err = [abs(a - b) / max(abs(b), 1.0) for a, b in zip(uva, base)]
+    emit({"phase": "multicard_cli", "ranks": n, "runs": recs,
+          "uva_loss_err": err, "loss_tolerance": LOCKSTEP_TOLERANCE["loss"]})
+    if len(err) != 6 or max(err) > LOCKSTEP_TOLERANCE["loss"]:
+        fail(f"multicard_cli: the --use-uva run's losses {uva} apart from "
+             f"the --dp {n} run's {base}")
     return recs
 
 
 def multicard_main(torch, here, n_cards):
     """``--cards 4``: only the multi-card phases, with groups of 1, 2 and 4
-    ranks on the four cards. Raises before any work with fewer cards
-    visible."""
+    ranks on the four cards. Raises before any work with fewer cards visible."""
     sizes = MULTICARD_SIZES
     if n_cards != sizes[-1]:
         fail(f"--cards {n_cards}: the multi-card phases are defined for "
