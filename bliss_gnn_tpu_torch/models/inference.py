@@ -12,6 +12,12 @@ layout to build beforehand. ``layerwise_inference_uva`` runs the same
 layers chunk by chunk from host-resident features, for graphs whose
 features do not fit on the card; ``layerwise_inference_sharded`` runs
 them over a mesh of ranks with the activations node-sharded.
+
+``layerwise_inference`` is traced (``utils/spans.py``, off by default): a
+host span ``infer.layer`` a layer and, with device marks on, a unit
+``infer`` a pass whose marks time each layer's projection
+(``infer.project``) and aggregation (``infer.attend``: K7 for GATv2, K6
+for SAGE and GCN), recorded at the pass's end (a sync).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.graph.structure import DeviceGraph
 from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
 from bliss_gnn_tpu_torch.ops.spmm import spmm as spmm_csr
+from bliss_gnn_tpu_torch.utils import spans
 
 SpMM = Callable[[torch.Tensor], torch.Tensor]
 GatAttn = Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
@@ -51,9 +58,13 @@ def _sage_layer(conv: nn.Module, h_src: torch.Tensor, h_dst: torch.Tensor,
     Ws = conv.fc_self.weight.to(dtype)
     b = conv.bias.to(torch.float32)
     lin_before = h_src.shape[1] > Wn.shape[0]
-    src_val = F.linear(h_src.to(dtype), Wn) if lin_before else h_src.to(dtype)
+    with spans.device_span("infer.project"):
+        src_val = (F.linear(h_src.to(dtype), Wn) if lin_before
+                   else h_src.to(dtype))
     deg = torch.clamp(in_deg.to(torch.float32), min=1.0)
-    agg = aggregate(src_val) / deg[:, None]
+    with spans.device_span("infer.attend"):
+        agg = aggregate(src_val)
+    agg = agg / deg[:, None]
     h_neigh = agg if lin_before else F.linear(agg.to(dtype), Wn)
     return F.linear(h_dst.to(dtype), Ws).to(torch.float32) + h_neigh + b
 
@@ -68,9 +79,14 @@ def _gcn_layer(conv: nn.Module, h_src: torch.Tensor, out_deg: torch.Tensor,
                                        min=1.0))[:, None].to(dtype)
     feat = h_src.to(dtype) * src_norm
     if h_src.shape[1] > W.shape[0]:
-        agg = aggregate(F.linear(feat, W))
+        with spans.device_span("infer.project"):
+            feat = F.linear(feat, W)
+        with spans.device_span("infer.attend"):
+            agg = aggregate(feat)
     else:
-        agg = F.linear(aggregate(feat).to(dtype), W).to(torch.float32)
+        with spans.device_span("infer.attend"):
+            agg = aggregate(feat)
+        agg = F.linear(agg.to(dtype), W).to(torch.float32)
     return agg * torch.rsqrt(torch.clamp(in_deg.to(torch.float32),
                                          min=1.0))[:, None] + b
 
@@ -83,8 +99,10 @@ def _gat_layer(conv: nn.Module, h: torch.Tensor, num_heads: int,
     ``res_dtype`` (``dtype`` when None)."""
     W = conv.fc_src.weight.to(dtype)
     O = W.shape[0] // num_heads
-    feat = F.linear(h.to(dtype), W).reshape(-1, num_heads, O)
-    rst = gat_attn(feat, conv.attn, negative_slope)
+    with spans.device_span("infer.project"):
+        feat = F.linear(h.to(dtype), W).reshape(-1, num_heads, O)
+    with spans.device_span("infer.attend"):
+        rst = gat_attn(feat, conv.attn, negative_slope)
     if residual:
         res = h[:rst.shape[0]]
         if conv.res_fc is not None:
@@ -141,10 +159,15 @@ def layerwise_inference(model_name: str, model: nn.Module, graph: DeviceGraph,
                         gat_attn: Optional[GatAttn] = None) -> torch.Tensor:
     """Every layer over the full graph; returns [N, n_classes] f32 logits.
     ``heads`` defaults to the model's own per-layer head counts."""
+    spans.follow_profiler()
     h = graph.ndata["features"].to(torch.float32)
+    marks = spans.open_marks("infer", h.device)
     for l in range(n_layers):
-        h = inference_layer(model_name, model, graph, l, h, n_layers, heads,
-                            negative_slope, residual, dtype, spmm, gat_attn)
+        with spans.span("infer.layer"):
+            h = inference_layer(model_name, model, graph, l, h, n_layers,
+                                heads, negative_slope, residual, dtype, spmm,
+                                gat_attn)
+    spans.record(spans.finish(marks))
     return h
 
 

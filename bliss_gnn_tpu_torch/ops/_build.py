@@ -73,6 +73,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "bliss_gat_attention": [_P, _I, _I, _I, _I, _P, _F, _I, _P, _P, _LL,
                                 _P, _P, _P, _P]
     },
+    "marks": {"bliss_mark": [_P, _P, _I, _P]},
 }
 
 

@@ -164,7 +164,6 @@ def exp3_apply_sorted_runs(state: torch.Tensor, flat_idx: torch.Tensor,
     err = getattr(_build.load("exp3_apply"), runs_entry)(
         state.data_ptr(), s_idx.data_ptr(), order.data_ptr(),
         mult.data_ptr(), u, limit, _build.stream_of(state))
-    exp3_apply_sorted_runs.launches += 1
     if err:
         _build.check(err, "exp3_apply_sorted_runs")
 
@@ -181,4 +180,3 @@ exp3_apply.launches = 0
 # the same launches by route and update count, e.g. "f32 186496",
 # "repeats bf16 745984 S=4"
 exp3_apply.launches_by_shape = {}
-exp3_apply_sorted_runs.launches = 0

@@ -40,6 +40,7 @@ from bliss_gnn_tpu_torch.sampling.frontier import (
     gather_in_edges,
     ptr_take,
 )
+from bliss_gnn_tpu_torch.utils import spans
 
 LADIES_FAMILY = ("ladies", "poisson-ladies", "bandit", "poisson-bandit")
 ALL_KINDS = LADIES_FAMILY + ("neighbor", "full")
@@ -362,8 +363,9 @@ def _sample_layer_ladies(graph: DeviceGraph, cfg: SamplerConfig,
         prob = torch.where(mask, prob, 0.0)
 
     if cfg.is_poisson:
-        p = _poisson_scale(prob, cand, num, cfg.poisson_eps,
-                           cfg.poisson_iters)
+        with spans.device_span("sample.fixed_point"):
+            p = _poisson_scale(prob, cand, num, cfg.poisson_eps,
+                               cfg.poisson_iters)
         sel = _bernoulli_select(generator, p, cand.mask, u=draw)
         node_prob = p
     else:

@@ -119,7 +119,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "before training")
     p.add_argument("--profile-steps", type=int, default=0,
                    help="write a torch.profiler trace of N training steps "
-                        "to <run_dir>/profile")
+                        "from the first replayed one (after the pilot steps "
+                        "and the capture), with the trainer's spans, to "
+                        "<run_dir>/profile")
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="chain K fused steps per call (on the card: "
                         "replays of one captured CUDA graph after the "

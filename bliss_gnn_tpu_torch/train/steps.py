@@ -36,10 +36,22 @@ What capture asks of the step, and where it is met:
   graph's private pool gives every replay the same addresses, so the
   route taken holds;
 - the wrappers' launch counters are Python: they count the captured
-  launches once, and no replay.
+  launches once, and no replay. :class:`_Replay` counts the replays,
+  captures and eager warm-ups by role (``steps.replays/<role>`` and so on
+  in ``utils/spans.py``, while spans are on).
+
+Device marks (``utils/spans.py``, off by default) time a train step's
+phases on the card inside the graph: ``step.sample`` (``sample_blocks``),
+``step.model`` (the feature and label gathers, forward, loss, backward,
+the gradient mean, Adam), ``step.bandit`` (the EXP3 rewards, the delta
+sync, K4), with ``step.collective`` around the mesh's collectives; a
+validation batch's ``eval.sample`` and ``eval.model``. A train step's
+stamps join its metrics vector (``_pack``); off, the step and its graph
+are as they were without them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -56,6 +68,7 @@ from bliss_gnn_tpu_torch.sampling.samplers import (
     sample_blocks,
 )
 from bliss_gnn_tpu_torch.train.metrics import F1State, f1_update
+from bliss_gnn_tpu_torch.utils import spans
 
 
 class StepStorage:
@@ -294,16 +307,21 @@ def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if mesh is not None:
-            pmean_grads(model.parameters(), mesh)
+            with spans.device_span("step.collective"):
+                pmean_grads(model.parameters(), mesh)
         state.optimizer.step()
+        spans.mark("step.model")
 
         if sampler_cfg.is_bandit and not sampler_cfg.exp3_freeze:
             # unnormalised by default: every consumer renormalises per dst
             deltas = exp3_edge_deltas(graph, sampler_cfg, blocks,
                                       aux["embed_norms"], aux["a_ijs"])
-            deltas = storage.sync_deltas(deltas, mesh)
+            with (spans.device_span("step.collective") if mesh is not None
+                  else contextlib.nullcontext()):
+                deltas = storage.sync_deltas(deltas, mesh)
             storage.apply_deltas(state.exp3_weights, deltas, exp3_normalize,
                                  max_repeats=1 if mesh is None else mesh.size)
+            spans.mark("step.bandit")
         f1 = f1_update(F1State.zero(x.device), logits.detach(), labels,
                        dst_mask, multilabel)
         return {
@@ -333,7 +351,8 @@ def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     draws) -> metrics``: everything but the host's schedule and step count,
     so that a CUDA graph can hold it. The sampler draws from the state's
     generator before dropout does. Under ``mesh`` (the JAX ``dp_axis``)
-    ``seeds`` is this rank's slice and the metrics come back reduced."""
+    ``seeds`` is this rank's slice and the metrics come back reduced; with
+    device marks on, the step's stamps are among them, unreduced."""
     storage = storage or _DEFAULT_STORAGE
     train_fn = _make_train_fn(graph, sampler_cfg, multilabel, mesh, storage,
                               exp3_normalize)
@@ -342,12 +361,17 @@ def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
              seeds_mask: torch.Tensor,
              draws: Optional[Sequence[torch.Tensor]] = None,
              ) -> Dict[str, object]:
+        marks = spans.open_marks("step", seeds.device)
         blocks, samp_stats = sample_blocks(
             graph, sampler_cfg, plan, state.generator, seeds, seeds_mask,
             storage.exp3_view(state.exp3_weights), draws=draws)
+        spans.mark("step.sample")
         x = storage.node_rows(graph, "features", blocks[0].src_gids)
-        return reduce_metrics({**train_fn(state, blocks, x),
-                               **_sampler_stats(samp_stats)}, mesh)
+        out = reduce_metrics({**train_fn(state, blocks, x),
+                              **_sampler_stats(samp_stats)}, mesh)
+        if marks is not None:
+            out.update(spans.finish(marks).columns())
+        return out
 
     return body
 
@@ -427,12 +451,19 @@ def _make_eval_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     def body(state: TrainState, generator: Optional[torch.Generator],
              seeds: torch.Tensor, seeds_mask: torch.Tensor,
              draws: Optional[Sequence[torch.Tensor]] = None):
+        marks = spans.open_marks("eval", seeds.device)
         with torch.no_grad():
             blocks, _ = sample_blocks(
                 graph, sampler_cfg, plan, generator, seeds, seeds_mask,
                 storage.exp3_view(state.exp3_weights), draws=draws)
+            spans.mark("eval.sample")
             x = storage.node_rows(graph, "features", blocks[0].src_gids)
-        return eval_fn(state, blocks, x)
+        out = eval_fn(state, blocks, x)
+        if marks is not None:
+            spans.mark("eval.model")
+            m = spans.finish(marks)
+            spans.defer(m.unit, m.names, m.rel)
+        return out
 
     return body
 
@@ -492,11 +523,12 @@ def make_uva_steps(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     storage = storage or _DEFAULT_STORAGE
     train_body = _make_train_fn(graph, sampler_cfg, multilabel, mesh, storage)
     eval_body = _make_eval_fn(graph, multilabel, mesh, storage)
-    graphs = {role: _Replay()
+    graphs = {role: _Replay("uva." + role)
               for role in ("sample", "sample_eval", "train", "eval")}
 
     def run(role: str, bound: tuple, generator, fn: Callable, inputs):
         if not capture:
+            spans.counter("steps.eager/uva." + role)
             return fn(*inputs)
         return graphs[role].run(bound, generator, fn, inputs)
 
@@ -586,20 +618,26 @@ class _Replay:
     on a side stream (real steps), then it captures ``fn`` once, reading
     static copies of the inputs, and replays it; later batches are copied
     into those copies before each replay. ``bound`` holds what the graph
-    reads (the state, the generator, whether draws were injected): another
-    set starts over. A replay returns the graph's own output tensors, which
-    the next replay overwrites. A failed capture raises. ``captures``
-    counts the captures of every instance."""
+    reads (the state, the generator, whether draws were injected), and
+    whether device marks are on (``utils/spans.py``, read at capture):
+    another set starts over. A replay returns the graph's own output
+    tensors, which the next replay overwrites. A failed capture raises.
+    ``captures`` counts the captures of every instance; while spans are on
+    the counters ``steps.replays/<role>``, ``steps.captures/<role>`` and
+    ``steps.eager/<role>`` (the warm-ups) count this instance's calls."""
 
     captures = 0
 
-    def __init__(self):
+    def __init__(self, role: str):
         self.bound: tuple = ()
         self.warm = 0
         self.graph = self.inputs = self.outputs = self.side = None
+        self.counts = tuple(f"steps.{kind}/{role}"
+                            for kind in ("replays", "captures", "eager"))
 
     def run(self, bound: tuple, generator: Optional[torch.Generator],
             fn: Callable, inputs: Sequence[torch.Tensor]):
+        bound = (*bound, spans.marks_enabled())
         if (len(bound) != len(self.bound)
                 or any(a is not b for a, b in zip(bound, self.bound))):
             self.bound, self.warm, self.graph = bound, 0, None
@@ -607,9 +645,11 @@ class _Replay:
             for buf, x in zip(self.inputs, inputs):
                 buf.copy_(x)
             self.graph.replay()
+            spans.counter(self.counts[0])
             return self.outputs
         if self.warm < CAPTURE_WARMUP_STEPS:
             self.warm += 1
+            spans.counter(self.counts[2])
             if self.side is None:
                 self.side = torch.cuda.Stream()
             self.side.wait_stream(torch.cuda.current_stream())
@@ -625,6 +665,7 @@ class _Replay:
             self.outputs = fn(*self.inputs)
         self.graph = graph
         _Replay.captures += 1
+        spans.counter(self.counts[1])
         graph.replay()
         return self.outputs
 
@@ -683,7 +724,7 @@ def chain_train(body: Callable, dev: torch.device,
     seeds_mask[K, B], draws=None) -> (state, metrics stacked over K)``:
     with ``capture`` one step captured in a CUDA graph and replayed per
     batch (:class:`_Replay`), else a plain loop."""
-    replay, layout = _Replay(), {}
+    replay, layout = _Replay("train"), {}
 
     def multi(state: TrainState, seeds: torch.Tensor,
               seeds_mask: torch.Tensor, draws=None):
@@ -704,6 +745,7 @@ def chain_train(body: Callable, dev: torch.device,
                 vec = replay.run((state, state.generator, draws is not None),
                                  state.generator, packed, inputs)
             else:
+                spans.counter("steps.eager/train")
                 vec = packed(*inputs)
             state.scheduler.step()
             state.step += 1
@@ -742,8 +784,10 @@ def chain_eval(body: Callable, dev: torch.device, capture: bool
                ) -> Callable:
     """K sampled validation batches of ``body`` per call, summed in batch
     order (see :func:`make_multi_eval_step`); with ``capture`` one batch
-    captured in a CUDA graph and replayed, else a plain loop."""
-    replay = _Replay()
+    captured in a CUDA graph and replayed, else a plain loop. With device
+    marks on, the batches' stamps are summed too and deferred as one
+    ``eval`` unit (``spans.record_pending`` reads them)."""
+    replay, unit = _Replay("eval"), {}
 
     def multi(state: TrainState, generator: Optional[torch.Generator],
               seeds: torch.Tensor, seeds_mask: torch.Tensor, draws=None):
@@ -752,20 +796,32 @@ def chain_eval(body: Callable, dev: torch.device, capture: bool
         def packed(seeds, seeds_mask, *draws):
             f1, loss_n, n = body(state, generator, seeds, seeds_mask,
                                  list(draws) or None)
-            return torch.stack([f1.tp, f1.fp, f1.fn, f1.total, loss_n]), n
+            out = (torch.stack([f1.tp, f1.fp, f1.fn, f1.total, loss_n]), n)
+            marks = spans.take_pending()  # the body's, with marks on
+            if marks is not None:
+                _, unit["names"], rel = marks
+                out += (rel[:len(unit["names"])],)
+            return out
 
         acc = torch.zeros(5, dtype=torch.float32, device=dev)
         n_sum = torch.zeros((), dtype=torch.int32, device=dev)
+        stamps = None
         for i in range(k):
             inputs = (seeds[i], seeds_mask[i],
                       *(() if draws is None else draws[i]))
             if capture:
-                vec, n = replay.run((state, generator, draws is not None),
-                                    generator, packed, inputs)
+                out = replay.run((state, generator, draws is not None),
+                                 generator, packed, inputs)
             else:
-                vec, n = packed(*inputs)
-            acc = acc + vec
-            n_sum = n_sum + n
+                spans.counter("steps.eager/eval")
+                out = packed(*inputs)
+            acc = acc + out[0]
+            n_sum = n_sum + out[1]
+            if len(out) > 2:  # a replay overwrites its outputs: a copy
+                stamps = (out[2].clone() if stamps is None
+                          else stamps + out[2])
+        if stamps is not None:
+            spans.defer("eval", unit["names"], stamps)
         return F1State(*acc[:4].unbind()), acc[4], n_sum
 
     return multi

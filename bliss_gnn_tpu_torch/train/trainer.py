@@ -96,6 +96,7 @@ from bliss_gnn_tpu_torch.train.metrics import (
     f1_update,
 )
 from bliss_gnn_tpu_torch.train.steps import (
+    CAPTURE_WARMUP_STEPS,
     TrainState,
     _pack,
     _sampler_stats,
@@ -108,6 +109,7 @@ from bliss_gnn_tpu_torch.train.steps import (
     make_uva_steps,
     replays,
 )
+from bliss_gnn_tpu_torch.utils import spans
 from bliss_gnn_tpu_torch.utils.logging import MetricLogger, next_version_dir
 
 @dataclasses.dataclass
@@ -164,7 +166,9 @@ class TrainConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     exp3_dtype: str = "bfloat16"
-    # torch.profiler trace of the steps from step 2 into <run_dir>/profile
+    # torch.profiler trace of this many train steps from the first replayed
+    # one (after the pilot and the capture) into <run_dir>/profile, with the
+    # trainer's host spans
     profile_steps: int = 0
     resume: str = ""  # checkpoint file to restore before training
     use_uva: bool = False
@@ -195,10 +199,13 @@ class TrainConfig:
 def _metrics_to_host(metrics: Dict[str, object], device: torch.device,
                      chained: bool) -> List[Dict[str, object]]:
     """A step's metrics, or a chain's stacked over K, copied to the host in
-    one transfer: one dict per step, each value a float and ``f1`` an
-    ``F1State`` of CPU scalars."""
+    one transfer (the span ``trainer.metrics_read``: the host's wait on the
+    card): one dict per step, each value a float and ``f1`` an ``F1State``
+    of CPU scalars."""
     vec, layout = _pack(metrics, device)
-    rows = vec.cpu().T if chained else vec.cpu()[None]  # [K, n]
+    with spans.span("trainer.metrics_read"):
+        vec = vec.cpu()
+    rows = vec.T if chained else vec[None]  # [K, n]
     cols = _unpack(rows, layout)
     return [{name: (F1State(*(t[k] for t in vars(v).values()))
                     if isinstance(v, F1State) else float(v[k]))
@@ -337,6 +344,7 @@ class Trainer:
         self.checkpoint_failures = 0
         self._checkpoint_saved = False
         self._profiler = None
+        self._profile_from: Optional[int] = None
         # validation draws: reseeded from seed + 1000 + epoch before each
         # validation, so one captured chained eval serves every epoch
         self._eval_gen = torch.Generator(device=self.device)
@@ -501,21 +509,22 @@ class Trainer:
     def _uva_train_step(self, state: TrainState, seeds: torch.Tensor,
                         smask: torch.Tensor):
         """Sample, fetch the input rows through the cache, train (the pilot
-        and profiled steps eagerly); the batch's miss rate is the
-        ``cache_miss`` metric."""
+        steps eagerly); the batch's miss rate is the ``cache_miss``
+        metric."""
         sample_fn, train_fn, _ = (self._uva_eager if self._eager_steps()
                                   else self._uva_fns)
         seeds, smask = self._local(seeds), self._local(smask)
         blocks, samp_stats = sample_fn(state, seeds, smask)
-        x, miss = self.feature_cache.gather(blocks[0].src_gids,
-                                            blocks[0].src_mask)
+        with spans.span("trainer.fetch"):
+            x, miss = self.feature_cache.gather(blocks[0].src_gids,
+                                                blocks[0].src_mask)
         state, metrics = train_fn(state, blocks, x)
         return state, {**metrics, "cache_miss": miss,
                        **_sampler_stats(samp_stats)}
 
     def _uva_eval_step(self, state: TrainState, generator, seeds, smask):
-        """Sample, fetch, evaluate: replayed on the card in the pilot and
-        profiled runs too, as the chained eval step is."""
+        """Sample, fetch, evaluate: replayed on the card in the pilot too,
+        as the chained eval step is."""
         sample_fn, _, eval_fn = self._uva_fns
         seeds, smask = self._local(seeds), self._local(smask)
         blocks, _ = sample_fn(state, seeds, smask, generator=generator)
@@ -529,10 +538,9 @@ class Trainer:
 
     def _eager_steps(self) -> bool:
         """Whether train steps run eagerly now: the pilot steps (the refit
-        replaces their plan a moment later) and a profiled run's. It does
-        not hold for validation, which replays whenever steps replay."""
-        return ((self.cfg.refit_after > 0 and not self._refit_done)
-                or self.cfg.profile_steps > 0)
+        replaces their plan a moment later). It does not hold for
+        validation, which replays whenever steps replay."""
+        return self.cfg.refit_after > 0 and not self._refit_done
 
     # -- epoch loops -----------------------------------------------------
     def _epoch_batches(self, rng: np.random.Generator) -> np.ndarray:
@@ -552,7 +560,7 @@ class Trainer:
         if max_steps is math.inf and max_epochs is math.inf:
             max_epochs = 1000
         epoch = 0
-        prev_t = time.time()
+        prev_t = time.perf_counter()
         while (epoch < max_epochs and self.global_step < max_steps
                and not self._stop):
             batches = self._epoch_batches(rng)
@@ -561,56 +569,76 @@ class Trainer:
             K = max(1, cfg.steps_per_call)
             b = 0
             while b < batches.shape[0]:
-                # a full chain; on the card the last batches as a shorter one
-                k = min(K, batches.shape[0] - b, max_steps - self.global_step)
-                chain = (self.multi_step is not None
-                         and not self._eager_steps()
-                         and (k == K or self._replays))
-                if chain:
-                    seeds = self._to_device(batches[b:b + k])
-                    masks = torch.ones((k, self.batch_size),
-                                       dtype=torch.bool, device=self.device)
-                    st = time.time()
-                    self.state, mstack = self.multi_step(self.state, seeds,
-                                                         masks)
-                    mstack = _metrics_to_host(mstack, self.device, True)
-                    fb_time = (time.time() - st) / k
+                self._profile_window()
+                spans.follow_profiler()
+                spans.set_step(self.global_step + 1)
+                with spans.span("trainer.iteration"):
+                    # a full chain; on the card the last batches as a
+                    # shorter one
+                    k = min(K, batches.shape[0] - b,
+                            max_steps - self.global_step)
+                    chain = (self.multi_step is not None
+                             and not self._eager_steps()
+                             and (k == K or self._replays))
+                    with spans.span("trainer.batch"):
+                        if chain:
+                            seeds = self._to_device(batches[b:b + k])
+                            masks = torch.ones((k, self.batch_size),
+                                               dtype=torch.bool,
+                                               device=self.device)
+                        else:
+                            k = 1
+                            seeds = self._to_device(batches[b])
+                    st = time.perf_counter()
+                    with spans.span("trainer.launch"):
+                        if chain:
+                            self.state, metrics = self.multi_step(
+                                self.state, seeds, masks)
+                        else:
+                            self.state, metrics = self.train_step(
+                                self.state, seeds, smask)
+                            if self.feature_cache is None:
+                                spans.counter("steps.eager/train")
+                    mstack = _metrics_to_host(metrics, self.device, chain)
+                    fb_time = (time.perf_counter() - st) / k
                     for metrics in mstack:
                         self.global_step += 1
-                        self._log_train_step(metrics, prev_t, fb_time)
-                        prev_t = time.time()
+                        spans.take_marks(metrics, "step", self.global_step)
+                        with spans.span("trainer.log"):
+                            self._log_train_step(metrics, prev_t, fb_time)
+                        prev_t = time.perf_counter()
                         self.welford.push(float(metrics["num_nodes/0"]))
                     b += k
-                else:
-                    seeds = self._to_device(batches[b])
-                    if cfg.profile_steps > 0 and self.global_step == 2:
-                        self._start_profile()
-                    st = time.time()
-                    self.state, metrics = self.train_step(self.state, seeds,
-                                                          smask)
-                    metrics, = _metrics_to_host(metrics, self.device,
-                                                False)
-                    fb_time = time.time() - st
-                    if (cfg.profile_steps > 0
-                            and self.global_step == 2 + cfg.profile_steps):
-                        self._stop_profile()
-                    self.global_step += 1
-                    self._log_train_step(metrics, prev_t, fb_time)
-                    prev_t = time.time()
-                    self.welford.push(float(metrics["num_nodes/0"]))
-                    b += 1
-                self._maybe_renorm_exp3()
-                self._maybe_capacity_refit()
+                    self._maybe_renorm_exp3()
+                    self._maybe_capacity_refit()
                 if self.global_step >= max_steps:
                     break
             epoch += 1
-            val_acc = self._validate(epoch)
+            with spans.span("trainer.validate"):
+                val_acc = self._validate(epoch)
             self._maybe_checkpoint(val_acc)
             self._early_stopping(val_acc)
             self._vertex_limit_controller()
         self._stop_profile()
         self.logger.flush()
         return self
+
+    def _profile_window(self):
+        """``profile_steps``: the profiler over that many train steps from
+        the first replayed one (after the pilot steps, the refit and the
+        capture's warm-ups and capture; on the CPU the same steps), once a
+        run; host spans follow it into the trace."""
+        n = self.cfg.profile_steps
+        if n <= 0:
+            return
+        if self._profiler is None and self._profile_from is None:
+            first = max(self.cfg.refit_after, 0) + CAPTURE_WARMUP_STEPS + 1
+            if self.global_step >= first:
+                self._profile_from = self.global_step
+                self._start_profile()
+        elif (self._profiler is not None
+              and self.global_step >= self._profile_from + n):
+            self._stop_profile()
 
     def _start_profile(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -624,6 +652,7 @@ class Trainer:
         if self._profiler is None:
             return
         self._profiler.stop()
+        spans.follow_profiler()
         out = os.path.join(self.run_dir, "profile")
         os.makedirs(out, exist_ok=True)
         self._profiler.export_chrome_trace(
@@ -643,7 +672,14 @@ class Trainer:
         scalars["train_acc"] = float(f1_compute(metrics["f1"],
                                                 self.multilabel))
         scalars["train_loss"] = float(metrics["train_loss"])
-        scalars["iter_time"] = time.time() - prev_t
+        if spans.enabled():  # the raw sampled counts, summed
+            for i in range(cfg.num_layers + 1):
+                spans.counter(f"sampler.nodes/{i}",
+                              float(metrics[f"num_nodes/{i}"]))
+            for i in range(cfg.num_layers):
+                spans.counter(f"sampler.edges/{i}",
+                              float(metrics[f"num_edges/{i}"]))
+        scalars["iter_time"] = time.perf_counter() - prev_t
         scalars["forward_backward_time"] = fb_time
         if "cache_miss" in metrics:
             scalars["cache_miss"] = float(metrics["cache_miss"])
@@ -685,14 +721,18 @@ class Trainer:
             if new != self.plan:
                 self.plan = new
                 self.n_refits += 1
-                self._rebuild_steps()
+                spans.counter("trainer.refits")
+                with spans.span("trainer.rebuild"):
+                    self._rebuild_steps()
         elif self._overflow_after_refit:
             self.plan = self.plan.widen(
                 1.5, frontier=self._frontier_overflow_after_refit)
             self._overflow_after_refit = False
             self._frontier_overflow_after_refit = False
             self.n_widens += 1
-            self._rebuild_steps()
+            spans.counter("trainer.widens")
+            with spans.span("trainer.rebuild"):
+                self._rebuild_steps()
 
     def _val_batches(self, b0: int, k: int):
         """k validation batches from batch b0, zero-padded: seeds and masks
@@ -732,6 +772,8 @@ class Trainer:
                 f1, loss_n, n = self.eval_step(
                     self.state, gen, self._to_device(seeds[0]),
                     self._to_device(masks[0]))
+                if self.feature_cache is None:
+                    spans.counter("steps.eager/eval")
                 b += 1
             acc = acc + torch.stack([f1.tp, f1.fp, f1.fn, f1.total, loss_n])
             n_sum = n_sum + n
@@ -739,6 +781,7 @@ class Trainer:
         val_acc, loss_sum, n = torch.stack(
             [f1.double(), acc[4].double(), n_sum.double()]).cpu().tolist()
         val_loss = loss_sum / max(n, 1)
+        spans.record_pending(self.global_step)  # the batches' eval marks
         self.logger.log(self.global_step,
                         {"val_acc": val_acc, "val_loss": val_loss})
         return val_acc
@@ -752,11 +795,13 @@ class Trainer:
         since = self.global_step - self._last_renorm_step
         if force or since >= max(1, self.cfg.exp3_renorm_every):
             sg = self.sharded_graph
-            if sg is not None:
-                normalize_exp3_sharded(self.state.exp3_weights,
-                                       self.cfg.num_layers, sg.epr, self.mesh)
-            else:
-                normalize_exp3_weights(self.state.exp3_weights)
+            with spans.span("trainer.renorm"):
+                if sg is not None:
+                    normalize_exp3_sharded(self.state.exp3_weights,
+                                           self.cfg.num_layers, sg.epr,
+                                           self.mesh)
+                else:
+                    normalize_exp3_weights(self.state.exp3_weights)
             self._last_renorm_step = self.global_step
 
     # -- checkpoints -----------------------------------------------------
@@ -830,14 +875,17 @@ class Trainer:
     def _maybe_checkpoint(self, val_acc: float):
         self._maybe_renorm_exp3(force=True)
         if math.isnan(val_acc):
-            self.best_state = self._snapshot()
+            with spans.span("trainer.snapshot"):
+                self.best_state = self._snapshot()
             return
         if val_acc > self.best_val_acc:
             self.best_val_acc = val_acc
             self._epochs_since_improve = 0
-            self.best_state = self._snapshot()
+            with spans.span("trainer.snapshot"):
+                self.best_state = self._snapshot()
             if not self.cfg.disable_checkpoint:
-                self._save_checkpoint()
+                with spans.span("trainer.checkpoint"):
+                    self._save_checkpoint()
         else:
             self._epochs_since_improve += 1
 

@@ -90,13 +90,22 @@ def test_vertex_limit_batch_controller(tmp_path):
 
 
 def test_profile_trace_capture(tmp_path):
-    """--profile-steps writes a torch.profiler trace directory."""
+    """--profile-steps writes a torch.profiler trace directory, over the
+    steps after the pilot, with the trainer's spans in it; host spans are
+    off again after it."""
+    from bliss_gnn_tpu_torch.utils import spans
+
     tr = _mk(tmp_path, num_epochs=1, profile_steps=2)
     tr.fit()
     prof = os.path.join(tr.run_dir, "profile")
     assert os.path.isdir(prof) and len(os.listdir(prof)) > 0
     name = os.listdir(prof)[0]
     assert os.path.getsize(os.path.join(prof, name)) > 0
+    with open(os.path.join(prof, name)) as f:
+        events = json.load(f)["traceEvents"]
+    iters = [e for e in events if e.get("name") == "trainer.iteration"]
+    assert len(iters) == 2
+    assert not tr._eager_steps() and not spans.enabled()
 
 
 def test_capacity_refit_tightens_and_training_still_learns(tmp_path):
