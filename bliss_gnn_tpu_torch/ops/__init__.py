@@ -12,6 +12,9 @@ kernels under them.
   that fits in L2 (``csrc/spmm_csr.cu``)
 - ``gat_attention``: K7, full-graph GATv2 attention, src rows streamed
   through a ``cp.async`` ring (``csrc/gat_attention.cu``)
+- ``poisson``:       the sampler's Poisson fixed point and its epilogue,
+  one launch of a thread-block cluster a layer (``csrc/poisson_scale.cu``;
+  no TPU counterpart)
 
 ``fullgraph`` holds the chunked plain versions of K6 and K7.
 

@@ -74,6 +74,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                 _P, _P, _P, _P]
     },
     "marks": {"bliss_mark": [_P, _P, _I, _P]},
+    "poisson_scale": {
+        "bliss_poisson_scale": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                _I, _P]
+    },
 }
 
 

@@ -28,6 +28,9 @@ class Block:
     src_node_prob: torch.Tensor  # [n_src_cap] f32 node probability
     e_alpha: Optional[torch.Tensor] = None  # [e_cap] f32 static weight w_e
     n_dst_cap: int = 0
+    # 0-dim int32, the Poisson kinds only: the iteration at which the
+    # layer's fixed point hit eps (poisson_iters if never)
+    fixed_point_iters: Optional[torch.Tensor] = None
 
     @property
     def n_src_cap(self) -> int:

@@ -5,11 +5,12 @@ neighbor samplers and the EXP3 update (counterpart of
 Kinds: ``ladies``, ``poisson-ladies``, ``bandit`` and ``poisson-bandit``;
 ``neighbor`` (k uniform in-edges per dst) and ``full`` (every in-edge).
 Everything has static shapes (see ``CapacityPlan``) and stays on the
-device: the Poisson fixed point runs as masked iterations with no host
-sync. The random draws are isolated in :func:`_bernoulli_select`,
-:func:`_gumbel_topk_select` and :func:`_segment_rank`; each takes an
-injected draw (uniforms, or Gumbel noise), so a test can feed this package
-and the reference the same coin flips.
+device with no host sync: the Poisson fixed point is ``ops/poisson.py``
+(one kernel launch on the card). The random draws are isolated in
+:func:`_bernoulli_select`, :func:`_gumbel_topk_select` and
+:func:`_segment_rank`; each takes an injected draw (uniforms, or Gumbel
+noise), so a test can feed this package and the reference the same coin
+flips.
 
 The EXP3 state is ``[L, n_edges + EDGE_PAD]`` bf16, zero past ``n_edges``;
 :func:`apply_exp3_deltas` updates it in place through K4.
@@ -25,6 +26,7 @@ from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD, DeviceGraph
 from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
 from bliss_gnn_tpu_torch.ops.gather import lut_gather, lut_gather_multi
+from bliss_gnn_tpu_torch.ops.poisson import poisson_scale
 from bliss_gnn_tpu_torch.ops.segment import masked_segment_sum, segment_count
 from bliss_gnn_tpu_torch.parallel.shards import ShardedExp3
 from bliss_gnn_tpu_torch.sampling.block import Block, CapacityPlan
@@ -166,29 +168,6 @@ def _uniform_node_prob(frontier: Frontier, cand: Candidates) -> torch.Tensor:
     if cand.mask is not None:
         member &= cand.mask
     return torch.where(member, 1.0, 0.0)
-
-
-def _poisson_scale(prob: torch.Tensor, cand: Candidates, num: int,
-                   eps: float, iters: int) -> torch.Tensor:
-    """Fixed point c with sum(min(c*q, 1)) ~= num, then p = min(c*q, 1)
-    with seeds forced to 1 (all 1 when n_candidates <= num). Runs
-    ``iters`` masked iterations on the device: once ``done`` is set, c
-    stops moving, which is the reference's early exit."""
-    probf = prob.to(torch.float32)
-    c = torch.ones((), dtype=torch.float32, device=prob.device)
-    done = torch.zeros((), dtype=torch.bool, device=prob.device)
-    for _ in range(iters):
-        s = torch.where(cand.mask, torch.clamp(probf * c, max=1.0), 0.0).sum()
-        ratio = s.clamp(max=num) / s.clamp(min=num).clamp(min=1e-30)
-        hit = ratio >= eps
-        c_new = torch.where(hit | (s <= 0), c,
-                            c * num / torch.clamp(s, min=1e-30))
-        c = torch.where(done, c, c_new)
-        done = done | hit
-    p = torch.clamp(probf * c, max=1.0)
-    p = torch.where(cand.is_seed, 1.0, p)
-    p = torch.where(cand.n <= num, 1.0, p)
-    return torch.where(cand.mask, p, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -364,8 +343,8 @@ def _sample_layer_ladies(graph: DeviceGraph, cfg: SamplerConfig,
 
     if cfg.is_poisson:
         with spans.device_span("sample.fixed_point"):
-            p = _poisson_scale(prob, cand, num, cfg.poisson_eps,
-                               cfg.poisson_iters)
+            p, n_iters = poisson_scale(prob, cand, num, cfg.poisson_eps,
+                                       cfg.poisson_iters)
         sel = _bernoulli_select(generator, p, cand.mask, u=draw)
         node_prob = p
     else:
@@ -386,6 +365,8 @@ def _sample_layer_ladies(graph: DeviceGraph, cfg: SamplerConfig,
         "n_selected": sel.sum(dtype=torch.int32),
         **bstats,
     }
+    if cfg.is_poisson:
+        block = dataclasses.replace(block, fixed_point_iters=n_iters)
     return block, stats
 
 

@@ -337,10 +337,19 @@ def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
 
 def _sampler_stats(samp_stats: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-    """The sampler's overflow counters and the sizes the refit reads."""
+    """The sampler's overflow counters, the sizes the refit reads and the
+    fixed-point counts of :func:`_fixed_point_iters`."""
     return {k: v for k, v in samp_stats.items()
             if "overflow" in k or "frontier_edges" in k
-            or "n_block_edges_true" in k}
+            or "n_block_edges_true" in k or k.startswith("poisson_iters/")}
+
+
+def _fixed_point_iters(blocks) -> Dict[str, torch.Tensor]:
+    """Of the Poisson kinds, each layer's fixed-point iteration count
+    (``Block.fixed_point_iters``) as ``poisson_iters/<l>``; summed over
+    the ranks under a mesh."""
+    return {f"poisson_iters/{l}": b.fixed_point_iters
+            for l, b in enumerate(blocks) if b.fixed_point_iters is not None}
 
 
 def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
@@ -368,7 +377,8 @@ def _make_step_body(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         spans.mark("step.sample")
         x = storage.node_rows(graph, "features", blocks[0].src_gids)
         out = reduce_metrics({**train_fn(state, blocks, x),
-                              **_sampler_stats(samp_stats)}, mesh)
+                              **_sampler_stats(samp_stats),
+                              **_fixed_point_iters(blocks)}, mesh)
         if marks is not None:
             out.update(spans.finish(marks).columns())
         return out
@@ -543,7 +553,8 @@ def make_uva_steps(graph: DeviceGraph, sampler_cfg: SamplerConfig,
                 graph, sampler_cfg, plan, gen, seeds, seeds_mask,
                 storage.exp3_view(state.exp3_weights),
                 draws=list(draws) or None)
-            return blocks, reduce_metrics(stats, mesh, mean_keys=())
+            return blocks, reduce_metrics(
+                {**stats, **_fixed_point_iters(blocks)}, mesh, mean_keys=())
 
         return run("sample" if generator is None else "sample_eval",
                    (state, gen, draws is not None), gen, sample,
@@ -574,8 +585,9 @@ def make_uva_steps(graph: DeviceGraph, sampler_cfg: SamplerConfig,
     return sample_fn, train_fn, eval_fn
 
 
+# what the model and the bandit read of a block (not the sampler's count)
 _BLOCK_TENSORS = tuple(f.name for f in dataclasses.fields(Block)
-                       if f.name != "n_dst_cap")
+                       if f.name not in ("n_dst_cap", "fixed_point_iters"))
 
 
 def _block_tensors(blocks) -> List[torch.Tensor]:

@@ -679,6 +679,9 @@ class Trainer:
             for i in range(cfg.num_layers):
                 spans.counter(f"sampler.edges/{i}",
                               float(metrics[f"num_edges/{i}"]))
+                if f"poisson_iters/{i}" in metrics:
+                    spans.counter(f"sampler.fixed_point_iters/{i}",
+                                  float(metrics[f"poisson_iters/{i}"]))
         scalars["iter_time"] = time.perf_counter() - prev_t
         scalars["forward_backward_time"] = fb_time
         if "cache_miss" in metrics:

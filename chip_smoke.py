@@ -332,6 +332,7 @@ def main(argv=None):
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
     from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
     from bliss_gnn_tpu_torch.ops.gather import lut_gather
+    from bliss_gnn_tpu_torch.ops.poisson import poisson_scale
     from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add
     from bliss_gnn_tpu_torch.ops.scatter import scatter_add
     from bliss_gnn_tpu_torch.ops.segsum import segment_sum
@@ -354,8 +355,9 @@ def main(argv=None):
     wrappers = {"scatter_add": scatter_add, "lut_gather": lut_gather,
                 "segment_sum": segment_sum, "exp3_apply": exp3_apply,
                 "row_scatter_add": row_scatter_add, "spmm": spmm,
-                "gat_attention": gat_attention}
-    step_kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")
+                "gat_attention": gat_attention, "poisson_scale": poisson_scale}
+    step_kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply",
+                    "poisson_scale")
 
     # -- phase 1: device and build ---------------------------------------
     smi = subprocess.run(
@@ -522,6 +524,8 @@ def main(argv=None):
                              seeds, smask)
     sites["k4_gathered"] = gathered_k4_slots(torch, graph, cfg, final,
                                              state.exp3_weights)
+    sites["poisson"] = poisson_inputs(torch, graph, cfg, final,
+                                      state.exp3_weights, seeds, smask)
     emit({"phase": "call_sites", "plan_block_e_caps": final.block_e_caps,
           "k4_gathered_slots_s4": int(sites["k4_gathered"][0].numel()),
           "k4_gathered_max_repeats": sites["k4_gathered"][3],
@@ -726,6 +730,32 @@ def call_site_inputs(torch, graph, cfg, plan, exp3, seeds, smask, seed=5):
                dsts_with_edges0=int((deg > 0).sum()),
                max_in_degree_out=int(blocks[-1].in_degrees().max()))
     return out
+
+
+def poisson_inputs(torch, graph, cfg, plan, exp3, seeds, smask, seed=5):
+    """The Poisson fixed point's input at the input-most layer, as the
+    sampler hands it over in one more sampled step on ``plan``: (prob,
+    candidates, num, eps, iters), the tensors copied."""
+    from types import SimpleNamespace
+
+    from bliss_gnn_tpu_torch.sampling import samplers
+
+    seen = []
+    kernel = samplers.poisson_scale
+
+    def record(prob, cand, num, eps, iters):
+        seen.append((prob.clone(), SimpleNamespace(
+            mask=cand.mask.clone(), is_seed=cand.is_seed.clone(),
+            n=cand.n.clone()), num, eps, iters))
+        return kernel(prob, cand, num, eps, iters)
+
+    gen = torch.Generator(device=seeds.device).manual_seed(seed)
+    samplers.poisson_scale = record
+    try:
+        samplers.sample_blocks(graph, cfg, plan, gen, seeds, smask, exp3)
+    finally:
+        samplers.poisson_scale = kernel
+    return seen[-1]  # layers are sampled output layer first
 
 
 def gathered_k4_slots(torch, graph, cfg, plan, exp3, n_ranks=4, seed=5):
@@ -1819,7 +1849,8 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
     CUDA-graph replays. ``by_shape``: K1's and K3's main-path launches by
     route and shape. K3 and K4 also at f32, the precision phase's
     (``prec_launches``: K4's f32-route launches; ``k3_f32_by_shape``: K3's
-    launches in the f32 SAGE run)."""
+    launches in the f32 SAGE run). The Poisson fixed point at the
+    input-most layer's candidates, ``sites["poisson"]``."""
     from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply, exp3_apply_plain
     from bliss_gnn_tpu_torch.ops.gather import (
@@ -2179,7 +2210,60 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
         max_ulps=ulps, repeat_bitwise=True, **{f"bitwise_{k}": v
                                                 for k, v in same.items()}))
     del st0, st_k, st_k2, st_o, st_p, st_c
+    rows.append(poisson_row(torch, sites["poisson"],
+                            launches["poisson_scale"]))
     return rows
+
+
+def poisson_row(torch, inputs, launches):
+    """The Poisson fixed point (``ops/poisson.py``) on the main path's
+    input-most candidates ``inputs`` against its plain version on the same
+    card tensors: p at f32 tolerance, the iteration count within one (a sum
+    on ``eps`` may take one more rescaling, which moves c by under 1 -
+    eps), the same bits on two calls. The bound reads the candidates once
+    (q f32, mask and is_seed bool) and writes p; an iteration's multiply,
+    min and add on each candidate."""
+    from bliss_gnn_tpu_torch.ops.poisson import (
+        poisson_route,
+        poisson_scale,
+        poisson_scale_plain,
+    )
+
+    prob, cand, num, eps, iters = inputs
+    c_cap, n = prob.shape[0], int(cand.n)
+
+    def call():
+        return poisson_scale(prob, cand, num, eps, iters)
+
+    def plain():
+        return poisson_scale_plain(prob, cand, num, eps, iters)
+
+    (p, it), (p2, it2), (pp, itp) = call(), call(), plain()
+    it, itp = int(it), int(itp)
+    rtol = 1e-5 if it == itp else 2 * (1 - eps) + 1e-5
+    err = (p - pp).abs().max().item()
+    close = torch.allclose(p, pp, rtol=rtol, atol=1e-7, equal_nan=True)
+    bitwise = torch.equal(p, p2) and it == int(it2)
+    if not close or abs(it - itp) > 1 or not bitwise:
+        fail(f"poisson_scale at {c_cap} candidates: allclose {close} (max "
+             f"abs err {err}), iterations {it} against the plain "
+             f"version's {itp}, two calls bitwise {bitwise}")
+    ctas, in_smem = poisson_route(c_cap)
+    ran = min(it + 1, iters)
+    return kernel_row(
+        "poisson_scale", launches, "poisson_scale.cu",
+        "none (the JAX package leaves the loop to XLA: "
+        "bliss_gnn_tpu/sampling/samplers.py:335 _poisson_scale)", err,
+        f"rtol {rtol:g}, atol 1e-7; iterations within 1",
+        time_ms(call, 20, torch), time_ms(plain, 3, torch), None,
+        c_cap * 10, ran * n * 3,
+        device_ms=device_time_ms(call, torch),
+        plain_device_ms=device_time_ms(plain, torch, reps=2, replays=5),
+        host_us=host_us(call, torch, calls=200),
+        iterations=it, plain_iterations=itp, iteration_budget=iters,
+        bitwise_two_calls=bitwise, cluster_blocks=ctas,
+        slice_in_shared_memory=in_smem,
+        shape=f"{c_cap} f32 candidates ({n} valid), num {num}, eps {eps}")
 
 
 # -- precision: f32 compute, f32 arm weights, bf16 parameters ------------------
@@ -2494,7 +2578,7 @@ def trainer_phase(torch, dev, host_graph, n_classes, wrappers, smi_line,
     sync(dev)
     final_s = time.perf_counter() - t0
     kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply",
-               "spmm")
+               "poisson_scale", "spmm")
     launches = {k: wrappers[k].launches for k in kernels}
     captures = tsteps._Replay.captures - captures0
     series = read_series(tr.run_dir)
@@ -3066,7 +3150,8 @@ def uva_trainer_phase(torch, dev, wrappers, smi_line, workdir,
     ``cache_miss`` series, the step ms (all, the pilot's and the replayed
     steps'), the captures, the validation seconds, ``final_eval``'s
     seconds and its host and device parts, the peak device memory. Gates:
-    no features in the device graph; K1-K4 and K6 launched; on the card
+    no features in the device graph; K1-K4, the Poisson fixed point and
+    K6 launched; on the card
     the halves captured once a plan (4 graphs: the train and validation
     samples, the train and eval halves; a widen makes new ones); the UVA
     logits within 1e-2 x max|logit| of ``layerwise_inference`` (K6) on
@@ -3113,7 +3198,7 @@ def uva_trainer_phase(torch, dev, wrappers, smi_line, workdir,
         ttrainer.layerwise_inference_uva = plain
     launches = {k: wrappers[k].launches for k in
                 ("scatter_add", "lut_gather", "segment_sum", "exp3_apply",
-                 "spmm")}
+                 "poisson_scale", "spmm")}
     peak = torch.cuda.max_memory_allocated() if cuda else None
     series = read_series(tr.run_dir)
     fb = [v * 1e3 for _, v in series["forward_backward_time"]]

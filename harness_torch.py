@@ -230,6 +230,7 @@ def kernel_wrappers():
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
     from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
     from bliss_gnn_tpu_torch.ops.gather import lut_gather
+    from bliss_gnn_tpu_torch.ops.poisson import poisson_scale
     from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add
     from bliss_gnn_tpu_torch.ops.scatter import scatter_add
     from bliss_gnn_tpu_torch.ops.segsum import segment_sum
@@ -238,7 +239,7 @@ def kernel_wrappers():
     return {"scatter_add": scatter_add, "lut_gather": lut_gather,
             "segment_sum": segment_sum, "exp3_apply": exp3_apply,
             "row_scatter_add": row_scatter_add, "spmm": spmm,
-            "gat_attention": gat_attention}
+            "gat_attention": gat_attention, "poisson_scale": poisson_scale}
 
 
 def reset_counts(wrappers):

@@ -1,6 +1,7 @@
-"""The port's seven CUDA kernels against their plain PyTorch versions, on
-the card. A CUDA kernel has no CPU mode, so without a GPU these tests skip;
-run them on one with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+"""The port's CUDA kernels (K1-K7 and the sampler's Poisson fixed point)
+against their plain PyTorch versions, on the card. A CUDA kernel has no
+CPU mode, so without a GPU these tests skip; run them on one with
+``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import pytest
 import torch
@@ -20,6 +21,11 @@ from bliss_gnn_tpu_torch.ops.gather import (
     lut_gather_multi,
     lut_gather_multi_plain,
     lut_gather_plain,
+)
+from bliss_gnn_tpu_torch.ops.poisson import (
+    poisson_route,
+    poisson_scale,
+    poisson_scale_plain,
 )
 from bliss_gnn_tpu_torch.ops.rowscatter import (
     row_scatter_add,
@@ -1286,6 +1292,130 @@ def test_repeated_seeds_sample_the_same_blocks_on_the_card(dev):
     for other in got[1:]:
         for a, b in zip(got[0], other):
             assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _poisson_case(dev, c_cap, dense, case="random", seed=0):
+    """A layer's candidates as the sampler hands them to the fixed point:
+    dense (position = node id, mask = positive probability or seed) or
+    compact (the candidates packed first), a skewed probability, 1 % seeds;
+    ``case`` bends it to an edge of the rule."""
+    from types import SimpleNamespace
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    num = 4096 if c_cap > 100_000 else 256
+    iters, eps = 50, 0.9999
+    # a heavy tail: the fixed point saturates the head and rescales a while
+    prob = 1e-4 / (torch.rand(c_cap, generator=g, device=dev) + 1e-4)
+    pick = torch.rand(c_cap, generator=g, device=dev)
+    if dense:
+        prob = torch.where(pick < 0.3, prob, 0.0)
+        is_seed = (pick < 0.003)
+        mask = (prob > 0) | is_seed
+    else:
+        mask = torch.arange(c_cap, device=dev) < int(0.7 * c_cap)
+        is_seed = mask & (pick < 0.01)
+    if case == "few_candidates":
+        mask &= torch.arange(c_cap, device=dev) < num // 2
+    elif case == "zero_probs":
+        prob = torch.zeros_like(prob)
+    elif case == "out_of_iterations":
+        # a head that saturates at 1, a tail that needs many rescalings
+        prob = torch.where(mask, 1e-7, 0.0)
+        head = torch.nonzero(mask).squeeze(1)[:num - 2]
+        prob[head] = 0.5
+        iters = 3
+    elif case == "nan":
+        prob[torch.nonzero(mask).squeeze(1)[:3]] = float("nan")
+    prob = torch.where(mask, prob, 0.0)
+    cand = SimpleNamespace(mask=mask, is_seed=is_seed & mask,
+                           n=mask.sum(dtype=torch.int32))
+    return prob, cand, num, eps, iters
+
+
+def _assert_poisson_close(got, want, eps):
+    """p to f32 rounding of the sum's order, the count within one; where
+    the counts differ a sum sat on ``eps`` and one more rescaling moved c by
+    under 1 - eps."""
+    (p, it), (p_want, it_want) = got, want
+    assert p.dtype == torch.float32 and it.dtype == torch.int32
+    assert abs(int(it) - int(it_want)) <= 1
+    rtol = 1e-5 if int(it) == int(it_want) else 2 * (1 - eps) + 1e-5
+    torch.testing.assert_close(p, p_want, rtol=rtol, atol=1e-7,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("c_cap", [4_096, 233_088, 900_000, 2_500_000])
+def test_poisson_scale_kernel(dev, c_cap, dense):
+    """One block, a cluster of 16 in shared memory (at 900,000 candidates
+    near the 229,376 bytes a block may hold), and the streamed route,
+    against the plain version on the card; two calls give the same bits."""
+    prob, cand, num, eps, iters = _poisson_case(dev, c_cap, dense)
+    before = poisson_scale.launches
+    got = poisson_scale(prob, cand, num, eps, iters)
+    assert poisson_scale.launches == before + 1
+    want = poisson_scale_plain(prob, cand, num, eps, iters)
+    assert 0 < int(want[1]) < iters
+    _assert_poisson_close(got, want, eps)
+    again = poisson_scale(prob, cand, num, eps, iters)
+    assert torch.equal(again[0], got[0]) and int(again[1]) == int(got[1])
+
+
+@pytest.mark.parametrize("c_cap", [4_096, 233_088, 900_000, 2_500_000])
+@pytest.mark.parametrize("case", ["few_candidates", "zero_probs",
+                                  "out_of_iterations", "nan"])
+def test_poisson_scale_kernel_edges(dev, case, c_cap):
+    """n <= num (every candidate 1), s = 0 (seeds 1, the rest 0, no hit),
+    a budget too short to reach eps, a NaN probability (it spreads as
+    torch.clamp spreads it): the kernel as the plain version."""
+    prob, cand, num, eps, iters = _poisson_case(dev, c_cap, True, case)
+    got = poisson_scale(prob, cand, num, eps, iters)
+    want = poisson_scale_plain(prob, cand, num, eps, iters)
+    _assert_poisson_close(got, want, eps)
+    p, it = got
+    assert torch.equal(p[cand.is_seed], torch.ones_like(p[cand.is_seed]))
+    assert not bool(p[~cand.mask].any())
+    if case == "few_candidates":
+        assert bool((p[cand.mask] == 1).all())
+    if case in ("zero_probs", "out_of_iterations", "nan"):
+        assert int(it) == int(want[1]) == iters
+    if case == "zero_probs":
+        assert torch.equal(p, cand.is_seed.to(torch.float32))
+
+
+def test_poisson_scale_replays_in_a_cuda_graph(dev):
+    """Captured, the kernel is one node of the graph; a replay equals the
+    eager call, and follows new probabilities written into the input."""
+    import ctypes
+
+    prob, cand, num, eps, iters = _poisson_case(dev, 233_088, True)
+    assert poisson_route(prob.shape[0]) == (16, True)
+    eager = poisson_scale(prob, cand, num, eps, iters)
+    static = prob.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        poisson_scale(static, cand, num, eps, iters)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = poisson_scale.launches
+    with torch.cuda.graph(graph):
+        p, it = poisson_scale(static, cand, num, eps, iters)
+    assert poisson_scale.launches == before + 1
+    nodes = ctypes.c_size_t(0)
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    assert libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                   None, ctypes.byref(nodes)) == 0
+    assert nodes.value == 1
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(p, eager[0]) and int(it) == int(eager[1])
+    static.mul_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    again = poisson_scale(static, cand, num, eps, iters)
+    assert torch.equal(p, again[0]) and int(it) == int(again[1])
 
 
 def _four_card_worker():

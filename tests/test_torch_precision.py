@@ -359,7 +359,10 @@ def _assert_step(new_j, m_j, state_t, m_t, name, rtol, param_atol,
                  exp3_rtol):
     import jax
 
-    assert set(m_t) == set(m_j)
+    # the port's step adds each layer's Poisson fixed-point iteration count
+    n_layers = sum(k.startswith("num_edges/") for k in m_j)
+    assert set(m_t) == set(m_j) | {f"poisson_iters/{l}"
+                                   for l in range(n_layers)}
     for k in m_j:
         if k not in ("train_loss", "f1"):
             assert int(m_t[k]) == int(m_j[k]), k

@@ -206,7 +206,9 @@ def _assert_same_sample(j, t):
                 np.testing.assert_allclose(
                     _np(getattr(a, f)), np.asarray(getattr(b, f)),
                     rtol=1e-5, atol=1e-7, err_msg=f"layer {layer} {f}")
-    assert set(st) == set(sj)
+    # the port's sampler stats add each layer's fixed-point iteration count
+    assert set(st) == set(sj) | {f"poisson_iters/{l}"
+                                 for l in range(len(bt))}
     for k in sj:
         assert int(st[k]) == int(sj[k]), k
     np.testing.assert_array_equal(_np(xt), _np(xj))
