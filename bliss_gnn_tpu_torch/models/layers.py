@@ -30,6 +30,7 @@ from bliss_gnn_tpu_torch.ops.segment import (
     segment_count,
 )
 from bliss_gnn_tpu_torch.sampling.block import Block
+from bliss_gnn_tpu_torch.utils import spans
 
 
 def _linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -159,7 +160,9 @@ class GATv2Conv(nn.Module):
     no edge-weight multiply (the reference comments it out).
 
     Per-edge tensors stay 2-D [E, H*O], so the message aggregation and the
-    two gather backwards are [E, H*O] row sums: K5 at H*O = 1024."""
+    two gather backwards are [E, H*O] row sums: K5 at H*O = 1024. The
+    attention on the projected rows, through the aggregation, is the
+    device span ``gat.attend`` (``utils/spans.py``)."""
 
     def __init__(self, in_feats: int, out_feats: int, num_heads: int,
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
@@ -196,21 +199,24 @@ class GATv2Conv(nn.Module):
             h_src = dropout(h_src, self.feat_drop, generator)
         h_dst = h_src[:n_dst]
         feat2 = _linear(h_src, self.fc_src.weight)  # [n_src, H*O]
-        nv = block.n_valid_edges()
-        el2 = gather_rows(feat2, block.e_src, feat2.shape[0], n_valid=nv)
-        er2 = gather_rows(feat2[:n_dst], torch.clamp(block.e_dst, 0, n_dst - 1),
-                          n_dst, n_valid=nv, ids_sorted=True)
-        el = el2.reshape(-1, H, O)
-        e_full = F.leaky_relu(el + er2.reshape(-1, H, O), self.negative_slope)
-        e = (e_full * self.attn.to(self.dtype)).sum(dim=-1)  # [E, H]
-        a = edge_softmax(e, block.e_dst, n_dst, block.e_mask, n_valid=nv,
-                         ids_sorted=True)
-        if self.training:
-            a = dropout(a, self.attn_drop, generator)
-        msg2 = (el * a[..., None].to(self.dtype)).reshape(-1, H * O)
-        rst = masked_segment_sum(msg2, block.e_dst, n_dst, block.e_mask,
-                                 n_valid=nv, ids_sorted=True
-                                 ).reshape(n_dst, H, O)
+        with spans.device_span("gat.attend"):
+            nv = block.n_valid_edges()
+            el2 = gather_rows(feat2, block.e_src, feat2.shape[0], n_valid=nv)
+            er2 = gather_rows(feat2[:n_dst],
+                              torch.clamp(block.e_dst, 0, n_dst - 1), n_dst,
+                              n_valid=nv, ids_sorted=True)
+            el = el2.reshape(-1, H, O)
+            e_full = F.leaky_relu(el + er2.reshape(-1, H, O),
+                                  self.negative_slope)
+            e = (e_full * self.attn.to(self.dtype)).sum(dim=-1)  # [E, H]
+            a = edge_softmax(e, block.e_dst, n_dst, block.e_mask, n_valid=nv,
+                             ids_sorted=True)
+            if self.training:
+                a = dropout(a, self.attn_drop, generator)
+            msg2 = (el * a[..., None].to(self.dtype)).reshape(-1, H * O)
+            rst = masked_segment_sum(msg2, block.e_dst, n_dst, block.e_mask,
+                                     n_valid=nv, ids_sorted=True
+                                     ).reshape(n_dst, H, O)
         if self.residual:
             res = h_dst if self.res_fc is None else _linear(
                 h_dst, self.res_fc.weight)

@@ -200,12 +200,15 @@ class CapacityPlan:
                                    block_e_caps=tuple(be))
 
     def widen(self, factor: float = 1.5, align: int = 128,
-              frontier: bool = False) -> "CapacityPlan":
-        """Grow the block-edge caps (and optionally the frontier caps) by
-        ``factor`` after post-refit overflow."""
+              frontier: bool = False, blocks: bool = True
+              ) -> "CapacityPlan":
+        """Grow the block-edge caps (``blocks``, as the JAX package always
+        does) and the frontier caps (``frontier``) by ``factor`` after
+        post-refit overflow."""
         fr = (tuple(_round_up(int(c * factor), align)
                     for c in self.frontier_caps)
               if frontier else self.frontier_caps)
-        be = tuple(min(_round_up(int(c * factor), align), f)
-                   for c, f in zip(self.block_e_caps, fr))
+        be = (tuple(min(_round_up(int(c * factor), align), f)
+                    for c, f in zip(self.block_e_caps, fr))
+              if blocks else self.block_e_caps)
         return dataclasses.replace(self, frontier_caps=fr, block_e_caps=be)

@@ -503,6 +503,27 @@ def _calculate_alpha(graph: DeviceGraph, cfg: SamplerConfig, block: Block,
     return torch.where(block.e_mask, alpha, 0.0)
 
 
+# a dst's head-mean logits cancel when |sum a_ij| is under this share of
+# sum |a_ij|: a bf16 logit's rounding (2^-8 of it) can then flip the sign
+# of the sum, and so of every alpha of the dst
+ALPHA_CANCEL_SHARE = 2.0 ** -8
+
+
+def gat_alpha_cancel(block: Block, a_ij: torch.Tensor) -> torch.Tensor:
+    """The kept edges of ``block`` whose dst's GAT logits cancel
+    (``ALPHA_CANCEL_SHARE``): an int32 count, on the device, no sync."""
+    n = block.n_dst_cap
+    nv = block.n_valid_edges()
+    a = a_ij.to(torch.float32)
+    a_sum, abs_sum = (masked_segment_sum(x, block.e_dst, n, block.e_mask,
+                                         n_valid=nv, ids_sorted=True)
+                      for x in (a, a.abs()))
+    cancel = a_sum.abs() < ALPHA_CANCEL_SHARE * abs_sum
+    on_edge = lut_gather(cancel, torch.clamp(block.e_dst, 0, n - 1),
+                         n_valid=nv)
+    return (on_edge & block.e_mask).sum(dtype=torch.int32)
+
+
 def _rewards_and_delta(graph: DeviceGraph, cfg: SamplerConfig, block: Block,
                        alpha: torch.Tensor,
                        embed_norm: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,13 @@ Device marks (``utils/spans.py``, off by default) time a train step's
 phases on the card inside the graph: ``step.sample`` (``sample_blocks``),
 ``step.model`` (the feature and label gathers, forward, loss, backward,
 the gradient mean, Adam), ``step.bandit`` (the EXP3 rewards, the delta
-sync, K4), with ``step.collective`` around the mesh's collectives; a
-validation batch's ``eval.sample`` and ``eval.model``. A train step's
+sync, K4), with ``step.collective`` around the mesh's collectives,
+``model.backward`` around the backward pass and, in a GATv2 model,
+``gat.attend`` around each layer's attention (``models/layers.py``); a
+validation batch's ``eval.sample`` and ``eval.model``. With marks on, a
+GATv2 bandit step also returns ``gat_alpha_cancel/<l>``, the kept edges
+of layer l whose reward's logit sum cancels
+(``samplers.gat_alpha_cancel``). A train step's
 stamps join its metrics vector (``_pack``); off, the step and its graph
 are as they were without them.
 """
@@ -65,6 +70,7 @@ from bliss_gnn_tpu_torch.sampling.samplers import (
     SamplerConfig,
     apply_exp3_deltas,
     exp3_edge_deltas,
+    gat_alpha_cancel,
     sample_blocks,
 )
 from bliss_gnn_tpu_torch.train.metrics import F1State, f1_update
@@ -305,13 +311,15 @@ def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
         logits, aux = model(blocks, x, generator=state.generator)
         loss = cross_entropy_loss(logits, labels, dst_mask, multilabel)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with spans.device_span("model.backward"):
+            loss.backward()
         if mesh is not None:
             with spans.device_span("step.collective"):
                 pmean_grads(model.parameters(), mesh)
         state.optimizer.step()
         spans.mark("step.model")
 
+        cancel = {}
         if sampler_cfg.is_bandit and not sampler_cfg.exp3_freeze:
             # unnormalised by default: every consumer renormalises per dst
             deltas = exp3_edge_deltas(graph, sampler_cfg, blocks,
@@ -322,6 +330,11 @@ def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
             storage.apply_deltas(state.exp3_weights, deltas, exp3_normalize,
                                  max_repeats=1 if mesh is None else mesh.size)
             spans.mark("step.bandit")
+            if sampler_cfg.model == "gat" and spans.marks_enabled():
+                # tracing's own work, after the bandit's interval
+                cancel = {f"gat_alpha_cancel/{l}": gat_alpha_cancel(b, a)
+                          for l, (b, a) in enumerate(zip(blocks,
+                                                         aux["a_ijs"]))}
         f1 = f1_update(F1State.zero(x.device), logits.detach(), labels,
                        dst_mask, multilabel)
         return {
@@ -330,6 +343,7 @@ def _make_train_fn(graph: DeviceGraph, sampler_cfg: SamplerConfig,
             # the JAX step's key; K4 skips no update, so it is always 0
             "exp3_apply_overflow": 0,
             **_block_count_metrics(blocks),
+            **cancel,
         }
 
     return train_fn

@@ -407,8 +407,8 @@ class Trainer:
             deg_std=float(indeg.std()), max_degree=self._max_degree)
         self._refit_done = False
         self._refit_max: Dict[str, float] = {}
-        self._overflow_after_refit = False
         self._frontier_overflow_after_refit = False
+        self._block_overflow_after_refit = False
         if init_state:
             opt, sched = make_optimizer(
                 self.model.parameters(), cfg.lr, self.steps_per_epoch,
@@ -682,6 +682,9 @@ class Trainer:
                 if f"poisson_iters/{i}" in metrics:
                     spans.counter(f"sampler.fixed_point_iters/{i}",
                                   float(metrics[f"poisson_iters/{i}"]))
+                if f"gat_alpha_cancel/{i}" in metrics:
+                    spans.counter(f"bandit.alpha_cancel/{i}",
+                                  float(metrics[f"gat_alpha_cancel/{i}"]))
         scalars["iter_time"] = time.perf_counter() - prev_t
         scalars["forward_backward_time"] = fb_time
         if "cache_miss" in metrics:
@@ -692,9 +695,10 @@ class Trainer:
                 # widen only the caps widen() can grow
                 if self._refit_done and ("frontier_overflow" in k
                                          or "block_edge_overflow" in k):
-                    self._overflow_after_refit = True
                     if "frontier_overflow" in k:
                         self._frontier_overflow_after_refit = True
+                    else:
+                        self._block_overflow_after_refit = True
             elif "frontier_edges" in k or "n_block_edges_true" in k:
                 self._refit_max[k] = max(self._refit_max.get(k, 0.0),
                                          float(v))
@@ -702,7 +706,8 @@ class Trainer:
 
     def _maybe_capacity_refit(self):
         """Tightens the plan to the measured maxima after ``refit_after``
-        steps; widens it by 1.5x if a tightened cap overflows later."""
+        steps; widens the caps of the kind that overflows later (frontier
+        or block edges) by 1.5x."""
         cfg = self.cfg
         if cfg.refit_after <= 0:
             return
@@ -727,11 +732,17 @@ class Trainer:
                 spans.counter("trainer.refits")
                 with spans.span("trainer.rebuild"):
                     self._rebuild_steps()
-        elif self._overflow_after_refit:
+        elif (self._frontier_overflow_after_refit
+              or self._block_overflow_after_refit):
+            # only the kind of cap that overflowed grows: an output seed's
+            # in-edges overflow the frontier while the kept edges stay in
+            # their caps, and every block-edge slot is padded work a step
+            # (GATv2's [E, H*O] passes)
             self.plan = self.plan.widen(
-                1.5, frontier=self._frontier_overflow_after_refit)
-            self._overflow_after_refit = False
+                1.5, frontier=self._frontier_overflow_after_refit,
+                blocks=self._block_overflow_after_refit)
             self._frontier_overflow_after_refit = False
+            self._block_overflow_after_refit = False
             self.n_widens += 1
             spans.counter("trainer.widens")
             with spans.span("trainer.rebuild"):
