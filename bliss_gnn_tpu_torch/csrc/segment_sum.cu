@@ -42,6 +42,11 @@
 // shape on an H100 a block of 4 warps took 0.0043 ms, of 8 warps 0.0048,
 // one warp per output row 0.0069: tools/kernel_probe.py k3.)
 //
+// The sorted route also takes a permutation: position r reads payload row
+// perm[r] (row r when perm is null). That is the unsorted route that gives
+// the same bits on every call: K5's counting sort (csrc/row_scatter.cu)
+// orders the ids first, stably, and this reduce walks them in that order.
+//
 // Unsorted ids (the gather backward into the src table): f32 atomics into a
 // scratch [S, Fp], Fp = F rounded up to 4 (after a memset), then a cast
 // kernel of its own. One warp per row, each lane owning four contiguous
@@ -167,10 +172,12 @@ __device__ __forceinline__ void zero_rows(T* __restrict__ out, int64_t lo,
 //
 // One warp's tile of rows [r0, r0 + 64) of the valid prefix [0, nv): the
 // tile's ids and its neighbours' are loaded at once, then the rows in
-// batches of 8, all loads of a batch in flight.
+// batches of 8, all loads of a batch in flight. Position r reads payload
+// row perm[r] (r when perm is null).
 template <typename T, int VEC>
 __device__ __forceinline__ void segsum_tile(
-    const T* __restrict__ data, const int32_t* __restrict__ ids, int64_t r0,
+    const T* __restrict__ data, const int32_t* __restrict__ ids,
+    const int32_t* __restrict__ perm, int64_t r0,
     int64_t nv, int32_t f, int32_t s, T* __restrict__ out,
     int32_t* __restrict__ c_int, float* __restrict__ c_val, int64_t tile,
     int lane) {
@@ -180,11 +187,21 @@ __device__ __forceinline__ void segsum_tile(
   const int n_rows = (int)(r1 - r0);
   const int32_t key_lo = lane < n_rows ? ids[r0 + lane] : kPastEnd;
   const int32_t key_hi = 32 + lane < n_rows ? ids[r0 + 32 + lane] : kPastEnd;
+  // the tile's payload rows, shuffled out as the keys are
+  const int64_t row_lo =
+      perm != nullptr && lane < n_rows ? perm[r0 + lane] : r0 + lane;
+  const int64_t row_hi = perm != nullptr && 32 + lane < n_rows
+                             ? perm[r0 + 32 + lane]
+                             : r0 + 32 + lane;
   const int32_t key_before = r0 > 0 ? ids[r0 - 1] : kPastEnd;
   const int32_t next_key = r1 < nv ? ids[r1] : kPastEnd;
   auto row_key = [&](int j) {  // j uniform across the warp
     return j < 32 ? __shfl_sync(kFull, key_lo, j)
                   : __shfl_sync(kFull, key_hi, j - 32);
+  };
+  auto row_at = [&](int j) {  // j uniform across the warp
+    return j < 32 ? __shfl_sync(kFull, row_lo, j)
+                  : __shfl_sync(kFull, row_hi, j - 32);
   };
   const int32_t first_key = row_key(0);
   const int32_t last_key = row_key(n_rows - 1);
@@ -243,10 +260,13 @@ __device__ __forceinline__ void segsum_tile(
     for (int jb = 0; jb < n_rows; jb += kBatch) {
       typename C::Raw raw[kBatch];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        raw[u] = (jb + u < n_rows && live)
-                     ? C::load(data + (r0 + jb + u) * f + col)
-                     : C::zero();
+      for (int u = 0; u < kBatch; ++u) {
+        const int64_t row = perm != nullptr
+                                ? row_at(jb + u < n_rows ? jb + u : 0)
+                                : r0 + jb + u;
+        raw[u] = (jb + u < n_rows && live) ? C::load(data + row * f + col)
+                                           : C::zero();
+      }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         if (jb + u < n_rows) {
@@ -267,7 +287,8 @@ __device__ __forceinline__ void segsum_tile(
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kWarps * 32)
     segsum_sorted_kernel(const T* __restrict__ data,
-                         const int32_t* __restrict__ ids, int64_t e, int32_t f,
+                         const int32_t* __restrict__ ids,
+                         const int32_t* __restrict__ perm, int64_t e, int32_t f,
                          const int32_t* __restrict__ n_valid, int32_t s,
                          T* __restrict__ out, int32_t* __restrict__ c_int,
                          float* __restrict__ c_val) {
@@ -276,7 +297,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int32_t last = nv > 0 ? ids[nv - 1] : -1;  // loaded with the tile's
   const int64_t r0 = tile * kTileRows;
   if (r0 < nv)  // the whole warp takes the tile, or none of it
-    segsum_tile<T, VEC>(data, ids, r0, nv, f, s, out, c_int, c_val, tile,
+    segsum_tile<T, VEC>(data, ids, perm, r0, nv, f, s, out, c_int, c_val, tile,
                         threadIdx.x & 31);
   // the rows after the last id (all of them when nv is 0) are empty: the
   // whole grid writes their zeros
@@ -375,11 +396,13 @@ __device__ __forceinline__ void probe_narrow(const Probe& p, int32_t key,
 // the output layer's 4,608 rows; the warps load the same probes). Warp w
 // sums rows lo + 8w + 8 kNarrowWarps k + [0, 8) in order, 8 rows' loads in
 // flight, a lane owning columns lane and lane + 32; warp 0 adds the warps'
-// sums in warp order and writes the row once, empty ones as 0.
+// sums in warp order and writes the row once, empty ones as 0. Position r
+// reads payload row perm[r] (r when perm is null).
 template <typename T>
 __global__ void __launch_bounds__(kNarrowWarps * 32)
     segsum_narrow_kernel(const T* __restrict__ data,
-                         const int32_t* __restrict__ ids, int64_t e, int32_t f,
+                         const int32_t* __restrict__ ids,
+                         const int32_t* __restrict__ perm, int64_t e, int32_t f,
                          const int32_t* __restrict__ n_valid, int32_t s,
                          T* __restrict__ out) {
   constexpr int kBatch = 8;                        // rows a warp loads at once
@@ -405,12 +428,15 @@ __global__ void __launch_bounds__(kNarrowWarps * 32)
     for (int64_t r = lo + warp * kBatch; r < hi; r += kStride) {
       float v[2][kBatch];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u)
+      for (int u = 0; u < kBatch; ++u) {
+        const int64_t row =
+            perm != nullptr && r + u < hi ? (int64_t)perm[r + u] : r + u;
 #pragma unroll
         for (int p = 0; p < 2; ++p)
           v[p][u] = r + u < hi && c + 32 * p < f
-                        ? to_f32(data[(r + u) * f + c + 32 * p])
+                        ? to_f32(data[row * f + c + 32 * p])
                         : 0.0f;
+      }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
         if (r + u < hi) {
@@ -499,7 +525,8 @@ unsigned sorted_grid(long long e, int rows) {
 // One launch of the sorted route: K = 0 the tiles (the narrow kernel when
 // VEC is 1), K = 1 the fold (VEC > 1 only)
 template <int K, typename T, int VEC>
-void launch_sorted(const void* data, const void* ids, long long e, int f,
+void launch_sorted(const void* data, const void* ids, const void* perm,
+                   long long e, int f,
                    const void* n_valid, int s, void* out, void* c_int,
                    void* c_val, cudaStream_t st) {
   const int32_t* nv = static_cast<const int32_t*>(n_valid);
@@ -508,12 +535,14 @@ void launch_sorted(const void* data, const void* ids, long long e, int f,
       if (s > 0)
         segsum_narrow_kernel<T><<<(unsigned)s, kNarrowWarps * 32, 0, st>>>(
           static_cast<const T*>(data), static_cast<const int32_t*>(ids),
-          (int64_t)e, (int32_t)f, nv, (int32_t)s, static_cast<T*>(out));
+          static_cast<const int32_t*>(perm), (int64_t)e, (int32_t)f, nv,
+          (int32_t)s, static_cast<T*>(out));
   } else if constexpr (K == 0) {
     segsum_sorted_kernel<T, VEC><<<sorted_grid(e, kTileRows), kWarps * 32, 0, st>>>(
         static_cast<const T*>(data), static_cast<const int32_t*>(ids),
-        (int64_t)e, (int32_t)f, nv, (int32_t)s, static_cast<T*>(out),
-        static_cast<int32_t*>(c_int), static_cast<float*>(c_val));
+        static_cast<const int32_t*>(perm), (int64_t)e, (int32_t)f, nv,
+        (int32_t)s, static_cast<T*>(out), static_cast<int32_t*>(c_int),
+        static_cast<float*>(c_val));
   } else {
     segsum_fold_kernel<T, VEC><<<sorted_grid(e, kTileRows), kWarps * 32, 0, st>>>(
         static_cast<const int32_t*>(c_int), static_cast<const float*>(c_val),
@@ -525,7 +554,8 @@ void launch_sorted(const void* data, const void* ids, long long e, int f,
 // and the column layout.
 template <int K>
 int launch_sorted_kind(const void* data, int dtype, const void* ids,
-                       long long e, int f, const void* n_valid, int s,
+                       const void* perm, long long e, int f,
+                       const void* n_valid, int s,
                        void* out, void* c_int, void* c_val, int vec,
                        cudaStream_t st) {
   if (n_valid == nullptr || f < 1 || (dtype != 0 && dtype != 1) ||
@@ -533,14 +563,14 @@ int launch_sorted_kind(const void* data, int dtype, const void* ids,
       (K == 1 && vec == 1))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0 && vec == 4)
-    launch_sorted<K, float, 4>(data, ids, e, f, n_valid, s, out, c_int, c_val, st);
+    launch_sorted<K, float, 4>(data, ids, perm, e, f, n_valid, s, out, c_int, c_val, st);
   else if (dtype == 0)
-    launch_sorted<K, float, 1>(data, ids, e, f, n_valid, s, out, c_int, c_val, st);
+    launch_sorted<K, float, 1>(data, ids, perm, e, f, n_valid, s, out, c_int, c_val, st);
   else if (vec == 8)
-    launch_sorted<K, __nv_bfloat16, 8>(data, ids, e, f, n_valid, s, out, c_int,
+    launch_sorted<K, __nv_bfloat16, 8>(data, ids, perm, e, f, n_valid, s, out, c_int,
                                        c_val, st);
   else
-    launch_sorted<K, __nv_bfloat16, 1>(data, ids, e, f, n_valid, s, out, c_int,
+    launch_sorted<K, __nv_bfloat16, 1>(data, ids, perm, e, f, n_valid, s, out, c_int,
                                        c_val, st);
   return (int)cudaGetLastError();
 }
@@ -618,10 +648,12 @@ extern "C" int bliss_segment_sum_cast(const void* acc, int fp, void* out,
 // scratch, c_int and c_val unused). With vec > 1 this is the first of two
 // launches: runs that cross tiles are left as f32 carry records in c_int
 // (int32 [3 * n_tiles]) and c_val (f32 [2 * n_tiles * f]), n_tiles =
-// ceil(e / 64) (at least 1), for bliss_segment_sum_fold. Returns
-// cudaGetLastError().
+// ceil(e / 64) (at least 1), for bliss_segment_sum_fold. perm (int32 [e],
+// may be null): position r sums payload row perm[r], ids[r] its key.
+// Returns cudaGetLastError().
 extern "C" int bliss_segment_sum_sorted(const void* data, int dtype,
-                                        const void* ids, long long e, int f,
+                                        const void* ids, const void* perm,
+                                        long long e, int f,
                                         const void* n_valid, int s, void* out,
                                         void* c_int, void* c_val,
                                         long long n_tiles, int vec,
@@ -629,8 +661,9 @@ extern "C" int bliss_segment_sum_sorted(const void* data, int dtype,
   const long long need = (e + kTileRows - 1) / kTileRows;
   if (vec > 1 && n_tiles < (need < 1 ? 1 : need))
     return (int)cudaErrorInvalidValue;
-  return launch_sorted_kind<0>(data, dtype, ids, e, f, n_valid, s, out, c_int,
-                               c_val, vec, static_cast<cudaStream_t>(stream));
+  return launch_sorted_kind<0>(data, dtype, ids, perm, e, f, n_valid, s, out,
+                               c_int, c_val, vec,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // Second launch of the sorted route for vec > 1: folds each run of rows
@@ -640,7 +673,8 @@ extern "C" int bliss_segment_sum_fold(const void* c_int, const void* c_val,
                                       int dtype, long long e, int f,
                                       const void* n_valid, void* out, int vec,
                                       void* stream) {
-  return launch_sorted_kind<1>(nullptr, dtype, nullptr, e, f, n_valid, 0, out,
+  return launch_sorted_kind<1>(nullptr, dtype, nullptr, nullptr, e, f, n_valid,
+                               0, out,
                                const_cast<void*>(c_int),
                                const_cast<void*>(c_val), vec,
                                static_cast<cudaStream_t>(stream));

@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bliss_gnn_tpu_torch.ops import gat_edge
 from bliss_gnn_tpu_torch.ops.segment import (
-    edge_softmax,
     gather_rows,
     masked_segment_sum,
     segment_count,
@@ -156,13 +156,19 @@ class GATv2Conv(nn.Module):
     (no bias), logits e = sum_O(leakyrelu(el_src + er_dst) * attn) per
     head, edge softmax per dst per head, message el_src * a, optional
     residual and activation. Returns ``(rst [n_dst, H, O], e [E, H])`` with
-    the pre-softmax logits, which the bandit's GAT reward reads. There is
+    the pre-softmax logits (0 on the slots that are not kept edges), which
+    the bandit's GAT reward reads. There is
     no edge-weight multiply (the reference comments it out).
 
-    Per-edge tensors stay 2-D [E, H*O], so the message aggregation and the
-    two gather backwards are [E, H*O] row sums: K5 at H*O = 1024. The
-    attention on the projected rows, through the aggregation, is the
-    device span ``gat.attend`` (``utils/spans.py``)."""
+    The attention from the projected rows through the aggregation is
+    ``ops/gat_edge.py``: on the card hand-written kernels over the block's
+    valid prefix, whose only [E, H*O] tensors are the rows of the message
+    aggregation and of the two row-gather backwards, each a segment sum (K5
+    at H*O = 1024); on the CPU their plain versions. The attention dropout
+    sits between its two autograd nodes. The attention is the device span
+    ``gat.attend`` and counts ``gat.edge_route/<fused|plain>`` at each call
+    that runs Python: eager ones and a CUDA graph's capture, not its
+    replays (``utils/spans.py``)."""
 
     def __init__(self, in_feats: int, out_feats: int, num_heads: int,
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
@@ -200,23 +206,16 @@ class GATv2Conv(nn.Module):
         h_dst = h_src[:n_dst]
         feat2 = _linear(h_src, self.fc_src.weight)  # [n_src, H*O]
         with spans.device_span("gat.attend"):
-            nv = block.n_valid_edges()
-            el2 = gather_rows(feat2, block.e_src, feat2.shape[0], n_valid=nv)
-            er2 = gather_rows(feat2[:n_dst],
-                              torch.clamp(block.e_dst, 0, n_dst - 1), n_dst,
-                              n_valid=nv, ids_sorted=True)
-            el = el2.reshape(-1, H, O)
-            e_full = F.leaky_relu(el + er2.reshape(-1, H, O),
-                                  self.negative_slope)
-            e = (e_full * self.attn.to(self.dtype)).sum(dim=-1)  # [E, H]
-            a = edge_softmax(e, block.e_dst, n_dst, block.e_mask, n_valid=nv,
-                             ids_sorted=True)
+            spans.counter("gat.edge_route/"
+                          + ("fused" if feat2.is_cuda else "plain"))
+            edges = (block.e_src, torch.where(block.e_mask, block.e_dst, 0),
+                     block.e_mask, block.n_valid_edges(), n_dst)
+            e, a, link = gat_edge.attention_scores(
+                feat2, self.attn.to(self.dtype), *edges, self.negative_slope)
             if self.training:
                 a = dropout(a, self.attn_drop, generator)
-            msg2 = (el * a[..., None].to(self.dtype)).reshape(-1, H * O)
-            rst = masked_segment_sum(msg2, block.e_dst, n_dst, block.e_mask,
-                                     n_valid=nv, ids_sorted=True
-                                     ).reshape(n_dst, H, O)
+            rst = gat_edge.attention_messages(feat2, a, *edges, link
+                                              ).reshape(n_dst, H, O)
         if self.residual:
             res = h_dst if self.res_fc is None else _linear(
                 h_dst, self.res_fc.weight)

@@ -15,6 +15,9 @@ kernels under them.
 - ``poisson``:       the sampler's Poisson fixed point and its epilogue,
   one launch of a thread-block cluster a layer (``csrc/poisson_scale.cu``;
   no TPU counterpart)
+- ``gat_edge``:      GATv2's per-edge attention on a sampled block and its
+  backward, over the valid prefix (``csrc/gat_edge.cu``; no TPU
+  counterpart)
 
 ``fullgraph`` holds the chunked plain versions of K6 and K7.
 

@@ -44,8 +44,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "segment_sum": {
         "bliss_segment_sum": [_P, _I, _P, _LL, _I, _P, _I, _P, _I, _P, _I,
                               _P],
-        "bliss_segment_sum_sorted": [_P, _I, _P, _LL, _I, _P, _I, _P, _P, _P,
-                                     _LL, _I, _P],
+        "bliss_segment_sum_sorted": [_P, _I, _P, _P, _LL, _I, _P, _I, _P, _P,
+                                     _P, _LL, _I, _P],
         "bliss_segment_sum_cast": [_P, _I, _P, _I, _I, _I, _P],
         "bliss_segment_sum_fold": [_P, _P, _I, _LL, _I, _P, _P, _I, _P],
     },
@@ -74,6 +74,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                 _P, _P, _P, _P]
     },
     "marks": {"bliss_mark": [_P, _P, _I, _P]},
+    "gat_edge": {
+        "bliss_gat_edge_scores": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                  _LL, _P, _P, _F, _P, _P, _P, _P, _P, _P],
+        "bliss_gat_edge_messages": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _LL,
+                                    _P, _P, _P, _P],
+        "bliss_gat_edge_msg_grad": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                    _P, _LL, _P, _P, _P, _P],
+        "bliss_gat_edge_grad": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                _LL, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P, _P],
+    },
     "poisson_scale": {
         "bliss_poisson_scale": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                 _I, _P]

@@ -106,28 +106,8 @@ def row_scatter_add(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
     if ids_sorted:
         nv = sorted_valid_arg(n_valid, dev, "row_scatter_add")
     else:
-        # counting sort of the keys; every size is the static cap's, and the
-        # number of edges placed stays on the card (offsets[S])
-        nv_in = valid_arg(n_valid, dev)
-        s = num_segments
-        counts, offsets = torch.empty((2, s + 1), dtype=torch.int32,
-                                      device=dev).unbind(0)
-        slots, keys, perm = torch.empty((3, e), dtype=torch.int32,
-                                        device=dev).unbind(0)
-        _build.check(lib.bliss_row_scatter_count(
-            ids.data_ptr(), e, _build.ptr(nv_in), s, counts.data_ptr(),
-            offsets.data_ptr(), stream), "row_scatter_add (count, scan)")
-        _count(key)
-        _build.check(lib.bliss_row_scatter_place(
-            ids.data_ptr(), e, _build.ptr(nv_in), s, offsets.data_ptr(),
-            counts.data_ptr(), slots.data_ptr(), keys.data_ptr(), stream),
-            "row_scatter_add (place)")
-        _count(key)
-        _build.check(lib.bliss_row_scatter_order(
-            offsets.data_ptr(), s, slots.data_ptr(), perm.data_ptr(), stream),
-            "row_scatter_add (order)")
-        _count(key)
-        ids, nv = keys, offsets[s:]
+        ids, perm, nv = counting_sort(ids, num_segments, n_valid,
+                                      lambda: _count(key))
     tile_rows = TILE_ROWS
     n_tiles = max(1, -(-e // tile_rows))
     c_int = torch.empty(3 * n_tiles, dtype=torch.int32, device=dev)
@@ -145,6 +125,39 @@ def row_scatter_add(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
         out.data_ptr(), code, tile_rows, stream), "row_scatter_add (fold)")
     _count(key)
     return out
+
+
+def counting_sort(ids: torch.Tensor, num_segments: int, n_valid, count):
+    """The unsorted route's counting sort of int32 ``ids`` [E] on a card:
+    (keys, perm, nv). Of the valid prefix's ids, those in [0,
+    ``num_segments``) are placed in key order, stably: position r holds
+    edge perm[r], whose id is keys[r], for r < nv (int32 [1], on the card:
+    no host read). Every size is the static cap's. Three launches, each
+    reported to ``count()``; K3's stable route takes it too."""
+    if num_segments < 1:
+        raise ValueError("counting_sort: num_segments must be positive")
+    dev, e, s = ids.device, ids.shape[0], num_segments
+    lib = _build.load("row_scatter")
+    stream = _build.stream_of(ids)
+    nv_in = valid_arg(n_valid, dev)
+    counts, offsets = torch.empty((2, s + 1), dtype=torch.int32,
+                                  device=dev).unbind(0)
+    slots, keys, perm = torch.empty((3, e), dtype=torch.int32,
+                                    device=dev).unbind(0)
+    _build.check(lib.bliss_row_scatter_count(
+        ids.data_ptr(), e, _build.ptr(nv_in), s, counts.data_ptr(),
+        offsets.data_ptr(), stream), "counting sort (count, scan)")
+    count()
+    _build.check(lib.bliss_row_scatter_place(
+        ids.data_ptr(), e, _build.ptr(nv_in), s, offsets.data_ptr(),
+        counts.data_ptr(), slots.data_ptr(), keys.data_ptr(), stream),
+        "counting sort (place)")
+    count()
+    _build.check(lib.bliss_row_scatter_order(
+        offsets.data_ptr(), s, slots.data_ptr(), perm.data_ptr(), stream),
+        "counting sort (order)")
+    count()
+    return keys, perm, offsets[s:]
 
 
 def _count(key: str) -> None:

@@ -34,14 +34,17 @@ def _mask_data(data: torch.Tensor, mask: Optional[torch.Tensor]):
 
 def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int, mask: Optional[torch.Tensor] = None,
-                       n_valid=None, ids_sorted: bool = False) -> torch.Tensor:
+                       n_valid=None, ids_sorted: bool = False,
+                       deterministic: bool = False) -> torch.Tensor:
     """Sum of ``data`` [E, ...] over segments; masked slots add zero.
 
     ``n_valid``: optional bound on the contiguous prefix holding every
     unmasked slot; the kernels skip the rest. ``ids_sorted``: the ids are
     non-decreasing on that prefix (a block's edges by dst, frontier chunks
     by owner), so K1, K3 and K5 take their sorted route (a reduce by key
-    with no sort first); it needs ``n_valid``."""
+    with no sort first); it needs ``n_valid``. ``deterministic``: a 2-D sum
+    gives the same bits on every call (K5's routes always do; K3 takes its
+    stable route for unsorted ids)."""
     if ids_sorted and n_valid is None:
         raise ValueError("masked_segment_sum: ids_sorted=True needs n_valid")
     data = _mask_data(data, mask)
@@ -50,6 +53,9 @@ def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
         raise TypeError(f"masked_segment_sum: no route for {data.dtype} "
                         f"of rank {data.dim()}")
     if data.dim() == 1:
+        if deterministic and not ids_sorted:
+            raise ValueError("masked_segment_sum: no deterministic route for "
+                             "unsorted 1-D sums")
         return scatter_add_diff(ids, data, num_segments, n_valid,
                                 ids_sorted).to(data.dtype)
     e, f = data.shape
@@ -57,7 +63,8 @@ def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
             and e >= ROW_SCATTER_MIN_ROWS):
         return row_scatter_add_diff(data, ids, num_segments, n_valid,
                                     ids_sorted, data.dtype)
-    return segment_sum_diff(data, ids, num_segments, n_valid, ids_sorted)
+    return segment_sum_diff(data, ids, num_segments, n_valid, ids_sorted,
+                            deterministic)
 
 
 def masked_segment_max(data: torch.Tensor, segment_ids: torch.Tensor,

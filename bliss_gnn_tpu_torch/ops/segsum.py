@@ -10,12 +10,18 @@ call, in two launches (tiles, then a fold of the runs that cross tiles) for
 rows of whole 16-byte vectors and in one for narrow rows (F = 41); other
 ids take a memset and float4 atomics into an f32 scratch, then a cast
 kernel: two launches (one for f32 rows of whole float4s, which accumulate
-straight into the output). ``segment_sum.launches`` adds one per kernel
+straight into the output). Float atomics add in the order the rows arrive,
+so where a sum is inexact its last bits vary from call to call; with
+``deterministic=True`` unsorted ids take the stable route instead: K5's
+counting sort of the keys (``rowscatter.counting_sort``, three launches),
+then the sorted route reading each position's row through the permutation,
+the same bits on every call. ``segment_sum.launches`` adds one per kernel
 launched; memsets are not counted.
 
-Callers are the block aggregations by dst (sorted) and, through the
-backward of ``segment.gather_rows``, the message gradient into the src
-table (unsorted).
+Callers are the block aggregations by dst (sorted), through the backward
+of ``segment.gather_rows`` the message gradient into the src table
+(unsorted), and GATv2's d_el rows into the src table (``ops/gat_edge.py``;
+stable).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from bliss_gnn_tpu_torch.ops._args import (
     sorted_valid_arg,
     valid_arg,
 )
+from bliss_gnn_tpu_torch.ops.rowscatter import counting_sort
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # edge rows per warp tile of the sorted route with rows of whole 16-byte
@@ -39,19 +46,21 @@ SORTED_TILE_ROWS = 64
 def segment_sum_plain(data: torch.Tensor, ids: torch.Tensor,
                       num_segments: int, n_valid=None,
                       ids_sorted: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: f32 accumulation, output in
-    data's dtype; ids outside [0, S) and rows past ``n_valid`` add 0. With
-    ``ids_sorted`` on a CPU tensor it checks the caller's promise."""
+    """Plain PyTorch version of the kernel: f32 accumulation (f64 for f64
+    rows, which the kernel does not take), output in data's dtype; ids
+    outside [0, S) and rows past ``n_valid`` add 0. With ``ids_sorted`` on
+    a CPU tensor it checks the caller's promise."""
     if ids_sorted:
         check_sorted(ids, n_valid, "segment_sum")
     keep = (ids >= 0) & (ids < num_segments)
     live = prefix_mask(ids.shape[0], n_valid, ids.device)
     if live is not None:
         keep &= live
-    acc = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
+    dtype = torch.promote_types(data.dtype, torch.float32)
+    acc = torch.zeros((num_segments, data.shape[1]), dtype=dtype,
                       device=data.device)
     acc.index_put_((torch.where(keep, ids, 0).long(),),
-                   data.to(torch.float32).masked_fill(~keep[:, None], 0.0),
+                   data.to(dtype).masked_fill(~keep[:, None], 0.0),
                    accumulate=True)
     return acc.to(data.dtype)
 
@@ -65,11 +74,14 @@ def _sorted_vec(data: torch.Tensor) -> int:
 
 
 def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
-                n_valid=None, ids_sorted: bool = False) -> torch.Tensor:
+                n_valid=None, ids_sorted: bool = False,
+                deterministic: bool = False) -> torch.Tensor:
     """[num_segments, F] sum of ``data`` [E, F] rows by ``ids`` [E].
 
     ``ids_sorted`` promises ids non-decreasing on the valid prefix (it
-    needs ``n_valid``); nothing on the card checks the promise."""
+    needs ``n_valid``); nothing on the card checks the promise.
+    ``deterministic``: unsorted ids take the stable route (the same bits on
+    every call) instead of the atomics; the plain version is unchanged."""
     if data.device.type == "cpu":
         return segment_sum_plain(data, ids, num_segments, n_valid, ids_sorted)
     if data.device.type != "cuda" or ids.device != data.device:
@@ -85,8 +97,16 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
     out = torch.empty((num_segments, f), dtype=data.dtype, device=data.device)
     lib = _build.load("segment_sum")
     stream = _build.stream_of(data)
-    if ids_sorted:
-        nv = sorted_valid_arg(n_valid, data.device, "segment_sum")
+    perm = None
+    if ids_sorted or deterministic:
+        key = f"{'sorted' if ids_sorted else 'stable'} {e}x{f}"
+        if ids_sorted:
+            nv = sorted_valid_arg(n_valid, data.device, "segment_sum")
+        elif num_segments < 1:
+            return out
+        else:
+            ids, perm, nv = counting_sort(ids, num_segments, n_valid,
+                                          lambda: _count(key))
         vec = _sorted_vec(data)
         # rows of 16-byte vectors carry runs across tiles to a second
         # launch; narrow rows have no carries and no scratch
@@ -98,16 +118,16 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
             c_val = torch.empty((2 * n_tiles, f), dtype=torch.float32,
                                 device=data.device)
         err = lib.bliss_segment_sum_sorted(
-            data.data_ptr(), code, ids.data_ptr(), e, f, nv.data_ptr(),
-            num_segments, out.data_ptr(), _build.ptr(c_int), _build.ptr(c_val),
-            n_tiles, vec, stream)
-        _count(f"sorted {e}x{f}")
+            data.data_ptr(), code, ids.data_ptr(), _build.ptr(perm), e, f,
+            nv.data_ptr(), num_segments, out.data_ptr(), _build.ptr(c_int),
+            _build.ptr(c_val), n_tiles, vec, stream)
+        _count(key)
         _build.check(err, "segment_sum (sorted tiles)")
         if vec > 1:
             err = lib.bliss_segment_sum_fold(
                 c_int.data_ptr(), c_val.data_ptr(), code, e, f, nv.data_ptr(),
                 out.data_ptr(), vec, stream)
-            _count(f"sorted {e}x{f}")
+            _count(key)
             _build.check(err, "segment_sum (sorted fold)")
         return out
     nv = valid_arg(n_valid, data.device)
@@ -139,6 +159,7 @@ def _count(key: str) -> None:
 
 segment_sum.launches = 0
 # the same launches by route and input shape, e.g. "sorted 150016x256"
+# (routes sorted, unsorted and stable)
 segment_sum.launches_by_shape = {}
 
 
@@ -147,21 +168,26 @@ class _SegmentSum(torch.autograd.Function):
     zero for ids outside [0, S) (they added nothing forward)."""
 
     @staticmethod
-    def forward(ctx, data, ids, num_segments, n_valid, ids_sorted):
+    def forward(ctx, data, ids, num_segments, n_valid, ids_sorted,
+                deterministic):
         ctx.save_for_backward(ids)
         ctx.num_segments = num_segments
-        return segment_sum(data, ids, num_segments, n_valid, ids_sorted)
+        return segment_sum(data, ids, num_segments, n_valid, ids_sorted,
+                           deterministic)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         keep = (ids >= 0) & (ids < ctx.num_segments)
         dmsg = g[torch.where(keep, ids, 0).long()]
-        return dmsg.masked_fill(~keep[:, None], 0), None, None, None, None
+        return (dmsg.masked_fill(~keep[:, None], 0), None, None, None, None,
+                None)
 
 
 def segment_sum_diff(data, ids, num_segments: int, n_valid=None,
-                     ids_sorted: bool = False):
+                     ids_sorted: bool = False, deterministic: bool = False):
     if data.requires_grad:
-        return _SegmentSum.apply(data, ids, num_segments, n_valid, ids_sorted)
-    return segment_sum(data, ids, num_segments, n_valid, ids_sorted)
+        return _SegmentSum.apply(data, ids, num_segments, n_valid, ids_sorted,
+                                 deterministic)
+    return segment_sum(data, ids, num_segments, n_valid, ids_sorted,
+                       deterministic)

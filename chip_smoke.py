@@ -328,7 +328,7 @@ def main(argv=None):
         multicard_main(torch, here, args.cards)
         return
     from bliss_gnn_tpu_torch.models.gnn import build_model
-    from bliss_gnn_tpu_torch.ops import _build
+    from bliss_gnn_tpu_torch.ops import _build, gat_edge
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
     from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
     from bliss_gnn_tpu_torch.ops.gather import lut_gather
@@ -355,7 +355,8 @@ def main(argv=None):
     wrappers = {"scatter_add": scatter_add, "lut_gather": lut_gather,
                 "segment_sum": segment_sum, "exp3_apply": exp3_apply,
                 "row_scatter_add": row_scatter_add, "spmm": spmm,
-                "gat_attention": gat_attention, "poisson_scale": poisson_scale}
+                "gat_attention": gat_attention, "poisson_scale": poisson_scale,
+                "gat_edge": gat_edge}
     step_kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply",
                     "poisson_scale")
 
@@ -548,18 +549,22 @@ def main(argv=None):
         plan, from fresh weights and arm weights: its phase line and
         checks; for GATv2 also its profile and one more sampled step's
         ids. Returns the trained model, the last plan, K5's launches by
-        route and shape, and those ids (None but for GATv2)."""
+        route and shape, those ids (None but for GATv2), and the rows of
+        the GATv2 edge kernels on this path's inputs (empty but for
+        GATv2)."""
         mcfg = SamplerConfig(kind=cfg.kind, fanouts=FANOUTS, model=name)
-        kernels = step_kernels + (("row_scatter_add",) if name == "gat"
-                                  else ())
+        kernels = step_kernels + (("row_scatter_add", "gat_edge")
+                                  if name == "gat" else ())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(wrappers)
         mstate, mstep, mtimes, mlog, mfinal = train(final, seed=seed,
                                                     widen=True, cfg=mcfg)
         mlaunches = {k: wrappers[k].launches for k in kernels}
-        # K5's launches by route and input shape (call site)
+        # K5's launches by route and input shape (call site); the edge
+        # kernels' by function and shape
         mby_shape = dict(row_scatter_add.launches_by_shape)
+        edge_by_shape = dict(gat_edge.launches_by_shape)
         mpeak = torch.cuda.max_memory_allocated()
         msamp_ms = []
         for _ in range(TIMED_STEPS):
@@ -576,7 +581,9 @@ def main(argv=None):
         extra = {"heads": [GAT_HEADS[0]] * (len(FANOUTS) - 1)
                  + [GAT_HEADS[1]],
                  "row_scatter_add_launches_per_step_by_shape": {
-                     k: v / n_steps for k, v in mby_shape.items()}
+                     k: v / n_steps for k, v in mby_shape.items()},
+                 "gat_edge_launches_per_step_by_shape": {
+                     k: v / n_steps for k, v in edge_by_shape.items()}
                  } if name == "gat" else {}
         emit({"phase": f"{name}_path", "steps": n_steps, **extra,
               f"{name}_step_ms": statistics.median(mtimes[WARMUP_STEPS:]),
@@ -604,7 +611,7 @@ def main(argv=None):
                         if route_launches(mby_shape, route) <= 0]
         if missing:
             fail(f"kernels not launched on the {name} path: {missing}")
-        msites = None
+        msites, mrows = None, []
         profile_steps(torch, lambda: mstep(mstate, seeds, smask),
                       statistics.median(mtimes[WARMUP_STEPS:]), smi_line,
                       model=name)
@@ -621,13 +628,17 @@ def main(argv=None):
                   "plan_block_e_caps": mfinal.block_e_caps,
                   **{k: v for k, v in msites.items()
                      if not isinstance(v, torch.Tensor)}})
+            # the edge kernels on this path's inputs: one more eager step
+            mrows = gat_edge_rows(torch, gat_edge_inputs(
+                torch, mstep, mstate, seeds, smask), edge_by_shape)
         model = mstate.model
         del mstate, mstep, mlog
         torch.cuda.empty_cache()
-        return model, mfinal, mby_shape, msites
+        return model, mfinal, mby_shape, msites, mrows
 
     # -- phase 4: the fused GATv2 and GCN steps on the final plan ---------
-    gat_model, gfinal, gby_shape, gsites = model_path("gat", seed=2)
+    gat_model, gfinal, gby_shape, gsites, edge_rows = model_path("gat",
+                                                                 seed=2)
     gcn_model, *_ = model_path("gcn", seed=3)
 
     # -- phase 4b: SAGE with DGL's per-dst neighbor sampling --------------
@@ -662,6 +673,7 @@ def main(argv=None):
     rows += wide_kernel_checks(torch, dev, gfinal, graph, indptr_np,
                                gby_shape, gsites, layer_launches,
                                prec_launches)
+    rows += edge_rows
     bench_rows = bench_kernel_rows(torch, dev, graph, indptr_np)
     rows += bench_rows
 
@@ -756,6 +768,166 @@ def poisson_inputs(torch, graph, cfg, plan, exp3, seeds, smask, seed=5):
     finally:
         samplers.poisson_scale = kernel
     return seen[-1]  # layers are sampled output layer first
+
+
+EDGE_FNS = ("edge_scores", "edge_messages", "messages_grad", "scores_grad")
+# the argument of each that is the layer's projected rows feat2
+EDGE_FEAT_ARG = {"edge_scores": 0, "edge_messages": 0, "messages_grad": 1,
+                 "scores_grad": 0}
+
+
+def gat_edge_inputs(torch, step, state, seeds, smask):
+    """The arguments of ``ops/gat_edge.py``'s four kernel functions in one
+    more eager GATv2 step (``step`` on ``state``), for layer 0 (H*O =
+    1024) and the output layer (H*O = 41): {"0": {function: args}, "out":
+    ...}. A layer's calls are told by the data pointer of its feat2."""
+    from bliss_gnn_tpu_torch.ops import gat_edge
+
+    seen = {n: [] for n in EDGE_FNS}
+    kernels = {n: getattr(gat_edge, n) for n in EDGE_FNS}
+
+    def recorder(n):
+        def rec(*args):
+            seen[n].append(args)
+            return kernels[n](*args)
+        return rec
+
+    for n in EDGE_FNS:
+        setattr(gat_edge, n, recorder(n))
+    try:
+        step(state, seeds, smask)
+        sync(seeds.device)
+    finally:
+        for n in EDGE_FNS:
+            setattr(gat_edge, n, kernels[n])
+    out = {}
+    for tag, width in (("0", GAT_HEADS[0] * HIDDEN),
+                       ("out", GAT_HEADS[1] * N_CLASSES)):
+        ptr = next(a[0].data_ptr() for a in seen["edge_scores"]
+                   if a[0].shape[1] == width)
+        out[tag] = {n: next(a for a in seen[n]
+                            if a[EDGE_FEAT_ARG[n]].data_ptr() == ptr)
+                    for n in EDGE_FNS}
+    return out
+
+
+def gat_edge_rows(torch, inputs, by_shape):
+    """The GATv2 edge kernels (``ops/gat_edge.py``: F the scores, M the
+    messages, the messages' backward, F's backward) on the GATv2 path's
+    recorded layer-0 and output-layer inputs against their plain versions
+    on the same card tensors: e, the messages' d a_drop within one bf16
+    rounding (rtol and atol of the largest value 2^-7: the same terms
+    summed in another order); a and the softmax's max and denominator
+    against the softmax of the kernel's own e (a rtol 2^-7, the max equal,
+    the denominator rtol 1e-5); the message rows bit-equal on the prefix;
+    F's backward (its rows and attn's gradient) within two roundings
+    (2^-6); slots that are not kept edges 0 in e and a. ``launches``: the
+    path's, by function and shape (``by_shape``). The bound reads feat2
+    once (its rows stay in L2), the ids and mask of every slot and each
+    function's per-edge and per-dst tensors (``tools/kernel_probe.py
+    gat-edge``'s count)."""
+    from bliss_gnn_tpu_torch.ops import gat_edge
+
+    rows = []
+    with torch.no_grad():  # attn is a parameter: nothing to trace
+        for tag, ins in inputs.items():
+            feat2, attn, e_src, ids_dst, e_mask, nv, n_dst, slope = ins[
+                "edge_scores"]
+            e_cap, ho = e_src.shape[0], feat2.shape[1]
+            size = feat2.element_size()
+            h = attn.numel() // attn.shape[-1]
+            n = int(nv)
+            live = e_mask & (torch.arange(e_cap, device=e_mask.device) < n)
+            d = torch.clamp(ids_dst, 0, n_dst - 1).long()
+            dh = d[:, None].expand(-1, h)
+
+            def close(what, got, want, rtol, atol_of_max):
+                got, want = got.float(), want.float()
+                tol = rtol * want.abs() + atol_of_max * float(want.abs().max())
+                err = (got - want).abs()
+                if bool((err > tol).any()):
+                    fail(f"gat_edge {what} at {e_cap}x{ho} differs from its "
+                         f"plain version: max abs err {float(err.max())}")
+                return float(err.max())
+
+            e, a, stats = gat_edge.edge_scores(*ins["edge_scores"])
+            errs = {"e": close("e", e, gat_edge.edge_scores_plain(
+                *ins["edge_scores"])[0], BF16_ULP, BF16_ULP)}
+            ef = torch.where(live[:, None], e.float(), -float("inf"))
+            m = torch.full((n_dst, h), -float("inf"), device=e.device
+                           ).scatter_reduce(0, dh, ef, "amax")
+            ex = torch.where(live[:, None], torch.exp(
+                ef - torch.where(torch.isfinite(m), m, 0.0)[d]), 0.0)
+            s = torch.zeros((n_dst, h), device=e.device).scatter_add(0, dh, ex)
+            tiny = torch.finfo(torch.float32).tiny
+            a_want = ex / torch.clamp(s, min=tiny)[d]
+            errs["a"] = close("a", a, a_want, BF16_ULP, 0.0)
+            has = torch.isfinite(m[:, 0])
+            if not torch.equal(stats[has][..., 0], m[has]):
+                fail(f"gat_edge softmax max at {e_cap}x{ho} differs")
+            errs["denominator"] = close("the softmax denominator",
+                                        stats[has][..., 1], s[has], 1e-5, 0.0)
+            if bool(e[~live].any()) or bool(a[~live].any()):
+                fail(f"gat_edge at {e_cap}x{ho}: e or a nonzero off the kept "
+                     f"edges")
+            msg = gat_edge.edge_messages(*ins["edge_messages"])
+            if not torch.equal(msg[:n], gat_edge.edge_messages_plain(
+                    *ins["edge_messages"])[:n]):
+                fail(f"gat_edge messages at {e_cap}x{ho} differ from their "
+                     f"plain version")
+            errs["messages"] = 0.0
+            errs["d_a"] = close("d a_drop", gat_edge.messages_grad(
+                *ins["messages_grad"]), gat_edge.messages_grad_plain(
+                *ins["messages_grad"]), BF16_ULP, BF16_ULP)
+            got = gat_edge.scores_grad(*ins["scores_grad"])
+            want = gat_edge.scores_grad_plain(*ins["scores_grad"])
+            for what, x, y in zip(("d_el", "d_er", "d_attn"), got, want):
+                if what != "d_attn":
+                    x, y = x[:n], y[:n]
+                errs[what] = close(what, x, y, 2 * BF16_ULP, 2 * BF16_ULP)
+            del e, a, stats, msg, got, want, ef, m, ex, s, a_want
+            g = ins["messages_grad"][0]
+            feat_bytes = feat2.shape[0] * ho * size + e_cap * 9
+            calls = (
+                ("fwd", "edge_scores", "e, a and the softmax's max and "
+                 "denominator", errs["e"],
+                 2 * e_cap * h * size + n_dst * h * 8),
+                ("msg", "edge_messages", "message rows bit-equal", 0.0,
+                 e_cap * h * size + n * ho * size),
+                ("msg_bwd", "messages_grad", "rtol, atol 2^-7 of the largest",
+                 errs["d_a"], n_dst * ho * size + e_cap * h * size),
+                ("bwd", "scores_grad", "rtol, atol 2^-6 of the largest",
+                 max(errs["d_el"], errs["d_er"], errs["d_attn"]),
+                 g.shape[0] * ho * size + 3 * e_cap * h * size + n_dst * h * 8
+                 + 2 * n * ho * size + ho * size))
+            for key, fn_name, tol, err, io_bytes in calls:
+                kernel = getattr(gat_edge, fn_name)
+                plain = getattr(gat_edge, fn_name + "_plain")
+                args = ins[fn_name]
+                before = gat_edge.launches
+                kernel(*args)
+                per_call = gat_edge.launches - before
+                launches = sum(v for k, v in by_shape.items()
+                               if k.startswith(key + " ")
+                               and k.endswith(f"x{ho}"))
+                rows.append(kernel_row(
+                    f"gat_edge[{key} {e_cap}x{ho}]", launches, "gat_edge.cu",
+                    "none (the JAX package leaves GATv2's per-edge attention "
+                    "to XLA: bliss_gnn_tpu/models/layers.py GATv2Conv)", err,
+                    tol,
+                    time_ms(lambda: kernel(*args), 20, torch),
+                    time_ms(lambda: plain(*args), 3, torch, warmup=1), None,
+                    feat_bytes + io_bytes, 0,
+                    device_ms=device_time_ms(lambda: kernel(*args), torch),
+                    kernel_launches_per_call=per_call,
+                    max_abs_err_by_output=errs if key == "fwd" else None,
+                    shape=f"{e_cap} slots ({n} valid), ({h}, {ho // h}) "
+                          f"{str(feat2.dtype).replace('torch.', '')}, "
+                          f"{feat2.shape[0]} srcs into {n_dst} dsts"))
+                if launches <= 0:
+                    fail(f"gat_edge {key} at {e_cap}x{ho}: no launches on the "
+                         f"GATv2 path")
+    return rows
 
 
 def gathered_k4_slots(torch, graph, cfg, plan, exp3, n_ranks=4, seed=5):
@@ -2379,7 +2551,7 @@ def precision_phase(torch, train, graph, indptr_np, cfg, plan, gplan, seeds,
                                        on=g32, steps=3, prec="f32")
     k5_by_shape = dict(row_scatter_add.launches_by_shape)
     glaunches = {k: wrappers[k].launches
-                 for k in kernels + ("row_scatter_add",)}
+                 for k in kernels + ("row_scatter_add", "gat_edge")}
     glosses = [float(m["train_loss"]) for m in glog]
     gat32 = gstate.model
     del gstate

@@ -226,7 +226,9 @@ def spmm_cost(n_rows, n_edges, f, itemsize, weighted):
 
 
 def kernel_wrappers():
-    """Every kernel wrapper by name (their launch counts)."""
+    """Every kernel wrapper by name (their launch counts; ``gat_edge`` is
+    the module, whose counts take its four functions' kernels)."""
+    from bliss_gnn_tpu_torch.ops import gat_edge
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
     from bliss_gnn_tpu_torch.ops.gat_attention import gat_attention
     from bliss_gnn_tpu_torch.ops.gather import lut_gather
@@ -239,12 +241,14 @@ def kernel_wrappers():
     return {"scatter_add": scatter_add, "lut_gather": lut_gather,
             "segment_sum": segment_sum, "exp3_apply": exp3_apply,
             "row_scatter_add": row_scatter_add, "spmm": spmm,
-            "gat_attention": gat_attention, "poisson_scale": poisson_scale}
+            "gat_attention": gat_attention, "poisson_scale": poisson_scale,
+            "gat_edge": gat_edge}
 
 
 def reset_counts(wrappers):
     """Sets every wrapper's launch count, and its counts by shape where it
-    keeps them (K1, K3, K5, K7's partial outputs), to 0."""
+    keeps them (K1, K3, K5, K7's partial outputs, the GATv2 edge
+    kernels), to 0."""
     for fn in wrappers.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_shape"):
@@ -1155,7 +1159,7 @@ def multicard_worker(cfg, graph_dir, device, plan, last):
         gcfg = dataclasses.replace(scfg, model="gat")
         out["gat"], gat_model, _ = dp_run(
             gcfg, "gat", cfg["gat_counts"],
-            STEP_KERNELS + ("row_scatter_add",))
+            STEP_KERNELS + ("row_scatter_add", "gat_edge"))
         note("gat")
         if dev.type == "cuda":
             torch.cuda.empty_cache()

@@ -6,6 +6,7 @@ CPU mode, so without a GPU these tests skip; run them on one with
 import pytest
 import torch
 
+from bliss_gnn_tpu_torch.ops import gat_edge
 from bliss_gnn_tpu_torch.ops.exp3 import (
     exp3_apply,
     exp3_apply_plain,
@@ -231,6 +232,45 @@ def test_sorted_routes_repeat_bitwise(dev, gen):
                            device=dev).to(torch.bfloat16)
         assert torch.equal(segment_sum(data, keys, s, nv, ids_sorted=True),
                            segment_sum(data, keys, s, nv, ids_sorted=True))
+
+
+@pytest.mark.parametrize("f,dtype", [(41, torch.bfloat16),
+                                     (1024, torch.bfloat16),
+                                     (41, torch.float32),
+                                     (256, torch.float32)])
+def test_segment_sum_stable_route(dev, gen, f, dtype):
+    """``deterministic=True`` on unsorted ids: K5's counting sort (three
+    launches), then the sorted route through the permutation (two on
+    16-byte rows, one on narrow ones). It equals the sorted route on the
+    rows sorted stably on the host bit for bit, so two calls agree too; a
+    hub of 1,000 copies, ids out of range, a valid prefix."""
+    n, s, nv = 20_000, 2_000, 15_000
+    ids = torch.randint(-2, s + 2, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[torch.randperm(nv, generator=gen, device=dev)[:1000]] = 7
+    data = torch.randn((n, f), generator=gen, device=dev).to(dtype)
+    nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
+    before = segment_sum.launches
+    key = f"stable {n}x{f}"
+    by = segment_sum.launches_by_shape.get(key, 0)
+    got = segment_sum(data, ids, s, nv_d, deterministic=True)
+    n_launch = 3 + (2 if f * data.element_size() % 16 == 0 else 1)
+    assert segment_sum.launches == before + n_launch
+    assert segment_sum.launches_by_shape[key] == by + n_launch
+    assert got.dtype == dtype
+    want = segment_sum_plain(data, ids, s, nv_d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+    live = ids[:nv].cpu()
+    keep = ((live >= 0) & (live < s)).nonzero()[:, 0]
+    order = keep[torch.sort(live[keep], stable=True).indices]
+    keys = live[order].to(dev)
+    by_key = segment_sum(data[order.to(dev)], keys, s,
+                         torch.tensor(keys.shape[0], dtype=torch.int32,
+                                      device=dev), ids_sorted=True)
+    assert torch.equal(got, by_key)
+    assert torch.equal(segment_sum(data, ids, s, nv_d, deterministic=True),
+                       got)
 
 
 def test_segment_sum_grad_is_row_gather(dev, gen):
@@ -929,10 +969,14 @@ def test_replayed_steps_equal_eager_steps(dev, monkeypatch, model_name):
     multi = steps.make_multi_train_step(dg, cfg, plan, False, k, device=dev)
     st = fresh()
     ks, km = seeds.expand(k, -1), smask.expand(k, -1)
+    edge_before = gat_edge.launches
     st, m1 = multi(st, ks, km, draws=draws[:k])
-    before = segment_sum.launches
+    # GATv2's attention through its edge kernels, in the eager warm-ups
+    assert (gat_edge.launches > edge_before) == (model_name == "gat")
+    before, edge_before = segment_sum.launches, gat_edge.launches
     st, m2 = multi(st, ks, km, draws=draws[k:])
     assert segment_sum.launches == before  # replays launch from the graph
+    assert gat_edge.launches == edge_before
     assert st.step == 2 * k
     losses = torch.cat([m1["train_loss"], m2["train_loss"]]).tolist()
     for r, want in zip(ring, eager_src):

@@ -210,11 +210,14 @@ def test_f32_layers_match_reference(kind):
             k.split(".", 2)[2]: v for k, v in fn(jax.tree.map(
                 np.asarray, {group: params["params"]})).items()})
         out_t = conv_t.eval()(bt, xt)
-        if kind == "gat":
+        if kind == "gat":  # the logits of the kept edges; 0 elsewhere
             (out_j, e_j), (out_t, e_t) = out_j, out_t
             assert e_t.dtype == torch.float32
-            np.testing.assert_allclose(_np(e_t), _np(e_j), rtol=F32_RTOL,
-                                       atol=F32_RTOL * np.abs(_np(e_j)).max())
+            m = np.asarray(bj.e_mask)
+            np.testing.assert_allclose(_np(e_t)[m], _np(e_j)[m],
+                                       rtol=F32_RTOL,
+                                       atol=F32_RTOL * np.abs(_np(e_j)[m]).max())
+            assert not _np(e_t)[~m].any()
     assert out_t.dtype == torch.float32
     np.testing.assert_allclose(_np(out_t), _np(out_j), rtol=F32_RTOL,
                                atol=F32_RTOL * np.abs(_np(out_j)).max())

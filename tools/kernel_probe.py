@@ -46,6 +46,14 @@ KERNEL is one of:
         kernels; then one step profiled with Python stacks, which names
         the op, the autograd node and the forward frames in the package
         that launch each ``indexing_backward`` kernel.
+    gat-edge  GATv2's edge kernels (``ops/gat_edge.py``) on the sampled
+        layer-0 block at (H, O) = (4, 256) and the output block at (1, 41),
+        bf16, random rows: ``ms`` and ``device_ms`` of each function (F:
+        four kernels, M, the messages' backward, F's backward: four), its
+        kernels a call, the plain version's ``ms`` on the same card tensors,
+        and the bound: the compulsory bytes (the feat2 table, g, the ids
+        and the [E, H] values read once, the outputs written once) over
+        3.35 TB/s.
     k2  K2 (``lut_gather``), the keep-mask lookup of the input-most layer
         of ``chip_smoke.py``'s SAGE main path on an H100: 3,279,616 ids
         (80% valid) into a 233,088-entry bool table; beside it
@@ -696,6 +704,64 @@ def probe_gat_step(smoke, dev, fg, n=3):
             prof, "indexing_backward")}}
 
 
+def probe_gat_edge(smoke, dev, sites):
+    from bliss_gnn_tpu_torch.ops import gat_edge
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    rec = {}
+    for tag, h, o in (("0", 4, 256), ("out", 1, 41)):
+        ids, src = sites[f"e_dst{tag}"], sites[f"e_src{tag}"]
+        nv, n_dst, n_src = (sites[f"nv{tag}"], sites[f"n_dst{tag}"],
+                            sites[f"n_src{tag}"])
+        e_cap, ho = ids.shape[0], h * o
+        mask = torch.arange(e_cap, device=dev) < nv
+        ids = torch.where(mask, ids, 0)
+        nv_d = torch.tensor(nv, dtype=torch.int32, device=dev)
+        bf = torch.bfloat16
+        feat2 = torch.randn((n_src, ho), generator=g, device=dev).to(bf)
+        attn = (torch.randn((1, h, o), generator=g, device=dev) / 4).to(bf)
+        grad = torch.randn((n_dst, ho), generator=g, device=dev).to(bf)
+        edges = (src, ids, mask, nv_d)
+        e, a, stats = gat_edge.edge_scores(feat2, attn, *edges, n_dst, 0.2)
+        da = torch.randn(a.shape, generator=g, device=dev).to(bf)
+        calls = {
+            "fwd": (lambda: gat_edge.edge_scores(feat2, attn, *edges, n_dst,
+                                                 0.2),
+                    lambda: gat_edge.edge_scores_plain(feat2, attn, *edges,
+                                                       n_dst, 0.2),
+                    2 * e_cap * h * 2 + n_dst * h * 8),
+            "msg": (lambda: gat_edge.edge_messages(feat2, a, src, mask, nv_d),
+                    lambda: gat_edge.edge_messages_plain(feat2, a, src, mask,
+                                                         nv_d),
+                    e_cap * h * 2 + nv * ho * 2),
+            "msg_bwd": (lambda: gat_edge.messages_grad(grad, feat2, *edges,
+                                                       h),
+                        lambda: gat_edge.messages_grad_plain(grad, feat2,
+                                                             *edges, h),
+                        n_dst * ho * 2 + e_cap * h * 2),
+            "bwd": (lambda: gat_edge.scores_grad(
+                        feat2, attn, *edges, n_dst, 0.2, e, stats, da,
+                        None, grad, a),
+                    lambda: gat_edge.scores_grad_plain(
+                        feat2, attn, *edges, n_dst, 0.2, e, stats, da,
+                        None, grad, a),
+                    n_dst * ho * 2 + 3 * e_cap * h * 2 + n_dst * h * 8
+                    + 2 * nv * ho * 2 + ho * 2),
+        }
+        for name, (kernel, plain, io_bytes) in calls.items():
+            before = gat_edge.launches
+            kernel()
+            n_bytes = n_src * ho * 2 + e_cap * 9 + io_bytes
+            rec[f"gat_edge[{name} {e_cap}x{ho}]"] = {
+                "shape": f"{e_cap} slots ({nv} valid), ({h}, {o}) bf16, "
+                         f"{n_src} srcs into {n_dst} dsts",
+                "kernels_per_call": gat_edge.launches - before,
+                **small_times(smoke, kernel, host=False),
+                "plain_ms": smoke.time_ms(plain, 3, torch, warmup=1),
+                "bound_ms": n_bytes / 3.35e12 * 1e3}
+    return rec
+
+
 def launches_per_call(wrapper, fn):
     before = wrapper.launches
     fn()
@@ -868,7 +934,7 @@ def probe_k7(smoke, dev, fg):
 def main():
     kernels = sys.argv[1:]
     known = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k4-repeats",
-             "k6-hub", "k6-602", "gat-step")
+             "k6-hub", "k6-602", "gat-step", "gat-edge")
     if not kernels or any(k not in known for k in kernels):
         sys.exit(f"usage: kernel_probe.py KERNEL [KERNEL ...], KERNEL in "
                  f"{', '.join(known)}")
@@ -884,9 +950,10 @@ def main():
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip()}
     fg = (FullGraph(smoke, dev) if {"k1", "k3", "k5", "k6", "k6-602", "k7",
-                                    "gat-step"} & set(kernels) else None)
-    sites = (call_sites(smoke, dev, fg) if {"k1", "k3", "k5"} & set(kernels)
-             else None)
+                                    "gat-step", "gat-edge"} & set(kernels)
+          else None)
+    sites = (call_sites(smoke, dev, fg)
+             if {"k1", "k3", "k5", "gat-edge"} & set(kernels) else None)
     for name in kernels:
         if name == "k1":
             rec.update(probe_k1(smoke, dev, sites))
@@ -896,6 +963,8 @@ def main():
             rec.update(probe_k5(smoke, dev, sites))
         elif name == "gat-step":
             rec.update(probe_gat_step(smoke, dev, fg))
+        elif name == "gat-edge":
+            rec.update(probe_gat_edge(smoke, dev, sites))
         elif name == "k2":
             rec.update(probe_k2(smoke, dev))
         elif name == "k4":
