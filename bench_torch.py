@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from bliss_gnn_tpu_torch._device import resolve_device
+from bliss_gnn_tpu_torch.sampling.block import is_overflow
 from harness_torch import (
     BATCH,
     CACHE,
@@ -305,7 +306,7 @@ class Overflow:
 
     def __call__(self, metrics):
         for k, v in metrics.items():
-            if "overflow" in k:
+            if is_overflow(k):
                 self.max[k] = max(self.max.get(k, 0),
                                   int(torch.as_tensor(v).max()))
 
@@ -421,9 +422,10 @@ def dp_comm(dev, graph, cfg, plan, seeds, smask, replayed_ms):
 
 def bench_step(dev, indptr, csc_src, log):
     """``bench.py``'s steps: the graph with weights 1/in-degree, the
-    a-priori plan, one pilot sample and ``plan.refit``, then the sampler,
-    the SAGE and GATv2 steps and the DP step's collectives at those caps."""
-    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    a-priori plan, one pilot sample and the ``CapacityPolicy``'s refit,
+    then the sampler, the SAGE and GATv2 steps and the DP step's
+    collectives at those caps."""
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan, CapacityPolicy
     from bliss_gnn_tpu_torch.sampling.samplers import (
         SamplerConfig,
         init_exp3_weights,
@@ -445,9 +447,11 @@ def bench_step(dev, indptr, csc_src, log):
     _, stats = sample_blocks(graph, cfg, plan,
                              torch.Generator(device=dev).manual_seed(1),
                              seeds, smask, exp3)
-    fr = [int(stats[f"layer{l}/frontier_edges"]) for l in range(3)]
-    be = [int(stats[f"layer{l}/n_block_edges_true"]) for l in range(3)]
-    tight = plan.refit(fr, be, max_degree=int(deg.max()))
+    policy = CapacityPolicy(1, max_degree=int(deg.max()))  # one sample
+    policy.observe(stats)
+    change = policy.decide(plan, 1)
+    tight = plan if change is None else change[1]
+    fr, be = policy.maxima(3)
     emit_note("refit", {"pilot_frontier_edges": fr, "pilot_block_edges": be,
                         "frontier_caps": tight.frontier_caps,
                         "block_e_caps": tight.block_e_caps})

@@ -49,9 +49,7 @@
 // Bound: bytes, but small random accesses: the table (16 bytes a slot of
 // the list at load <= 1/2) and the links stay in the 50 MB L2. The slot
 // each key lands in depends on the card's order; the product does not,
-// since it is taken in list order. The sorted route it replaced
-// (stable torch.sort, then one thread per run) stays as
-// bliss_exp3_apply_runs for the tests and the timings.
+// since it is taken in list order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -114,28 +112,6 @@ __device__ __forceinline__ unsigned int apply_product(unsigned int old,
                                                       double prod) {
   return __float_as_uint(
       __double2float_rn(__dmul_rn((double)__uint_as_float(old), prod)));
-}
-
-// s_idx: the flat indices sorted (stable); order: each sorted slot's place
-// in the list, so mult[order[j]] is its factor.
-template <typename T, typename W>
-__global__ void exp3_apply_runs_kernel(T* state,
-                                       const int32_t* __restrict__ s_idx,
-                                       const int64_t* __restrict__ order,
-                                       const float* __restrict__ mult,
-                                       int64_t u, int32_t limit) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < u;
-       i += stride) {
-    const int32_t k = __ldg(s_idx + i);
-    if (k < 0 || k >= limit) continue;
-    if (i > 0 && __ldg(s_idx + i - 1) == k) continue;  // not a run's head
-    W prod = (W)__ldg(mult + __ldg(order + i));
-    for (int64_t j = i + 1; j < u && __ldg(s_idx + j) == k; ++j) {
-      prod *= (W)__ldg(mult + __ldg(order + j));
-    }
-    state[k] = apply_product<T, W>(state[k], prod);
-  }
 }
 
 constexpr uint32_t kHashMul = 0x9E3779B1u;  // Fibonacci hashing
@@ -293,40 +269,6 @@ extern "C" int bliss_exp3_apply_f32(void* state, const void* idx,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned int*>(state), static_cast<const int32_t*>(idx),
       static_cast<const float*>(mult), (int64_t)u, (int32_t)limit);
-  return (int)cudaGetLastError();
-}
-
-// The sorted repeats route that the group-by replaced, kept for the tests
-// and the timings: s_idx int32 [u], the flat indices stable-sorted; order
-// int64 [u], the sort's permutation; mult f32 [u] in list order. One
-// launch on a bf16 (f32: the _f32 entry) flat state; returns
-// cudaGetLastError().
-extern "C" int bliss_exp3_apply_runs(void* state, const void* s_idx,
-                                     const void* order, const void* mult,
-                                     long long u, int limit, void* stream) {
-  const int threads = 256;
-  exp3_apply_runs_kernel<unsigned short, float>
-      <<<(unsigned)grid_for(u, threads), threads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<unsigned short*>(state),
-          static_cast<const int32_t*>(s_idx),
-          static_cast<const int64_t*>(order), static_cast<const float*>(mult),
-          (int64_t)u, (int32_t)limit);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int bliss_exp3_apply_runs_f32(void* state, const void* s_idx,
-                                         const void* order, const void* mult,
-                                         long long u, int limit,
-                                         void* stream) {
-  const int threads = 256;
-  exp3_apply_runs_kernel<unsigned int, double>
-      <<<(unsigned)grid_for(u, threads), threads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<unsigned int*>(state),
-          static_cast<const int32_t*>(s_idx),
-          static_cast<const int64_t*>(order), static_cast<const float*>(mult),
-          (int64_t)u, (int32_t)limit);
   return (int)cudaGetLastError();
 }
 

@@ -166,9 +166,7 @@ class GATv2Conv(nn.Module):
     aggregation and of the two row-gather backwards, each a segment sum (K5
     at H*O = 1024); on the CPU their plain versions. The attention dropout
     sits between its two autograd nodes. The attention is the device span
-    ``gat.attend`` and counts ``gat.edge_route/<fused|plain>`` at each call
-    that runs Python: eager ones and a CUDA graph's capture, not its
-    replays (``utils/spans.py``)."""
+    ``gat.attend`` (``utils/spans.py``)."""
 
     def __init__(self, in_feats: int, out_feats: int, num_heads: int,
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
@@ -206,8 +204,6 @@ class GATv2Conv(nn.Module):
         h_dst = h_src[:n_dst]
         feat2 = _linear(h_src, self.fc_src.weight)  # [n_src, H*O]
         with spans.device_span("gat.attend"):
-            spans.counter("gat.edge_route/"
-                          + ("fused" if feat2.is_cuda else "plain"))
             edges = (block.e_src, torch.where(block.e_mask, block.e_dst, 0),
                      block.e_mask, block.n_valid_edges(), n_dst)
             e, a, link = gat_edge.attention_scores(

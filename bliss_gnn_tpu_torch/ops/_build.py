@@ -51,9 +51,6 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "exp3_apply": {"bliss_exp3_apply": [_P, _P, _P, _LL, _I, _P],
                    "bliss_exp3_apply_f32": [_P, _P, _P, _LL, _I, _P],
-                   "bliss_exp3_apply_runs": [_P, _P, _P, _P, _LL, _I, _P],
-                   "bliss_exp3_apply_runs_f32": [_P, _P, _P, _P, _LL, _I,
-                                                 _P],
                    "bliss_exp3_apply_groups": [_P, _P, _P, _P, _LL, _I, _I,
                                                _P],
                    "bliss_exp3_apply_groups_f32": [_P, _P, _P, _P, _LL, _I,

@@ -30,11 +30,6 @@ index) and raises where it fails; on the card it trusts the caller, as the
 sorted routes trust ``ids_sorted``. ``exp3_apply.launches`` adds one per
 kernel launch, ``launches_by_shape`` the same by route and length, e.g.
 ``"f32 186496"`` or ``"repeats bf16 745984 S=4"``.
-
-:func:`exp3_apply_sorted_runs` is the repeats route the group-by replaced
-(a stable ``torch.sort``, then one thread per run): no path of the package
-calls it; the card tests hold the group-by to its bits and the timings set
-the two side by side.
 """
 from __future__ import annotations
 
@@ -126,7 +121,7 @@ def exp3_apply(state: torch.Tensor, flat_idx: torch.Tensor,
             exp3_apply_plain(state, flat_idx, mult, limit)
             return
         raise ValueError(f"exp3_apply: no kernel for {state.device}")
-    (name, entry, groups_entry, _), flat_idx, mult, u = _checked_args(
+    (name, entry, groups_entry), flat_idx, mult, u = _checked_args(
         state, flat_idx, mult, limit)
     lib = _build.load("exp3_apply")
     stream = _build.stream_of(state)
@@ -150,32 +145,11 @@ def exp3_apply(state: torch.Tensor, flat_idx: torch.Tensor,
         _build.check(err, "exp3_apply")
 
 
-def exp3_apply_sorted_runs(state: torch.Tensor, flat_idx: torch.Tensor,
-                           mult: torch.Tensor, limit: int) -> None:
-    """The repeats route the group-by replaced, on the card only: a stable
-    sort of the flat indices (each index's slots one run, in list order),
-    then one thread per run. The same bits as the group-by route; kept as
-    its reference in the card tests and its yardstick in the timings."""
-    if not state.is_cuda:
-        raise ValueError("exp3_apply_sorted_runs: a card route")
-    (_, _, _, runs_entry), flat_idx, mult, u = _checked_args(
-        state, flat_idx, mult, limit)
-    s_idx, order = torch.sort(flat_idx, stable=True)
-    err = getattr(_build.load("exp3_apply"), runs_entry)(
-        state.data_ptr(), s_idx.data_ptr(), order.data_ptr(),
-        mult.data_ptr(), u, limit, _build.stream_of(state))
-    if err:
-        _build.check(err, "exp3_apply_sorted_runs")
-
-
-# state dtype -> (route, C entries: the CAS route, the group-by route, the
-# sorted runs)
+# state dtype -> (route, C entries: the CAS route, the group-by route)
 _ROUTES = {torch.bfloat16: ("bf16", "bliss_exp3_apply",
-                            "bliss_exp3_apply_groups",
-                            "bliss_exp3_apply_runs"),
+                            "bliss_exp3_apply_groups"),
            torch.float32: ("f32", "bliss_exp3_apply_f32",
-                           "bliss_exp3_apply_groups_f32",
-                           "bliss_exp3_apply_runs_f32")}
+                           "bliss_exp3_apply_groups_f32")}
 exp3_apply.launches = 0
 # the same launches by route and update count, e.g. "f32 186496",
 # "repeats bf16 745984 S=4"

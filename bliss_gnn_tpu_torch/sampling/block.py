@@ -1,5 +1,6 @@
-"""Capacity-padded message-flow blocks and static capacity planning
-(counterpart of ``bliss_gnn_tpu/sampling/block.py``).
+"""Capacity-padded message-flow blocks, static capacity planning
+(counterpart of ``bliss_gnn_tpu/sampling/block.py``) and the policy that
+refits and widens a plan from the steps' statistics.
 
 A Block is a bipartite graph of static sizes: a src-node table whose first
 ``n_dst_cap`` slots are the dst (seed) nodes, and a padded edge list with
@@ -10,7 +11,8 @@ the canonical ``eid`` and ``e_alpha`` (the static normalised weight).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -212,3 +214,104 @@ class CapacityPlan:
                     for c, f in zip(self.block_e_caps, fr))
               if blocks else self.block_e_caps)
         return dataclasses.replace(self, frontier_caps=fr, block_e_caps=be)
+
+
+# The per-layer statistics of ``sample_blocks`` (``layer{l}/<stat>``) the
+# policy reads: the sizes the refit takes its maxima of, and the overflow
+# counters with the kind of cap each widens (an extra-src overflow none:
+# the src tables keep their shapes).
+REFIT_MAXIMA = ("frontier_edges", "n_block_edges_true")
+OVERFLOWS = {"frontier_overflow": "frontier",
+             "block_edge_overflow": "blocks", "extra_overflow": None}
+WIDEN_FACTOR = 1.5
+
+
+@functools.lru_cache(maxsize=None)
+def _stat(name: str) -> str:
+    """``frontier_edges`` of ``layer0/frontier_edges``; cached, as a step's
+    metric names repeat every step of the trainer's host loop."""
+    return name.rpartition("/")[2]
+
+
+def is_refit_size(name: str) -> bool:
+    """Whether a step metric is a size the refit takes the maximum of."""
+    return _stat(name) in REFIT_MAXIMA
+
+
+def is_overflow(name: str) -> bool:
+    """Whether a step metric is one of the sampler's overflow counters."""
+    return _stat(name) in OVERFLOWS
+
+
+def overflowed_kinds(metrics: Mapping[str, object]) -> Set[str]:
+    """The kinds of cap a widen grows (``"frontier"``, ``"blocks"``) whose
+    overflow counters in one step's metrics are above 0."""
+    return {OVERFLOWS[_stat(k)] for k, v in metrics.items()
+            if OVERFLOWS.get(_stat(k)) and float(v) > 0}
+
+
+class CapacityPolicy:
+    """When a sampled step's static buffers change size. Pilot steps run at
+    the a-priori caps; at step ``refit_after`` (0: never, and no widen
+    either) the plan is refit to the maxima of every observed step times
+    the refit slacks, unless a layer's maximum is 0; after the refit, an
+    overflow grows only the kind of cap that overflowed (frontier or block
+    edges) by ``WIDEN_FACTOR``: an output seed's in-edges overflow the
+    frontier while the kept edges stay in their caps, and every block-edge
+    slot is padded work a step. Host floats only: :meth:`observe` each
+    step's metrics, then :meth:`decide` once the steps launched together
+    are observed."""
+
+    def __init__(self, refit_after: int = 3, frontier_slack: float = 1.25,
+                 block_edge_slack: float = 1.6, max_degree: int = 0):
+        self.refit_after = refit_after
+        self.frontier_slack = frontier_slack
+        self.block_edge_slack = block_edge_slack
+        self.max_degree = max_degree
+        self.refit_done = False
+        self._max: Dict[str, float] = {}
+        self._grow: Set[str] = set()
+
+    @property
+    def piloting(self) -> bool:
+        """Whether the refit is still to come."""
+        return self.refit_after > 0 and not self.refit_done
+
+    def observe(self, metrics: Mapping[str, object]) -> None:
+        """One step's host metrics: the refit's maxima, and after the refit
+        the kinds of cap that overflowed."""
+        for k, v in metrics.items():
+            stat = _stat(k)
+            if stat in REFIT_MAXIMA:
+                self._max[k] = max(self._max.get(k, 0.0), float(v))
+            elif self.refit_done and OVERFLOWS.get(stat) and float(v) > 0:
+                self._grow.add(OVERFLOWS[stat])
+
+    def maxima(self, n_layers: int) -> Tuple[List[int], List[int]]:
+        """Per layer, the largest frontier and kept-edge counts seen."""
+        return tuple([int(self._max.get(f"layer{l}/{stat}", 0))
+                      for l in range(n_layers)] for stat in REFIT_MAXIMA)
+
+    def decide(self, plan: CapacityPlan, step: int
+               ) -> Optional[Tuple[str, CapacityPlan]]:
+        """After ``step`` steps on ``plan``: ``("refit", plan)``,
+        ``("widen", plan)`` or None."""
+        if self.refit_after <= 0:
+            return None
+        if not self.refit_done:
+            if step < self.refit_after:
+                return None
+            self.refit_done = True
+            fr, be = self.maxima(len(plan.fanouts))
+            if min(fr) <= 0 or min(be) <= 0:
+                return None
+            new = plan.refit(fr, be, block_edge_slack=self.block_edge_slack,
+                             frontier_slack=self.frontier_slack,
+                             max_degree=self.max_degree)
+            return None if new == plan else ("refit", new)
+        if not self._grow:
+            return None
+        new = plan.widen(WIDEN_FACTOR, frontier="frontier" in self._grow,
+                         blocks="blocks" in self._grow)
+        self._grow = set()
+        return "widen", new

@@ -65,7 +65,12 @@ import torch.nn.functional as F
 
 from bliss_gnn_tpu_torch._device import resolve_device
 from bliss_gnn_tpu_torch.graph.structure import DeviceGraph
-from bliss_gnn_tpu_torch.sampling.block import Block, CapacityPlan
+from bliss_gnn_tpu_torch.sampling.block import (
+    Block,
+    CapacityPlan,
+    is_overflow,
+    is_refit_size,
+)
 from bliss_gnn_tpu_torch.sampling.samplers import (
     SamplerConfig,
     apply_exp3_deltas,
@@ -138,10 +143,6 @@ def pmean_grads(params, mesh) -> None:
         o += g.numel()
 
 
-def _is_refit_max(name: str) -> bool:
-    return "frontier_edges" in name or "n_block_edges_true" in name
-
-
 def reduce_metrics(metrics: Dict[str, object], mesh,
                    mean_keys=("train_loss",)) -> Dict[str, object]:
     """The JAX step's metric reductions in two all-reduces of f64 vectors
@@ -157,7 +158,7 @@ def reduce_metrics(metrics: Dict[str, object], mesh,
             sums += [(name, f, torch.float32, getattr(v, f))
                      for f in _F1_FIELDS]
         elif isinstance(v, torch.Tensor):
-            (maxs if _is_refit_max(name) else sums).append(
+            (maxs if is_refit_size(name) else sums).append(
                 (name, None, v.dtype, v))
     out = dict(metrics)
     f1_parts: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -354,8 +355,8 @@ def _sampler_stats(samp_stats: Dict[str, torch.Tensor]
     """The sampler's overflow counters, the sizes the refit reads and the
     fixed-point counts of :func:`_fixed_point_iters`."""
     return {k: v for k, v in samp_stats.items()
-            if "overflow" in k or "frontier_edges" in k
-            or "n_block_edges_true" in k or k.startswith("poisson_iters/")}
+            if is_overflow(k) or is_refit_size(k)
+            or k.startswith("poisson_iters/")}
 
 
 def _fixed_point_iters(blocks) -> Dict[str, torch.Tensor]:

@@ -8,8 +8,9 @@
   steps eager, then chains of ``steps_per_call`` (on the card one captured
   step replayed per batch, a chain of one included, and an epoch's or the
   run's last batches as a shorter chain);
-- capacity refit from the pilot steps' maxima, widened 1.5x after an
-  overflow;
+- the capacity policy (``sampling/block.py`` ``CapacityPolicy``): a refit
+  from the pilot steps' maxima, then a 1.5x widen of the kind of cap that
+  overflowed;
 - sampled validation each epoch, in chains of ``eval_steps_per_call`` (on
   the card the epoch's last batches as a shorter chain);
 - Adam with a staircase decay, the deferred EXP3 row renormalisation;
@@ -82,7 +83,11 @@ from bliss_gnn_tpu_torch.parallel import multihost
 from bliss_gnn_tpu_torch.parallel import shardedstep as pss
 from bliss_gnn_tpu_torch.parallel.mesh import make_mesh
 from bliss_gnn_tpu_torch.parallel.shards import normalize_exp3_sharded
-from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+from bliss_gnn_tpu_torch.sampling.block import (
+    CapacityPlan,
+    CapacityPolicy,
+    is_overflow,
+)
 from bliss_gnn_tpu_torch.sampling.samplers import (
     SamplerConfig,
     init_exp3_weights,
@@ -159,7 +164,7 @@ class TrainConfig:
     max_frontier_edges: Optional[int] = None
     # after this many measured steps, tighten the frontier and kept-edge
     # caps to the measured maxima times the refit slacks (0 disables); an
-    # overflow after that widens the plan by 1.5x
+    # overflow after that widens the caps of its kind by 1.5x
     refit_after: int = 3
     refit_block_edge_slack: float = 1.6
     refit_frontier_slack: float = 1.25
@@ -398,17 +403,17 @@ class Trainer:
         g = self.host_graph
         self.batch_size = batch_size
         indeg = g.in_degrees()
-        self._max_degree = int(indeg.max())
+        max_degree = int(indeg.max())
         self.plan = CapacityPlan.build(
             batch_size // self.dp, self.sampler_cfg.fanouts, g.n_nodes, g.n_edges,
             kind=cfg.sampler, frontier_slack=cfg.frontier_slack,
             block_edge_slack=cfg.block_edge_slack,
             max_frontier_edges=cfg.max_frontier_edges,
-            deg_std=float(indeg.std()), max_degree=self._max_degree)
-        self._refit_done = False
-        self._refit_max: Dict[str, float] = {}
-        self._frontier_overflow_after_refit = False
-        self._block_overflow_after_refit = False
+            deg_std=float(indeg.std()), max_degree=max_degree)
+        self.capacity = CapacityPolicy(
+            cfg.refit_after, frontier_slack=cfg.refit_frontier_slack,
+            block_edge_slack=cfg.refit_block_edge_slack,
+            max_degree=max_degree)
         if init_state:
             opt, sched = make_optimizer(
                 self.model.parameters(), cfg.lr, self.steps_per_epoch,
@@ -540,7 +545,7 @@ class Trainer:
         """Whether train steps run eagerly now: the pilot steps (the refit
         replaces their plan a moment later). It does not hold for
         validation, which replays whenever steps replay."""
-        return self.cfg.refit_after > 0 and not self._refit_done
+        return self.capacity.piloting
 
     # -- epoch loops -----------------------------------------------------
     def _epoch_batches(self, rng: np.random.Generator) -> np.ndarray:
@@ -606,11 +611,12 @@ class Trainer:
                         spans.take_marks(metrics, "step", self.global_step)
                         with spans.span("trainer.log"):
                             self._log_train_step(metrics, prev_t, fb_time)
+                        self.capacity.observe(metrics)
                         prev_t = time.perf_counter()
                         self.welford.push(float(metrics["num_nodes/0"]))
                     b += k
                     self._maybe_renorm_exp3()
-                    self._maybe_capacity_refit()
+                    self._follow_capacity_policy()
                 if self.global_step >= max_steps:
                     break
             epoch += 1
@@ -690,63 +696,25 @@ class Trainer:
         if "cache_miss" in metrics:
             scalars["cache_miss"] = float(metrics["cache_miss"])
         for k, v in metrics.items():
-            if "overflow" in k and float(v) > 0:
+            if is_overflow(k) and float(v) > 0:
                 scalars[k] = float(v)
-                # widen only the caps widen() can grow
-                if self._refit_done and ("frontier_overflow" in k
-                                         or "block_edge_overflow" in k):
-                    if "frontier_overflow" in k:
-                        self._frontier_overflow_after_refit = True
-                    else:
-                        self._block_overflow_after_refit = True
-            elif "frontier_edges" in k or "n_block_edges_true" in k:
-                self._refit_max[k] = max(self._refit_max.get(k, 0.0),
-                                         float(v))
         self.logger.log(self.global_step, scalars)
 
-    def _maybe_capacity_refit(self):
-        """Tightens the plan to the measured maxima after ``refit_after``
-        steps; widens the caps of the kind that overflows later (frontier
-        or block edges) by 1.5x."""
-        cfg = self.cfg
-        if cfg.refit_after <= 0:
+    def _follow_capacity_policy(self):
+        """Rebuilds the steps on the plan the capacity policy answers with
+        after the steps observed so far (a refit or a widen)."""
+        change = self.capacity.decide(self.plan, self.global_step)
+        if change is None:
             return
-        L = cfg.num_layers
-        if not self._refit_done:
-            if self.global_step < cfg.refit_after:
-                return
-            fr = [int(self._refit_max.get(f"layer{l}/frontier_edges", 0))
-                  for l in range(L)]
-            be = [int(self._refit_max.get(f"layer{l}/n_block_edges_true", 0))
-                  for l in range(L)]
-            self._refit_done = True
-            if min(fr) <= 0 or min(be) <= 0:
-                return
-            new = self.plan.refit(
-                fr, be, block_edge_slack=cfg.refit_block_edge_slack,
-                frontier_slack=cfg.refit_frontier_slack,
-                max_degree=self._max_degree)
-            if new != self.plan:
-                self.plan = new
-                self.n_refits += 1
-                spans.counter("trainer.refits")
-                with spans.span("trainer.rebuild"):
-                    self._rebuild_steps()
-        elif (self._frontier_overflow_after_refit
-              or self._block_overflow_after_refit):
-            # only the kind of cap that overflowed grows: an output seed's
-            # in-edges overflow the frontier while the kept edges stay in
-            # their caps, and every block-edge slot is padded work a step
-            # (GATv2's [E, H*O] passes)
-            self.plan = self.plan.widen(
-                1.5, frontier=self._frontier_overflow_after_refit,
-                blocks=self._block_overflow_after_refit)
-            self._frontier_overflow_after_refit = False
-            self._block_overflow_after_refit = False
+        why, self.plan = change
+        if why == "refit":
+            self.n_refits += 1
+            spans.counter("trainer.refits")
+        else:
             self.n_widens += 1
             spans.counter("trainer.widens")
-            with spans.span("trainer.rebuild"):
-                self._rebuild_steps()
+        with spans.span("trainer.rebuild"):
+            self._rebuild_steps()
 
     def _val_batches(self, b0: int, k: int):
         """k validation batches from batch b0, zero-padded: seeds and masks

@@ -108,10 +108,9 @@ the CPU at f32, and ``cli_small`` runs ``--precision highest``.
 
 The K4 rows add its repeats route (the gathered deltas of data-parallel
 ranks, which repeat an edge: a group-by, ``max_repeats=4``) at four
-ranks' shape, bit for bit the CPU's plain version and the sorted route it
-replaced (``old_route_*``: timed beside it), with one profiled call's
-device work by kernel (only its memset and two kernels); its launches on
-one card are ``dp2``'s.
+ranks' shape, bit for bit the CPU's plain version, with one profiled
+call's device work by kernel (only its memset and two kernels); its
+launches on one card are ``dp2``'s.
 
 Last, phase ``bench_torch``: ``python3 bench_torch.py`` (the reference
 benchmark's keys measured through the port) in a subprocess with its
@@ -337,7 +336,12 @@ def main(argv=None):
     from bliss_gnn_tpu_torch.ops.scatter import scatter_add
     from bliss_gnn_tpu_torch.ops.segsum import segment_sum
     from bliss_gnn_tpu_torch.ops.spmm import spmm
-    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.block import (
+        CapacityPlan,
+        CapacityPolicy,
+        is_overflow,
+        overflowed_kinds,
+    )
     from bliss_gnn_tpu_torch.sampling.samplers import (
         SamplerConfig,
         init_exp3_weights,
@@ -404,15 +408,15 @@ def main(argv=None):
     smask = torch.ones(BATCH, dtype=torch.bool, device=dev)
     n_steps = WARMUP_STEPS + TIMED_STEPS
 
-    def train(step_plan, seed, widen=False, cfg=cfg, on=None, steps=None,
+    def train(step_plan, seed, policy=None, cfg=cfg, on=None, steps=None,
               prec=None):
         """``steps`` (default ``n_steps``) fused steps from fresh weights
         and arm weights, of the model ``cfg.model``, on the graph ``on``
         (default the main path's), at the precision ``prec`` (see
         ``precision_kw``; default bf16 compute, f32 parameters, bf16 arm
-        weights). With ``widen``, a step whose frontier or kept edges
-        overflowed their caps widens the plan by 1.5x for the next step, as
-        the reference trainer does after a refit. Returns the last plan
+        weights). With ``policy`` (a ``CapacityPolicy``), each step's
+        metrics go to it and the plan it answers with (a refit or a widen)
+        serves the next step, as in the trainer. Returns the last plan
         too."""
         g = graph if on is None else on
         model_kw, exp3_dtype = precision_kw(torch, prec)
@@ -428,30 +432,28 @@ def main(argv=None):
         state = TrainState(model, opt, sched, exp3, gen)
         step = make_train_step(g, cfg, step_plan, False, device=dev)
         times, log = [], []
-        for _ in range(n_steps if steps is None else steps):
+        for i in range(n_steps if steps is None else steps):
             t0 = time.perf_counter()
             state, m = step(state, seeds, smask)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             log.append(m)
-            over = {k for l in range(len(cfg.fanouts))
-                    for k in ("frontier_overflow", "block_edge_overflow")
-                    if int(m[f"layer{l}/{k}"]) > 0}
-            if widen and over:
-                step_plan = step_plan.widen(
-                    1.5, frontier="frontier_overflow" in over)
+            if policy is None:
+                continue
+            policy.observe(m)
+            change = policy.decide(step_plan, i + 1)
+            if change is not None:
+                step_plan = change[1]
                 step = make_train_step(g, cfg, step_plan, False,
                                        device=dev)
         return state, step, times, log, step_plan
 
     # pilot: as many steps as the counted run, at the a-priori caps; the
-    # frontier grows while the bandit learns, so refit from the maxima
-    *_, pilot, _ = train(plan, seed=1)
-    fr = [max(int(m[f"layer{l}/frontier_edges"]) for m in pilot)
-          for l in range(3)]
-    be = [max(int(m[f"layer{l}/n_block_edges_true"]) for m in pilot)
-          for l in range(3)]
-    tight = plan.refit(fr, be, max_degree=int(deg_np.max()))
+    # frontier grows while the bandit learns, so the program's capacity
+    # policy refits from the maxima after the last one (and widens later)
+    policy = CapacityPolicy(n_steps, max_degree=int(deg_np.max()))
+    *_, pilot, tight = train(plan, seed=1, policy=policy)
+    fr, be = policy.maxima(3)
     emit({"phase": "graph", "n_nodes": N_NODES, "n_edges": n_edges,
           "n_feats": N_FEATS, "max_degree": int(deg_np.max()),
           "seconds": round(graph_s, 2), "pilot_steps": len(pilot),
@@ -466,7 +468,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
-    state, step, times, metrics_log, final = train(tight, seed=0, widen=True)
+    state, step, times, metrics_log, final = train(tight, seed=0,
+                                                   policy=policy)
     launches = {name: wrappers[name].launches for name in step_kernels}
     # K1's and K3's launches by route and input shape (call site)
     by_shape = {name: dict(wrappers[name].launches_by_shape)
@@ -484,7 +487,7 @@ def main(argv=None):
         samp_ms.append((time.perf_counter() - t0) * 1e3)
     last = metrics_log[-1]
     overflow = {k: max(int(m[k]) for m in metrics_log)
-                for k in last if "overflow" in k}
+                for k in last if is_overflow(k)}
     replay, replay_one = replayed_steps(torch, graph, cfg, final, seeds,
                                         smask, seed=0)
     emit({"phase": "main_path", "steps": n_steps,
@@ -497,10 +500,8 @@ def main(argv=None):
               k: {s: v / n_steps for s, v in d.items()}
               for k, d in by_shape.items()},
           "overflow": overflow,
-          "steps_overflowed": sum(
-              any(int(v) > 0 for k, v in m.items()
-                  if "frontier_overflow" in k or "block_edge_overflow" in k)
-              for m in metrics_log),
+          "steps_overflowed": sum(bool(overflowed_kinds(m))
+                                  for m in metrics_log),
           "final_frontier_caps": final.frontier_caps,
           "final_block_e_caps": final.block_e_caps,
           "num_edges": [int(last[f"num_edges/{l}"]) for l in range(3)],
@@ -559,7 +560,7 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats()
         reset_counts(wrappers)
         mstate, mstep, mtimes, mlog, mfinal = train(final, seed=seed,
-                                                    widen=True, cfg=mcfg)
+                                                    policy=policy, cfg=mcfg)
         mlaunches = {k: wrappers[k].launches for k in kernels}
         # K5's launches by route and input shape (call site); the edge
         # kernels' by function and shape
@@ -575,7 +576,7 @@ def main(argv=None):
             msamp_ms.append((time.perf_counter() - t0) * 1e3)
         mlosses = [float(m["train_loss"]) for m in mlog]
         moverflow = {k: max(int(m[k]) for m in mlog)
-                     for k in mlog[-1] if "overflow" in k}
+                     for k in mlog[-1] if is_overflow(k)}
         mreplay, mreplay_one = replayed_steps(torch, graph, mcfg, mfinal,
                                               seeds, smask, seed=seed)
         extra = {"heads": [GAT_HEADS[0]] * (len(FANOUTS) - 1)
@@ -593,11 +594,8 @@ def main(argv=None):
               "launches_per_step": {k: v / n_steps
                                     for k, v in mlaunches.items()},
               "overflow": moverflow,
-              "steps_overflowed": sum(
-                  any(int(v) > 0 for k, v in m.items()
-                      if "frontier_overflow" in k
-                      or "block_edge_overflow" in k)
-                  for m in mlog),
+              "steps_overflowed": sum(bool(overflowed_kinds(m))
+                                      for m in mlog),
               "final_block_e_caps": mfinal.block_e_caps,
               "peak_memory_bytes": mpeak, **mreplay, "nvidia_smi": smi_line})
         if not all(math.isfinite(x)
@@ -661,7 +659,8 @@ def main(argv=None):
     del sage_model, gcn_model, gat_model
     torch.cuda.empty_cache()
     prec_launches, k3_f32_by_shape = precision_phase(
-        torch, train, graph, indptr_np, cfg, final, gfinal, seeds, smask,
+        torch, train, policy, graph, indptr_np, cfg, final, gfinal, seeds,
+        smask,
         wrappers, smi_line,
         {"step_ms": step_med, "replayed_step_ms": replay["replayed_step_ms"],
          "chained_step_ms": replay["chained_step_ms"],
@@ -1242,7 +1241,11 @@ def neighbor_path(torch, train, graph, deg_np, wrappers, seeds, smask,
     the Reddit-shaped graph: a pilot at the a-priori caps, a refit, then the counted run
     (K1-K3; no EXP3, so no K4), its sampling alone, finite losses, and a
     profile of three more steps."""
-    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.block import (
+        CapacityPlan,
+        CapacityPolicy,
+        is_overflow,
+    )
     from bliss_gnn_tpu_torch.sampling.samplers import (
         SamplerConfig,
         sample_blocks,
@@ -1253,17 +1256,14 @@ def neighbor_path(torch, train, graph, deg_np, wrappers, seeds, smask,
     plan = CapacityPlan.build(BATCH, fanouts, graph.n_nodes, graph.n_edges,
                               kind=ncfg.kind, deg_std=float(deg_np.std()),
                               max_degree=int(deg_np.max()))
-    *_, pilot, _ = train(plan, seed=4, cfg=ncfg)
-    fr = [max(int(m[f"layer{l}/frontier_edges"]) for m in pilot)
-          for l in range(3)]
-    be = [max(int(m[f"layer{l}/n_block_edges_true"]) for m in pilot)
-          for l in range(3)]
-    tight = plan.refit(fr, be, max_degree=int(deg_np.max()))
-    del pilot
+    policy = CapacityPolicy(WARMUP_STEPS + TIMED_STEPS,
+                            max_degree=int(deg_np.max()))
+    *_, tight = train(plan, seed=4, cfg=ncfg, policy=policy)
+    fr, be = policy.maxima(3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
-    state, step, times, log, final = train(tight, seed=4, widen=True,
+    state, step, times, log, final = train(tight, seed=4, policy=policy,
                                            cfg=ncfg)
     kernels = ("scatter_add", "lut_gather", "segment_sum")
     launches = {k: wrappers[k].launches for k in kernels}
@@ -1282,7 +1282,7 @@ def neighbor_path(torch, train, graph, deg_np, wrappers, seeds, smask,
           "sampling_ms": statistics.median(samp_ms), "loss": losses,
           "launches_per_step": {k: v / len(log) for k, v in launches.items()},
           "overflow": {k: max(int(m[k]) for m in log)
-                       for k in last if "overflow" in k},
+                       for k in last if is_overflow(k)},
           "pilot_frontier_edges": fr, "pilot_block_edges": be,
           "frontier_caps": final.frontier_caps,
           "block_e_caps": final.block_e_caps, "dst_caps": final.dst_caps,
@@ -2310,20 +2310,16 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
 
     # K4's repeats route at S = 4's shape: four DP ranks' sampled deltas
     # gathered (hub edges repeat up to 4 times); the same bits on two
-    # calls, bit for bit the CPU's plain version and the sorted route it
-    # replaced (timed beside it), one profiled call with no device work
-    # but the route's memset and two kernels. ``launches`` is its count on
-    # the one card's path (dp2's DP steps at S = 2, filled in after that
-    # phase)
-    from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply_sorted_runs
-
+    # calls, bit for bit the CPU's plain version, one profiled call with no
+    # device work but the route's memset and two kernels. ``launches`` is
+    # its count on the one card's path (dp2's DP steps at S = 2, filled in
+    # after that phase)
     idx, mult, limit_g, max_rep = sites["k4_gathered"]
     st0 = (torch.rand(limit_g, generator=g, device=dev) + 0.5).to(
         torch.bfloat16)
-    st_k, st_k2, st_o, st_p = (st0.clone() for _ in range(4))
+    st_k, st_k2, st_p = (st0.clone() for _ in range(3))
     k4[0](st_k, idx, mult, limit_g, max_repeats=4)
     k4[0](st_k2, idx, mult, limit_g, max_repeats=4)
-    exp3_apply_sorted_runs(st_o, idx, mult, limit_g)
     k4[1](st_p, idx, mult, limit_g)
     st_c = st0.cpu()
     k4[1](st_c, idx.cpu(), mult.cpu(), limit_g)
@@ -2334,8 +2330,7 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
                                          bf16_ulp(b))).max().item()
     err = (a - b).abs().max().item()
     same = {"two_calls": torch.equal(st_k, st_k2),
-            "cpu_plain": torch.equal(st_k.cpu(), st_c),
-            "sorted_route": torch.equal(st_k, st_o)}
+            "cpu_plain": torch.equal(st_k.cpu(), st_c)}
     if not all(same.values()) or ulps > 1.0:
         fail(f"exp3_apply repeats route: bitwise {same}, {ulps} ulps off "
              f"the plain version on the card")
@@ -2344,9 +2339,6 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
 
     def repeats():
         k4[0](st_k, idx, mult, limit_g, max_repeats=4)
-
-    def sorted_runs():
-        exp3_apply_sorted_runs(st_o, idx, mult, limit_g)
 
     # the profiler sees nothing on the card but the route's memset and
     # kernels (no sort); a profile that saw no device work is recorded
@@ -2359,8 +2351,8 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
     rows.append(kernel_row(
         "exp3_apply[repeats,S=4]", None, "exp3_apply.cu",
         "bliss_gnn_tpu/ops/exp3_pallas.py:62", err,
-        "the same bits on every call, bit for bit the CPU's plain version "
-        "and the sorted route; one bf16 ulp of the plain version on the "
+        "the same bits on every call, bit for bit the CPU's plain version; "
+        "one bf16 ulp of the plain version on the "
         "card", time_ms(repeats, 20, torch),
         time_ms(lambda: k4[1](st_p, idx, mult, limit_g), 5, torch),
         time_ms(lambda: st_p.scatter_reduce_(0, live, mult_v, "prod"), 20,
@@ -2370,9 +2362,6 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
         library_device_ms=device_time_ms(
             lambda: st_p.scatter_reduce_(0, live, mult_v, "prod"), torch),
         host_us=host_us(repeats, torch),
-        old_route_ms=time_ms(sorted_runs, 20, torch),
-        old_route_device_ms=device_time_ms(sorted_runs, torch),
-        old_route_host_us=host_us(sorted_runs, torch),
         profiled_device_us=device_us,
         launches_from="dp2: rank 0's DP steps at S = 2 on this card (two "
                       "kernels a step)",
@@ -2381,7 +2370,7 @@ def kernel_checks(torch, dev, plan, n_edges, launches, sites, by_shape,
               f"{max_rep} times) into {limit_g} bf16",
         max_ulps=ulps, repeat_bitwise=True, **{f"bitwise_{k}": v
                                                 for k, v in same.items()}))
-    del st0, st_k, st_k2, st_o, st_p, st_c
+    del st0, st_k, st_k2, st_p, st_c
     rows.append(poisson_row(torch, sites["poisson"],
                             launches["poisson_scale"]))
     return rows
@@ -2495,20 +2484,20 @@ def twin_checks(torch, graph, cfg, plan, seeds, smask, seed, prec, n_eager,
     return out
 
 
-def precision_phase(torch, train, graph, indptr_np, cfg, plan, gplan, seeds,
-                    smask, wrappers, smi_line, default_ms):
+def precision_phase(torch, train, policy, graph, indptr_np, cfg, plan, gplan,
+                    seeds, smask, wrappers, smi_line, default_ms):
     """The reference's precision settings at the main path's configuration
-    (``default_ms``: the default paths' numbers from this run, printed
+    (``policy``: the main path's ``CapacityPolicy``, past its refit, widening
+    each run; ``default_ms``: the default paths' numbers from this run, printed
     beside): on a copy of the graph with f32 features, SAGE-256 x3 at f32
-    compute with f32 arm weights (13 counted eager steps on the main
-    path's final plan: K1-K4, K4 on its 32-bit route; 10 single replays
-    and a 10-chain with 3 replays against eager twins; 3 eager steps
-    against eager twins); SAGE with bf16 parameters (3 eager steps and one
-    replay against eager twins); GATv2 at f32 compute on the GATv2 plan (3
-    eager steps, K5 on f32 rows); then f32 full-graph inference of the f32
-    SAGE and GATv2 (K6 and K7 on their f32 routes), checked on the CSC
-    prefix. Returns the launches the kernel rows read and the f32 SAGE
-    step's K3 launches by shape."""
+    compute with f32 arm weights (13 counted eager steps on the main path's
+    final plan: K1-K4, K4 on its 32-bit route; 10 single replays and a 10-chain
+    with 3 replays against eager twins; 3 eager steps against eager twins);
+    SAGE with bf16 parameters (3 eager steps and one replay against eager
+    twins); GATv2 at f32 compute on the GATv2 plan (3 eager steps, K5 on f32
+    rows); then f32 full-graph inference of the f32 SAGE and GATv2 (K6 and K7
+    on their f32 routes), checked on the CSC prefix. Returns the launches the
+    kernel rows read and the f32 SAGE step's K3 launches by shape."""
     from bliss_gnn_tpu_torch.ops.exp3 import exp3_apply
     from bliss_gnn_tpu_torch.ops.rowscatter import row_scatter_add
     from bliss_gnn_tpu_torch.sampling.samplers import SamplerConfig
@@ -2520,12 +2509,12 @@ def precision_phase(torch, train, graph, indptr_np, cfg, plan, gplan, seeds,
     kernels = ("scatter_add", "lut_gather", "segment_sum", "exp3_apply")
     # the default precision's eager steps in this phase, just before the
     # f32 ones: eager times drift over the script's run (PERF.md §7)
-    *_, default_times, _, _ = train(plan, seed=0, widen=True)
+    *_, default_times, _, _ = train(plan, seed=0, policy=policy)
     sync(dev)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
-    state, step, times, log, final = train(plan, seed=0, widen=True, on=g32,
-                                           prec="f32")
+    state, step, times, log, final = train(plan, seed=0, policy=policy,
+                                           on=g32, prec="f32")
     launches = {k: wrappers[k].launches for k in kernels}
     k4_routes = dict(exp3_apply.launches_by_shape)
     k3_by_shape = dict(wrappers["segment_sum"].launches_by_shape)
@@ -2547,8 +2536,8 @@ def precision_phase(torch, train, graph, indptr_np, cfg, plan, gplan, seeds,
     # GATv2 at f32 compute, 3 eager steps on the GATv2 plan
     gcfg = SamplerConfig(kind=cfg.kind, fanouts=FANOUTS, model="gat")
     reset_counts(wrappers)
-    gstate, _, gtimes, glog, _ = train(gplan, seed=2, widen=True, cfg=gcfg,
-                                       on=g32, steps=3, prec="f32")
+    gstate, _, gtimes, glog, _ = train(gplan, seed=2, policy=policy,
+                                       cfg=gcfg, on=g32, steps=3, prec="f32")
     k5_by_shape = dict(row_scatter_add.launches_by_shape)
     glaunches = {k: wrappers[k].launches
                  for k in kernels + ("row_scatter_add", "gat_edge")}

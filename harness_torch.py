@@ -958,11 +958,12 @@ def tensor_bytes(*ts):
 
 
 def pilot_plan(graph, scfg, cfg, indptr_np, seeds, smask):
-    """The main path's plan: a pilot of ``pilot_steps`` fused steps at the
-    a-priori caps, the refit from its maxima, then as many counted steps
-    from fresh weights, widened 1.5x after an overflow. Returns the final
-    plan and the pilot's numbers."""
-    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    """The main path's plan under the program's ``CapacityPolicy``: a
+    pilot of ``pilot_steps`` fused steps at the a-priori caps, the refit
+    from its maxima, then as many counted steps from fresh weights, each
+    overflow widening the caps of its kind 1.5x. Returns the final plan
+    and the pilot's numbers."""
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan, CapacityPolicy
     from bliss_gnn_tpu_torch.sampling.samplers import init_exp3_weights
     from bliss_gnn_tpu_torch.train.steps import make_train_step
 
@@ -973,35 +974,29 @@ def pilot_plan(graph, scfg, cfg, indptr_np, seeds, smask):
                               graph.n_edges, kind=scfg.kind,
                               deg_std=float(deg_np.std()),
                               max_degree=int(deg_np.max()))
+    policy = CapacityPolicy(n_steps, max_degree=int(deg_np.max()))
 
-    def run(step_plan, seed, widen):
+    def run(step_plan, seed):
         st = fresh_state(dev, graph, scfg,
                          init_exp3_weights(L, graph.n_edges, device=dev),
                          torch.Generator(device=dev).manual_seed(seed),
                          seed=seed, dims=cfg)
         step = make_train_step(graph, scfg, step_plan, False, device=dev)
-        log, widened = [], 0
-        for _ in range(n_steps):
+        changes = 0
+        for i in range(n_steps):
             st, m = step(st, seeds, smask)
-            log.append(m)
-            over = {k for l in range(L)
-                    for k in ("frontier_overflow", "block_edge_overflow")
-                    if int(m[f"layer{l}/{k}"]) > 0}
-            if widen and over:
-                step_plan = step_plan.widen(
-                    1.5, frontier="frontier_overflow" in over)
+            policy.observe(m)
+            change = policy.decide(step_plan, i + 1)
+            if change is not None:
+                step_plan = change[1]
                 step = make_train_step(graph, scfg, step_plan, False,
                                        device=dev)
-                widened += 1
-        return log, step_plan, widened
+                changes += 1
+        return step_plan, changes
 
-    pilot, _, _ = run(plan, 1, False)
-    fr = [max(int(m[f"layer{l}/frontier_edges"]) for m in pilot)
-          for l in range(L)]
-    be = [max(int(m[f"layer{l}/n_block_edges_true"]) for m in pilot)
-          for l in range(L)]
-    tight = plan.refit(fr, be, max_degree=int(deg_np.max()))
-    _, final, widened = run(tight, 0, True)
+    tight, _ = run(plan, 1)  # the refit follows the pilot's last step
+    fr, be = policy.maxima(L)
+    final, widened = run(tight, 0)
     return final, {"pilot_steps": n_steps, "pilot_frontier_edges": fr,
                    "pilot_block_edges": be, "widened": widened,
                    "frontier_caps": final.frontier_caps,

@@ -10,7 +10,6 @@ from bliss_gnn_tpu_torch.ops import gat_edge
 from bliss_gnn_tpu_torch.ops.exp3 import (
     exp3_apply,
     exp3_apply_plain,
-    exp3_apply_sorted_runs,
     group_table_log2,
 )
 from bliss_gnn_tpu_torch.ops.gat_attention import (
@@ -438,13 +437,12 @@ def test_exp3_apply_f32_duplicates_within_m_minus_1_ulps(dev, gen):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_exp3_apply_repeats_route_same_bits_every_call(dev, gen, dtype):
     """K4's repeats route on a gathered list of four ranks' lists, each
-    distinct, so an index repeats up to 4 times (as the all-gathered
-    deltas of a DP step at S = 4 do), with no-op slots: the same bits on
-    20 calls (the card's slot order does not reach the result), bit for
-    bit the CPU's sequential ``exp3_apply_plain`` (the same products in
-    list order, one rounding) and the sorted route it replaced, within
-    one ulp of the plain version on the card, untouched entries
-    unchanged; two launches a call (insert, apply), counted on its
+    distinct, so an index repeats up to 4 times (as the all-gathered deltas of
+    a DP step at S = 4 do), with no-op slots: the same bits on 20 calls (the
+    card's slot order does not reach the result), bit for bit the CPU's
+    sequential ``exp3_apply_plain`` (the same products in list order, one
+    rounding), within one ulp of the plain version on the card, untouched
+    entries unchanged; two launches a call (insert, apply), counted on its
     route."""
     limit, per = 1 << 20, 60_000
     pool = torch.randperm(limit, generator=gen, device=dev)[:90_000]
@@ -475,9 +473,6 @@ def test_exp3_apply_repeats_route_same_bits_every_call(dev, gen, dtype):
     cpu = state.cpu()
     exp3_apply_plain(cpu, idx.cpu(), mult.cpu(), limit)
     assert torch.equal(got.cpu(), cpu)
-    old = state.clone()
-    exp3_apply_sorted_runs(old, idx, mult, limit)
-    assert torch.equal(got, old)
     ref = state.clone()
     exp3_apply_plain(ref, idx, mult, limit)
     ulp_of = _f32_ulp if dtype == torch.float32 else _bf16_ulp
@@ -548,10 +543,10 @@ def _group_case(gen, dev, case, s, per=3000, limit=1 << 20):
                                   "empty", "all_noops", "collide"])
 def test_exp3_apply_group_route_cases(dev, gen, case, s, dtype):
     """The group-by route at S ranks: bit for bit the CPU's
-    ``exp3_apply_plain`` and the sorted route it replaced, on every case of
-    ``_group_case``; entries outside the list untouched; two launches a
-    call, also on an empty list. At S = 16 an index's 16 slots overflow
-    the kernel's 8 registers and take its list-walk path."""
+    ``exp3_apply_plain`` on every case of ``_group_case``; entries outside the
+    list untouched; two launches a call, also on an empty list. At S = 16 an
+    index's 16 slots overflow the kernel's 8 registers and take its list-walk
+    path."""
     idx, limit = _group_case(gen, dev, case, s)
     live = idx[(idx >= 0) & (idx < limit)].long()
     if live.numel():
@@ -561,15 +556,13 @@ def test_exp3_apply_group_route_cases(dev, gen, case, s, dtype):
     mult = torch.exp(torch.rand(idx.shape[0], generator=gen, device=dev)
                      * 0.5 - 0.25)
     state = (torch.rand(limit, generator=gen, device=dev) + 0.5).to(dtype)
-    got, old = state.clone(), state.clone()
+    got = state.clone()
     launches = exp3_apply.launches
     exp3_apply(got, idx, mult, limit, max_repeats=s)
     assert exp3_apply.launches == launches + 2
-    exp3_apply_sorted_runs(old, idx, mult, limit)
     cpu = state.cpu()
     exp3_apply_plain(cpu, idx.cpu(), mult.cpu(), limit)
     assert torch.equal(got.cpu(), cpu)
-    assert torch.equal(got, old)
     untouched = torch.ones(limit, dtype=torch.bool, device=dev)
     untouched[live] = False
     assert torch.equal(got[untouched], state[untouched])

@@ -265,27 +265,6 @@ def test_a_link_serves_one_messages_call():
         gat_edge.attention_messages(feat2, a, *edges, link)
 
 
-def test_route_counter_counts_each_call():
-    """``gat.edge_route/plain`` counts each CPU layer call while spans are
-    on, and nothing while they are off."""
-    from bliss_gnn_tpu_torch.utils import spans
-
-    block = _block(40, 12, 160, 110, seed=2)
-    conv = layers.GATv2Conv(24, 8, 2)
-    x = torch.randn(40, 24)
-    conv(block, x)
-    spans.enable()
-    spans.reset()
-    try:
-        conv(block, x)
-        conv(block, x)
-        counts = dict(spans.snapshot()["counters"])
-    finally:
-        spans.disable()
-        spans.reset()
-    assert counts == {"gat.edge_route/plain": 2}
-
-
 def _load_recorder():
     bench = os.path.join(ROOT, "benchmark")
     if bench not in sys.path:
@@ -552,31 +531,3 @@ def test_k5_sites_once_each_a_wide_layer(dev):
     assert delta(gat_edge.launches_by_shape, mine) == {
         f"fwd {shape}": 4, f"msg {shape}": 1, f"msg_bwd {shape}": 1,
         f"bwd {shape}": 4}
-
-
-@pytest.mark.cuda
-def test_route_counter_counts_eager_calls_and_the_capture(dev):
-    """A layer captured in a step's CUDA graph (``train/steps.py``'s
-    ``_Replay``) counts ``gat.edge_route/fused`` at each eager warm-up and
-    once at the capture; a replay runs no Python and counts nothing."""
-    from bliss_gnn_tpu_torch.train.steps import CAPTURE_WARMUP_STEPS, _Replay
-    from bliss_gnn_tpu_torch.utils import spans
-
-    block = _block(40, 12, 160, 110, seed=2, device=dev)
-    conv = layers.GATv2Conv(24, 32, 4).to(dev)
-    x = torch.randn(40, 24, device=dev)
-    replay = _Replay("t")
-    calls = CAPTURE_WARMUP_STEPS + 3
-    spans.enable()
-    spans.reset()
-    try:
-        with torch.no_grad():
-            for _ in range(calls):
-                replay.run((), None, lambda h: conv(block, h)[0], (x,))
-        c = spans.snapshot()["counters"]
-    finally:
-        spans.disable()
-        spans.reset()
-    assert c["gat.edge_route/fused"] == CAPTURE_WARMUP_STEPS + 1
-    assert (c["steps.eager/t"], c["steps.captures/t"],
-            c["steps.replays/t"]) == (CAPTURE_WARMUP_STEPS, 1, 2)

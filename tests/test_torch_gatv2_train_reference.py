@@ -379,7 +379,7 @@ def test_a_widen_grows_only_the_caps_that_overflowed(tmp_path, kind):
 
     tr = _trainer(tmp_path, "bf16", num_steps=3, refit_after=3)
     tr.fit()
-    assert tr._refit_done
+    assert tr.capacity.refit_done
     before = tr.plan
     seeds = tr._to_device(tr.train_nid[:BATCH])
     tr.state, m = tr.train_step(tr.state, seeds,
@@ -388,7 +388,8 @@ def test_a_widen_grows_only_the_caps_that_overflowed(tmp_path, kind):
     m[f"layer2/{kind}"] = 100.0
     tr.global_step += 1
     tr._log_train_step(m, time.perf_counter(), 0.0)
-    tr._maybe_capacity_refit()
+    tr.capacity.observe(m)
+    tr._follow_capacity_policy()
     assert tr.n_widens == 1
     grew_frontier = kind == "frontier_overflow"
     assert (tr.plan.frontier_caps != before.frontier_caps) == grew_frontier

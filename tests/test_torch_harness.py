@@ -280,11 +280,13 @@ def test_hparams_match_reference_before_and_after_a_refit(tmp_path):
     maxima = {"layer0/frontier_edges": 900.0, "layer1/frontier_edges": 300.0,
               "layer0/n_block_edges_true": 400.0,
               "layer1/n_block_edges_true": 150.0}
-    for tr in (tj, tt):
-        tr._refit_max = dict(maxima)
-        tr.global_step = 2
-        tr._maybe_capacity_refit()
-        assert tr._refit_done
+    tj._refit_max = dict(maxima)
+    tt.capacity.observe(maxima)
+    tj.global_step = tt.global_step = 2
+    tj._maybe_capacity_refit()
+    tt._follow_capacity_policy()
+    assert tj._refit_done and tt.capacity.refit_done
+    assert tt.n_refits == 1
     assert tt.plan != plan0
     assert dataclasses.asdict(tj.plan) == dataclasses.asdict(tt.plan)
     assert _without_logdir(_hparams(tj)) == _without_logdir(_hparams(tt))

@@ -112,7 +112,7 @@ def test_capacity_refit_tightens_and_training_still_learns(tmp_path):
     tr = _mk(tmp_path, refit_after=2, num_epochs=6)
     formula_caps = tr.plan.block_e_caps
     tr.fit()
-    assert tr._refit_done
+    assert tr.capacity.refit_done
     assert all(a <= b for a, b in zip(tr.plan.block_e_caps, formula_caps))
     assert any(a < b for a, b in zip(tr.plan.block_e_caps, formula_caps))
     res = tr.final_eval()
@@ -156,7 +156,7 @@ def test_hparams_persisted_and_refit_updates(tmp_path):
     assert tuple(before["capacity_plan"]["block_e_caps"]) == \
         tr.plan.block_e_caps
     tr.fit()
-    assert tr._refit_done
+    assert tr.capacity.refit_done
     with open(path) as f:
         after = json.load(f)
     assert tuple(after["capacity_plan"]["block_e_caps"]) == \

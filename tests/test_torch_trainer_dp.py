@@ -39,7 +39,7 @@ def _worker(logdir):
     loaded = t._snapshot()
     out["e2e"] = dict(
         dp=t.dp, batch=t.batch_size, local=t.plan.batch_size,
-        step=t.global_step, refit=t._refit_done, final=t.final_eval(),
+        step=t.global_step, refit=t.capacity.refit_done, final=t.final_eval(),
         run_dir=t.run_dir, ckpt=os.path.exists(t.checkpoint_path()),
         same=all(torch.equal(snap["params"][k], v)
                  for k, v in loaded["params"].items())

@@ -82,9 +82,7 @@ KERNEL is one of:
         which some order lands more than 2^-7 from the plain version.
         Then the repeats route at the DP step's S = 4 size (four ranks'
         lists of one step's caps gathered; ``repeats_routes``): ``ms``,
-        ``device_ms`` and ``host_us`` of the checkout's route, and of the
-        sorted route it replaced where the checkout keeps it, with their
-        bits compared.
+        ``device_ms`` and ``host_us`` of the checkout's route.
 
 The K1/K3/K5 inputs come from one ``sample_blocks`` step on the final plan of
 chip_smoke.py's runs (the caps below) with fresh arm weights, cached in
@@ -300,8 +298,7 @@ def repeats_routes(smoke, dev, n_ranks=4):
     from a shared pool so that an id repeats up to 4 times, gathered layer
     by layer in rank order. Times the checkout's repeats route (the
     group-by with ``max_repeats``; a tree without it: ``distinct=False``,
-    the sorted route) and, where the checkout keeps it, the sorted route
-    beside it, with their bits compared."""
+    the sorted route)."""
     from bliss_gnn_tpu_torch.graph.structure import EDGE_PAD
     from bliss_gnn_tpu_torch.ops import exp3 as k4
 
@@ -334,15 +331,6 @@ def repeats_routes(smoke, dev, n_ranks=4):
                smoke, lambda: k4.exp3_apply(st, idx, mult, limit, **kw)),
            "repeats_route_device_us": smoke.device_breakdown(
                lambda: k4.exp3_apply(st, idx, mult, limit, **kw), torch)}
-    if hasattr(k4, "exp3_apply_sorted_runs"):
-        a, b = state0.clone(), state0.clone()
-        k4.exp3_apply(a, idx, mult, limit, **kw)
-        k4.exp3_apply_sorted_runs(b, idx, mult, limit)
-        out["bitwise_equal_to_sorted_route"] = torch.equal(a, b)
-        out["sorted_route"] = small_times(
-            smoke, lambda: k4.exp3_apply_sorted_runs(st, idx, mult, limit))
-        out["sorted_route_device_us"] = smoke.device_breakdown(
-            lambda: k4.exp3_apply_sorted_runs(st, idx, mult, limit), torch)
     return out
 
 

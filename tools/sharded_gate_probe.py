@@ -46,7 +46,7 @@ def main():
         make_sharded_train_step,
         unshard_exp3,
     )
-    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan
+    from bliss_gnn_tpu_torch.sampling.block import CapacityPlan, CapacityPolicy
     from bliss_gnn_tpu_torch.sampling.samplers import (
         SamplerConfig,
         init_exp3_weights,
@@ -71,19 +71,17 @@ def main():
     seeds = torch.from_numpy(np.random.default_rng(0).integers(
         0, cs.N_NODES, cs.BATCH).astype(np.int32)).to(dev)
     smask = torch.ones(cs.BATCH, dtype=torch.bool, device=dev)
-    # the pilot and the refit of the main path
+    # the pilot and the refit of the main path, by the program's policy
+    n_pilot = cs.WARMUP_STEPS + cs.TIMED_STEPS
+    policy = CapacityPolicy(n_pilot, max_degree=int(deg_np.max()))
     pilot = cs.fresh_fn(torch, graph, cfg, dev, 1)()
     step = make_train_step(graph, cfg, plan, False, device=dev)
-    log = []
-    for _ in range(cs.WARMUP_STEPS + cs.TIMED_STEPS):
+    for _ in range(n_pilot):
         pilot, m = step(pilot, seeds, smask)
-        log.append(m)
-    fr = [max(int(m[f"layer{l}/frontier_edges"]) for m in log)
-          for l in range(L)]
-    be = [max(int(m[f"layer{l}/n_block_edges_true"]) for m in log)
-          for l in range(L)]
-    plan = plan.refit(fr, be, max_degree=int(deg_np.max()))
-    del pilot, step, log
+        policy.observe(m)
+    change = policy.decide(plan, n_pilot)
+    plan = plan if change is None else change[1]
+    del pilot, step, m
 
     mesh = make_mesh(1, device=dev)
     sg = ShardedDeviceGraph.build(cs.host_view(graph, indptr_np),
