@@ -198,6 +198,19 @@ class DeviceGraph:
     def in_degrees(self) -> torch.Tensor:
         return self.csc_indptr[1:] - self.csc_indptr[:-1]
 
+    @property
+    def k7_ranges(self):
+        """K7's range plans of this graph's CSC (``ops.gat_attention.
+        RangePlans``), made at first use and kept with the graph, so that
+        full-graph passes build each plan once."""
+        plans = self.__dict__.get("_k7_ranges")
+        if plans is None:
+            from bliss_gnn_tpu_torch.ops.gat_attention import RangePlans
+
+            plans = RangePlans(self.csc_indptr, self.csc_src)
+            object.__setattr__(self, "_k7_ranges", plans)
+        return plans
+
     def out_degrees(self) -> torch.Tensor:
         return self.csr_indptr[1:] - self.csr_indptr[:-1]
 

@@ -45,9 +45,11 @@ def default_spmm(graph: DeviceGraph) -> SpMM:
 
 
 def default_gat_attn(graph: DeviceGraph) -> GatAttn:
-    """Full-graph GATv2 attention (K7): [N, H, O] -> [N, H, O] f32."""
+    """Full-graph GATv2 attention (K7) in the graph's src ranges: [N, H, O]
+    -> [N, H, O] f32."""
+    ranges = graph.k7_ranges
     return lambda feat, attn, slope: gat_attention(
-        feat, attn, slope, graph.csc_indptr, graph.csc_src)
+        feat, attn, slope, graph.csc_indptr, graph.csc_src, ranges=ranges)
 
 
 def _sage_layer(conv: nn.Module, h_src: torch.Tensor, h_dst: torch.Tensor,

@@ -10,8 +10,9 @@ kernels under them.
 - ``rowscatter``:    K5, wide-row scatter-add (``csrc/row_scatter.cu``)
 - ``spmm``:          K6, full-graph CSC SpMM, one launch per column slice
   that fits in L2 (``csrc/spmm_csr.cu``)
-- ``gat_attention``: K7, full-graph GATv2 attention, src rows streamed
-  through a ``cp.async`` ring (``csrc/gat_attention.cu``)
+- ``gat_attention``: K7, full-graph GATv2 attention, one pass per src range
+  that fits in L2, src rows streamed through a ``cp.async`` ring
+  (``csrc/gat_attention.cu``)
 - ``poisson``:       the sampler's Poisson fixed point and its epilogue,
   one launch of a thread-block cluster a layer (``csrc/poisson_scale.cu``;
   no TPU counterpart)

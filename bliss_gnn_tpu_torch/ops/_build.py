@@ -67,8 +67,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "bliss_spmm_csr": [_P, _I, _I, _LL, _I, _I, _P, _P, _P, _I, _P, _P]
     },
     "gat_attention": {
-        "bliss_gat_attention": [_P, _I, _I, _I, _I, _P, _F, _I, _P, _P, _LL,
-                                _P, _P, _P, _P]
+        "bliss_gat_attention": [_P, _I, _I, _I, _I, _P, _F, _P, _P, _I, _I,
+                                _I, _I, _LL, _P, _P, _P, _P, _P, _P, _P,
+                                _P]
     },
     "marks": {"bliss_mark": [_P, _P, _I, _P]},
     "gat_edge": {

@@ -1705,9 +1705,11 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, by_shape, sites,
     block, K6 and K7 at (4, 256) also at f32, with the precision phase's
     launches (``prec_launches``)."""
     from bliss_gnn_tpu_torch.ops.gat_attention import (
+        RangePlans,
         gat_attention,
         gat_attention_plain,
         gat_plan,
+        range_count,
     )
     from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain, spmm_plan
 
@@ -1799,14 +1801,16 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, by_shape, sites,
         del x, xf
     del csr
 
-    # K7: the GATv2 attention, (H, O) = (4, 256) (layers 0, 1), (1, 41)
+    # K7: the GATv2 attention, (H, O) = (4, 256) (layers 0, 1), (1, 41),
+    # in the src ranges of the inference path (plans built at first use)
+    ranges, pranges = RangePlans(ip, src), RangePlans(pip, src)
     for h, o, dt in ((GAT_HEADS[0], HIDDEN, torch.bfloat16),
                      (GAT_HEADS[1], N_CLASSES, torch.bfloat16),
                      (GAT_HEADS[0], HIDDEN, torch.float32)):
         tag = ",f32" if dt == torch.float32 else ""
         feat = torch.randn((n, h, o), generator=g, device=dev).to(dt)
         attn = torch.randn((1, h, o), generator=g, device=dev) / o ** 0.5
-        got = gat_attention(feat, attn, 0.2, pip, src)[:k]
+        got = gat_attention(feat, attn, 0.2, pip, src, ranges=pranges)[:k]
         want = gat_attention_plain(feat, attn, 0.2, pip, src)[:k]
         err = (got - want).abs().max().item()
         tol = 2e-4 * want.abs().max().item()
@@ -1815,27 +1819,29 @@ def wide_kernel_checks(torch, dev, gplan, graph, indptr_np, by_shape, sites,
             fail(f"gat_attention ({h}, {o}) differs from its plain version: "
                  f"{err} > {tol}")
         name = f"gat_attention[H={h},O={o}{tag}]"
-        op, splits = gat_plan(h, o, feat.dtype)
-        before = gat_attention.launches
-        gat_attention(feat, attn, 0.2, ip, src)
-        per_call = gat_attention.launches - before
+        op, step = gat_plan(h, o, feat.dtype)
+
+        def k7(feat=feat, attn=attn):
+            return gat_attention(feat, attn, 0.2, ip, src, ranges=ranges)
+
+        before = gat_attention.kernel_launches
+        k7()
+        per_call = gat_attention.kernel_launches - before
         rows.append(kernel_row(
             name, (prec_launches if tag else shape_launches).get(name, 0),
             "gat_attention.cu",
             "bliss_gnn_tpu/ops/gat_pallas.py:70", err,
             "atol 2e-4 x max|plain| on the prefix",
-            time_ms(lambda: gat_attention(feat, attn, 0.2, ip, src), 3, torch,
-                    warmup=1),
+            time_ms(k7, 3, torch, warmup=1),
             time_ms(lambda: gat_attention_plain(feat, attn, 0.2, ip, src), 1,
                     torch, warmup=0),
             None,
             n * h * o * dt.itemsize + (n + 1) * 4 + n_edges * 4
             + n * h * o * 4 + h * o * 4, n_edges * h * (7 * o + 2),
-            device_ms=device_time_ms(
-                lambda: gat_attention(feat, attn, 0.2, ip, src), torch,
-                reps=2, replays=2),
+            device_ms=device_time_ms(k7, torch, reps=2, replays=2),
             kernel_launches_per_call=per_call, padded_cols=op,
-            splits_per_head=splits,
+            edges_per_step=step,
+            src_ranges=range_count(n, h, o, feat.dtype),
             shape=f"{n} x {h} x {o} {'f32' if tag else 'bf16'}, "
                   f"{n_edges} edges", **where))
         if not tag:
@@ -4097,6 +4103,7 @@ def bench_kernel_rows(torch, dev, graph, indptr_np):
         gat_attention,
         gat_attention_plain,
         gat_plan,
+        range_count,
     )
     from bliss_gnn_tpu_torch.ops.spmm import spmm, spmm_plain, spmm_plan
 
@@ -4139,7 +4146,8 @@ def bench_kernel_rows(torch, dev, graph, indptr_np):
     g = torch.Generator(device=dev).manual_seed(9)
     feat = torch.randn((n, h, o), generator=g, device=dev).to(torch.bfloat16)
     attn = torch.randn((1, h, o), generator=g, device=dev) / o ** 0.5
-    got = gat_attention(feat, attn, 0.2, pip, src)[:k]
+    got = gat_attention(feat, attn, 0.2, pip, src,
+                        ranges=prefix.k7_ranges)[:k]
     want = gat_attention_plain(feat, attn, 0.2, pip, src)[:k]
     err = (got - want).abs().max().item()
     tol = 2e-4 * want.abs().max().item()
@@ -4147,26 +4155,28 @@ def bench_kernel_rows(torch, dev, graph, indptr_np):
     if err > tol:
         fail(f"gat_attention ({h}, {o}) differs from its plain version: "
              f"{err} > {tol}")
-    op, splits = gat_plan(h, o, feat.dtype)
-    before = gat_attention.launches
-    gat_attention(feat, attn, 0.2, ip, src)
-    per_call = gat_attention.launches - before
+    op, step = gat_plan(h, o, feat.dtype)
+
+    def k7():
+        return gat_attention(feat, attn, 0.2, ip, src,
+                             ranges=graph.k7_ranges)
+
+    before = gat_attention.kernel_launches
+    k7()
+    per_call = gat_attention.kernel_launches - before
     rows.append(kernel_row(
         f"gat_attention[H={h},O={o}]", 0, "gat_attention.cu",
         "bliss_gnn_tpu/ops/gat_pallas.py:411", err,
         "atol 2e-4 x max|plain| on the prefix",
-        time_ms(lambda: gat_attention(feat, attn, 0.2, ip, src), 3, torch,
-                warmup=1),
+        time_ms(k7, 3, torch, warmup=1),
         time_ms(lambda: gat_attention_plain(feat, attn, 0.2, ip, src), 1,
                 torch, warmup=0),
         None,
         n * h * o * 2 + (n + 1) * 4 + n_edges * 4 + n * h * o * 4 + h * o * 4,
         n_edges * h * (7 * o + 2),
-        device_ms=device_time_ms(
-            lambda: gat_attention(feat, attn, 0.2, ip, src), torch, reps=2,
-            replays=2),
+        device_ms=device_time_ms(k7, torch, reps=2, replays=2),
         kernel_launches_per_call=per_call, padded_cols=op,
-        splits_per_head=splits,
+        edges_per_step=step, src_ranges=range_count(n, h, o, feat.dtype),
         shape=f"{n} x {h} x {o} bf16, {n_edges} edges", **where))
     return rows
 

@@ -805,6 +805,50 @@ def test_gat_attention_kernel(dev, gen, h, o, dtype):
     assert torch.equal(gat_attention(feat, attn, 0.2, indptr, src), got)
 
 
+@pytest.mark.parametrize("ranges", [2, 4])
+@pytest.mark.parametrize("h,o,dtype,n", [(4, 256, torch.bfloat16, 2000),
+                                         (1, 41, torch.bfloat16, 2000),
+                                         (2, 64, torch.float32, 2000),
+                                         (1, 41, torch.bfloat16, 140_000)])
+def test_gat_attention_ranged_kernel(dev, gen, h, o, dtype, n, ranges):
+    """K7 over a range plan of 2 and 4 src ranges (16-bit ids; int32 ids
+    at 140,000 srcs in 2 ranges), a hub row of 30,000 edges, against the
+    plain version: the attention and the partial max and denominator;
+    the call without partials bit-equal; two calls the same bits; the
+    (head, range) passes counted; one wrapper call, R + 2 kernels (the
+    chunk cuts, the range passes, the combine)."""
+    from bliss_gnn_tpu_torch.ops.gat_attention import RangePlans
+
+    indptr, src, _ = _csc(gen, dev, n, hub=30_000)
+    plans = RangePlans(indptr, src, ranges=ranges)
+    feat = torch.randn((n, h, o), generator=gen, device=dev).to(dtype)
+    attn = torch.randn((1, h, o), generator=gen, device=dev) / o ** 0.5
+    wide_ids = -(-n // ranges) > 1 << 16
+    launches, passes = gat_attention.launches, gat_attention.range_passes
+    kernels = gat_attention.kernel_launches
+    out, m, den = gat_attention(feat, attn, 0.2, indptr, src, partials=True,
+                                ranges=plans)
+    assert plans.get(n, h, o, dtype).ids.dtype == (
+        torch.int32 if wide_ids else torch.int16)
+    assert gat_attention.launches == launches + 1
+    assert gat_attention.kernel_launches == kernels + ranges + 2
+    assert gat_attention.range_passes == passes + h * ranges
+    w_out, w_m, w_den = gat_attention_plain(feat, attn, 0.2, indptr, src,
+                                            partials=True)
+    torch.testing.assert_close(out, w_out, rtol=1e-4, atol=1e-4)
+    assert not out[::97].any()  # zero in-degree: zeros
+    fin = torch.isfinite(w_m)
+    assert torch.equal(fin, torch.isfinite(m))
+    assert not fin[::97].any() and not den[::97].any()
+    torch.testing.assert_close(m[fin], w_m[fin], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(den, w_den, rtol=1e-4, atol=1e-6)
+    again = gat_attention(feat, attn, 0.2, indptr, src, ranges=plans)
+    assert torch.equal(again, out)
+    assert torch.equal(
+        gat_attention(feat, attn, 0.2, indptr, src, ranges=plans), again)
+    assert gat_attention.range_passes == passes + 3 * h * ranges
+
+
 @pytest.mark.parametrize("case", list(_SORTED_CASES))
 def test_segment_sum_sorted_softmax_rows(dev, gen, case):
     """K3's sorted route on GATv2's softmax-denominator backward rows, [E,

@@ -168,12 +168,12 @@ def test_spmm_plan(n, f, dtype, plan):
 
 
 @pytest.mark.parametrize("h,o,dtype,plan", [
-    (4, 256, torch.bfloat16, (256, 2)), (1, 41, torch.bfloat16, (48, 4)),
-    (2, 64, torch.float32, (64, 4)), (3, 41, torch.float32, (44, 2)),
-    (8, 64, torch.bfloat16, (64, 1)), (16, 8, torch.float32, (8, 1)),
-    (5, 16, torch.bfloat16, (16, 1))])
+    (4, 256, torch.bfloat16, (256, 2)), (1, 41, torch.bfloat16, (48, 8)),
+    (2, 64, torch.float32, (64, 4)), (3, 41, torch.float32, (44, 4)),
+    (8, 64, torch.bfloat16, (64, 8)), (16, 8, torch.float32, (8, 32)),
+    (5, 16, torch.bfloat16, (16, 32))])
 def test_gat_plan(h, o, dtype, plan):
-    """K7's padded head width and edge splits per head."""
+    """K7's padded head width and edges a warp step."""
     assert gat_plan(h, o, dtype) == plan
 
 
@@ -189,12 +189,11 @@ def _merge(a, b):
             a[2] * x[:, None] + b[2] * y[:, None])
 
 
-def _split_attention(feat, attn, slope, indptr, src, lanes, splits):
-    """Plain model of K7's edge split, per dst: split s takes the 32-edge
-    batches s, s + splits, ...; lane group q of 32 // lanes takes edge
-    t * (32 // lanes) + q of each batch. Each part leaves (m, den, acc) per
-    head; the groups merge as the kernel's shuffles do (xor 1, 2, 4, ...
-    groups), then the splits in order."""
+def _split_attention(feat, attn, slope, indptr, src, lanes):
+    """Plain model of K7's edge split, per dst: lane group q of 32 // lanes
+    takes edges q, q + 32 // lanes, ... of the dst (a step of the warp holds
+    one edge a group). Each group leaves (m, den, acc) per head; the groups
+    merge as the kernel's shuffles do (xor 1, 2, 4, ... groups)."""
     n, h, o = feat.shape
     p = 32 // lanes
     out = np.zeros((n, h, o))
@@ -203,37 +202,32 @@ def _split_attention(feat, attn, slope, indptr, src, lanes, splits):
         s_ids = src[indptr[d]:indptr[d + 1]]
         z = feat[s_ids] + feat[d]
         e = (np.where(z >= 0, z, slope * z) * attn).sum(-1)  # [deg, h]
-        parts = []
-        for s in range(splits):
-            groups = []
-            for q in range(p):
-                sel = ((rel // 32) % splits == s) & ((rel % 32) % p == q)
-                if not sel.any():
-                    groups.append((np.full(h, -np.inf), np.zeros(h),
-                                   np.zeros((h, o))))
-                    continue
-                m = e[sel].max(0)
-                w = np.exp(e[sel] - m)
-                groups.append((m, w.sum(0),
-                               (w[..., None] * feat[s_ids[sel]]).sum(0)))
-            k = 1
-            while k < p:
-                groups = [_merge(groups[q], groups[q ^ k]) for q in range(p)]
-                k *= 2
-            parts.append(groups[0])
-        st = parts[0]
-        for part in parts[1:]:
-            st = _merge(st, part)
+        groups = []
+        for q in range(p):
+            sel = rel % p == q
+            if not sel.any():
+                groups.append((np.full(h, -np.inf), np.zeros(h),
+                               np.zeros((h, o))))
+                continue
+            m = e[sel].max(0)
+            w = np.exp(e[sel] - m)
+            groups.append((m, w.sum(0),
+                           (w[..., None] * feat[s_ids[sel]]).sum(0)))
+        k = 1
+        while k < p:
+            groups = [_merge(groups[q], groups[q ^ k]) for q in range(p)]
+            k *= 2
+        st = groups[0]
         out[d] = st[2] / np.maximum(st[1], np.finfo(np.float32).tiny)[:, None]
     return out
 
 
 @pytest.mark.parametrize("h,o", [(1, 41), (4, 8), (2, 24)])
 def test_split_attention_model_matches_jax(h, o):
-    """K7's split of a dst's edges into per-warp and per-group partial
-    states, merged in the kernel's order, against the JAX package's
-    full_gat_attention: rtol and atol 1e-5 (f64 model, f32 reference).
-    Degrees up to 300 give every split several 32-edge batches."""
+    """K7's split of a dst's edges into per-group partial states, merged
+    in the kernel's order, against the JAX package's full_gat_attention:
+    rtol and atol 1e-5 (f64 model, f32 reference). Degrees up to 300 give
+    every group many edges."""
     n = 90
     rng = np.random.default_rng(11)
     deg = rng.integers(0, 300, n)
@@ -246,13 +240,9 @@ def test_split_attention_model_matches_jax(h, o):
     want = np.asarray(jfull.full_gat_attention(
         jnp.asarray(feat), jnp.asarray(attn), 0.2,
         jnp.asarray(gj.csc_indptr), jnp.asarray(gj.csc_src), n, gj.n_edges))
-    op, splits = gat_plan(h, o, torch.bfloat16)
-    # the kernel's lanes per edge for up to 64 vectors: two vectors a lane,
-    # lanes rounded up to a power of 2
-    half = -(-op // 16)
-    lanes = 1 << (half - 1).bit_length()
+    step = gat_plan(h, o, torch.bfloat16)[1]  # edges a step: a group each
     got = _split_attention(feat.astype(np.float64), attn[0].astype(
-        np.float64), 0.2, gj.csc_indptr, gj.csc_src, lanes, splits)
+        np.float64), 0.2, gj.csc_indptr, gj.csc_src, 32 // step)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert not got[deg == 0].any()
 

@@ -70,7 +70,10 @@ KERNEL is one of:
         edge weights) on that graph, beside it unweighted, padded to 608
         columns and at F = 256 f32 weighted.
     k7  K7 (``gat_attention``) at (H, O) = (4, 256) and (1, 41) on that
-        graph.
+        graph; for a checkout with src ranges (``RangePlans``) in the
+        ranges of the inference path, beside it the range count, the
+        (head, range) passes a call, one range (no plan), and 1 to 8
+        ranges under chunks of 1,024 to 65,536 edges a warp.
     k4-repeats  K4 on the inputs of ``tests/test_torch_cuda.py``'s
         ``test_exp3_apply_kernel`` (the same seed and draws): how often
         each index repeats, and over 200 calls which entries differ from
@@ -97,8 +100,8 @@ edges. Their L2 probe times K6 at F = 256 and K7 at (4, 256) again with
 every src id taken modulo 16,384, so the rows they read (8 MB and 32 MB)
 fit in the 50 MB L2. Where the checkout's K6 cuts columns into L2 slices
 (``spmm_plan``) the probe also times slices of 32 to 256 columns, and where
-its K7 splits a dst's edges over warps (``gat_plan``) 1 to 8 splits per
-head, as many as the block's 8 warps hold. The timing functions are
+its K7 splits a dst's edges over warps (``gat_plan``, before the src
+ranges) 1 to 8 splits per head, as many as the block's 8 warps hold. The timing functions are
 ``chip_smoke.py``'s. One JSON line.
 """
 import ctypes
@@ -751,9 +754,13 @@ def probe_gat_edge(smoke, dev, sites):
 
 
 def launches_per_call(wrapper, fn):
-    before = wrapper.launches
+    """The kernels ``fn`` launches: the wrapper's ``kernel_launches`` where
+    it counts them apart from its calls, else its ``launches``."""
+    attr = ("kernel_launches" if hasattr(wrapper, "kernel_launches")
+            else "launches")
+    before = getattr(wrapper, attr)
     fn()
-    return wrapper.launches - before
+    return getattr(wrapper, attr) - before
 
 
 def probe_k6(smoke, dev, fg):
@@ -886,26 +893,46 @@ def probe_k7(smoke, dev, fg):
 
     g = torch.Generator(device=dev).manual_seed(10)
     n, ip, src, pip, k = fg.n, fg.ip, fg.src, fg.pip, fg.k
+    ranged = hasattr(k7, "RangePlans")  # a tree with src ranges
     rec = {}
     for h, o in ((4, 256), (1, 41)):
         feat = torch.randn((n, h, o), generator=g, device=dev).to(
             torch.bfloat16)
         attn = torch.randn((1, h, o), generator=g, device=dev) / o ** 0.5
+        plans = {"ranges": k7.RangePlans(ip, src)} if ranged else {}
 
-        def call(s=src):
-            return k7.gat_attention(feat, attn, 0.2, ip, s)
+        def call(s=src, kw=plans):
+            return k7.gat_attention(feat, attn, 0.2, ip, s, **kw)
 
-        err = (k7.gat_attention(feat, attn, 0.2, pip, src)[:k]
+        pkw = {"ranges": k7.RangePlans(pip, src)} if ranged else {}
+        err = (k7.gat_attention(feat, attn, 0.2, pip, src, **pkw)[:k]
                - k7.gat_attention_plain(feat, attn, 0.2, pip, src)[:k]
                ).abs().max().item()
         r = {"max_abs_err_prefix": err,
              "kernel_launches_per_call": launches_per_call(
                  k7.gat_attention, call),
              **large_times(smoke, call, 3)}
-        if h == 4:
+        if h == 4:  # every row in L2, one range
             r["l2_probe_src_mod_16384"] = large_times(
-                smoke, lambda: call(fg.src_l2), 3)
-        if hasattr(k7, "gat_plan"):
+                smoke, lambda: call(fg.src_l2, {}), 3)
+        if ranged:
+            before = k7.gat_attention.range_passes
+            call()
+            r["range_passes_per_call"] = (k7.gat_attention.range_passes
+                                          - before)
+            r["src_ranges"] = k7.range_count(n, h, o, feat.dtype)
+            r["one_range"] = large_times(smoke, lambda: call(src, {}), 3)
+            chunk = k7.CHUNK_EDGES
+            for n_r in ((1, 2, 4, 8) if h == 4 else (1, 2, 4)):
+                kw = {"ranges": k7.RangePlans(ip, src, ranges=n_r)}
+                call(src, kw)  # builds the plan
+                for edges in (1024, 4096, 16384, 65536):  # a warp's chunk
+                    k7.CHUNK_EDGES = edges
+                    r[f"ranges_{n_r}_chunk_{edges}"] = large_times(
+                        smoke, lambda kw=kw: call(src, kw), 2)
+                del kw
+            k7.CHUNK_EDGES = chunk
+        if hasattr(k7, "gat_plan") and not ranged:  # edge splits a head
             r["splits_per_head"] = k7.gat_plan(h, o, feat.dtype)[1]
             plan = k7.gat_plan
             for splits in (1, 2, 4, 8):
@@ -915,7 +942,7 @@ def probe_k7(smoke, dev, fg):
                     r[f"splits_{splits}"] = large_times(smoke, call, 3)
             k7.gat_plan = plan
         rec[f"gat_attention[H={h},O={o}]"] = r
-        del feat
+        del feat, plans, pkw
     return rec
 
 
